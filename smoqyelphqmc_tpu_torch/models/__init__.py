@@ -1,0 +1,1 @@
+"""models of the PyTorch port (module names mirror smoqyelphqmc_tpu/models)."""

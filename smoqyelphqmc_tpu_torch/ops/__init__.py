@@ -1,0 +1,1 @@
+"""ops of the PyTorch port (module names mirror smoqyelphqmc_tpu/ops)."""
