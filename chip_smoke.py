@@ -13,9 +13,24 @@ Phases, one line each:
      every Delta H be finite, K1 and K2 must have launched and the plain
      versions must not have run;
   6. the same sweeps on a small model on the GPU and on the CPU (plain
-     versions): the chains must agree.
-Then one JSON line of kernel results, and as the last line
-{"ok": true, "device": {...}}. Any failure exits nonzero without that line.
+     versions): the chains must agree;
+  7. K5: K1 on an irregular lattice (the headline honeycomb with its site
+     labels permuted, more than 8 lane-shift classes per color, where the
+     JAX package takes `_mtm_kernel_mm`) against its plain version, then one
+     sweep on that lattice (`driver.run_sweeps`);
+  8. K3 (whole-solve PCG + force epilogue) on W = 8 walkers at the headline
+     size against its plain version, cold and warm;
+  9. K4 (the force epilogue alone) on one channel pair against its plain
+     version;
+ 10. the walker path: `run_updates` at the headline with W = 8 walkers; every
+     walker must converge, every Delta H be finite, K3 must have launched and
+     no plain version may have run;
+ 11. the W = 1 path with fused_force: the trajectory forces through K2 + K4;
+ 12. the small model at W = 2 on the GPU and on the CPU: the chains must agree.
+Each path (5, 7, 10, 11) is driven with every kernel count set to 0 just before
+it and read just after. Then one JSON line of kernel results, and as the last
+line {"ok": true, "device": {...}}. Any failure exits nonzero without that
+line.
 """
 
 from __future__ import annotations
@@ -29,6 +44,8 @@ from pathlib import Path
 
 HEADLINE = dict(L=12, beta=12.0, dtau=0.05, alpha=0.6, Omega=1.0, mu=0.0, Nt=24, tol=1e-10)
 N_SWEEPS = 3
+N_WALKERS = 8
+N_WALKER_SWEEPS = 2
 MAIN_DEVICE = "cuda"
 
 
@@ -56,32 +73,43 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def headline_fdm(device):
+def headline_model(device):
+    """The headline model's expanded parameters (seed 0): (tbp, elph)."""
     import numpy as np
 
     from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononParameters
-    from smoqyelphqmc_tpu_torch.models.fermion_path_integral import build_path_integral
     from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
     from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingParameters
-    from smoqyelphqmc_tpu_torch.ops.checkerboard import build_checkerboard_structure
-    from smoqyelphqmc_tpu_torch.ops.fermion_det import FermionDetMatrix
 
     h = HEADLINE
     geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
     rng = np.random.default_rng(0)
     tbp = TightBindingParameters.from_model(tbm, rng, device=device)
-    elph = ElectronPhononParameters.from_model(h["beta"], h["dtau"], em, tbp, rng, device=device)
-    structure = build_checkerboard_structure(tbp.neighbor_table, tbp.n_sites)
-    return FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph), structure, symmetric=True)
+    return tbp, ElectronPhononParameters.from_model(h["beta"], h["dtau"], em, tbp, rng, device=device)
 
 
-def phase_k1(fdm64, results):
+def headline_fdm(device, neighbor_table=None, x=None):
+    """The headline fermion matrix (f64) at field x (default: the initial
+    field; (W, n_phonon, Ltau) gives a walker batch), optionally on a
+    relabelled hopping graph."""
+    from smoqyelphqmc_tpu_torch.models.fermion_path_integral import build_path_integral
+    from smoqyelphqmc_tpu_torch.ops.checkerboard import build_checkerboard_structure
+    from smoqyelphqmc_tpu_torch.ops.fermion_det import FermionDetMatrix
+
+    tbp, elph = headline_model(device)
+    nt = tbp.neighbor_table if neighbor_table is None else neighbor_table
+    structure = build_checkerboard_structure(nt, tbp.n_sites)
+    return FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph, x), structure, symmetric=True)
+
+
+def phase_k1(fdm64, results, tag="K1", names=("mtm_f32", "mtm_f64"),
+             replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:121"):
     import torch
 
     from smoqyelphqmc_tpu_torch.ops import mtm
 
     gen = torch.Generator(device="cpu").manual_seed(11)
-    for dtype, tol, name in ((torch.float32, 2e-6, "mtm_f32"), (torch.float64, 1e-12, "mtm_f64")):
+    for dtype, tol, name in ((torch.float32, 2e-6, names[0]), (torch.float64, 1e-12, names[1])):
         fdm = fdm64.astype(dtype)
         v = torch.randn((2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float64).to(fdm.device, dtype)
         got = mtm.mtm_cuda(fdm, v)
@@ -91,13 +119,12 @@ def phase_k1(fdm64, results):
         rel = err / float(ref.abs().max())
         ms = cuda_ms(lambda: mtm.mtm_cuda(fdm, v), 50)
         plain_ms = cuda_ms(lambda: mtm.mtm_plain(fdm, v), 20)
-        say(f"K1 {name}: shape {tuple(v.shape)} max_rel_err {rel:.3e} (tol {tol:g}) "
+        say(f"{tag} {name}: shape {tuple(v.shape)} max_rel_err {rel:.3e} (tol {tol:g}) "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         if not rel <= tol:
-            fail(f"K1 {name} disagrees with its plain version: {rel:.3e} > {tol:g}")
+            fail(f"{tag} {name} disagrees with its plain version: {rel:.3e} > {tol:g}")
         results[name] = dict(name=name, route="cuda", source="smoqyelphqmc_tpu_torch/csrc/mtm.cu",
-                             replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:121",
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                             replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
 def phase_k2(fdm64, results):
@@ -162,27 +189,57 @@ def phase_k2(fdm64, results):
                           max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
 
 
+def all_counters():
+    """Every kernel's launch / plain-call counter, by the kernel's JSON name."""
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops.force import FORCE
+    from smoqyelphqmc_tpu_torch.ops.mtm import MTM
+    from smoqyelphqmc_tpu_torch.ops.pcg import PCG
+    from smoqyelphqmc_tpu_torch.ops.pcg_force import PCG_FORCE
+
+    return {"mtm_f32": MTM[torch.float32], "mtm_f64": MTM[torch.float64], "pcg": PCG,
+            "pcg_force": PCG_FORCE, "force": FORCE}
+
+
+def drive_path(run, path_kernels):
+    """Run one path with every count set to 0 just before it and read just
+    after; fail if a kernel of the path never launched or a plain version ran.
+    Returns (run's result, {name: (launches, plain calls)})."""
+    counters = all_counters()
+    for c in counters.values():
+        c.reset()
+    out = run()
+    counts = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
+    for k in path_kernels:
+        if counts[k][0] <= 0:
+            fail(f"kernel {k} never launched on its path")
+    for k, (_, plain) in counts.items():
+        if plain != 0:
+            fail(f"the plain version of {k} ran {plain} times on a path")
+    return out, counts
+
+
+def headline_config(**kw):
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig
+
+    h = HEADLINE
+    return SimulationConfig(beta=h["beta"], dtau=h["dtau"], Nt=h["Nt"], tol=h["tol"], seed=1,
+                            mixed_precision=True, force_dtype="float32", preconditioner="spectral", **kw)
+
+
 def phase_main(results, card):
     import math
 
-    import torch
-
-    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+    from smoqyelphqmc_tpu_torch.driver import run_updates
     from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
-    from smoqyelphqmc_tpu_torch.ops.mtm import MTM
-    from smoqyelphqmc_tpu_torch.ops.pcg import PCG
 
     h = HEADLINE
     geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
-    cfg = SimulationConfig(beta=h["beta"], dtau=h["dtau"], Nt=h["Nt"], tol=h["tol"], seed=1,
-                           mixed_precision=True, force_dtype="float32", preconditioner="spectral")
-    counters = {"mtm_f32": MTM[torch.float32], "mtm_f64": MTM[torch.float64], "pcg": PCG}
-    for c in counters.values():
-        c.reset()
-    md = run_updates(tbm, em, cfg, N_SWEEPS, device=MAIN_DEVICE)
-    counts = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
-    for k, (launches, _) in counts.items():
-        results[k]["launches"] = launches
+    md, counts = drive_path(lambda: run_updates(tbm, em, headline_config(), N_SWEEPS, device=MAIN_DEVICE),
+                            ("mtm_f32", "mtm_f64", "pcg"))
+    for k in ("mtm_f32", "mtm_f64", "pcg"):
+        results[k]["launches"] = counts[k][0]
     sweep_s = md["sweep_s"]
     say(f"main path on {card}: {N_SWEEPS} sweeps L={h['L']} beta={h['beta']} Ltau={md['Ltau']} "
         f"N={md['n_sites']}; acceptance refl {md['reflection_acceptance_rate']:.3f} "
@@ -194,38 +251,225 @@ def phase_main(results, card):
         fail("a solve of the main path did not converge")
     if not all(math.isfinite(d) for d in md["hmc_delta_H"]):
         fail("a Delta H of the main path is not finite")
-    for k, (launches, plain) in counts.items():
-        if launches <= 0:
-            fail(f"kernel {k} never launched on the main path")
-        if plain != 0:
-            fail(f"the plain version of {k} ran {plain} times on the main path")
     x = md["x_final"]
     if tuple(x.shape) != (2 * h["L"] ** 2, md["Ltau"]) or not bool(x.isfinite().all()):
         fail(f"final field has shape {tuple(x.shape)} or non-finite values")
 
 
-def phase_small_reference():
+def rounded(v, nd=6):
+    return [rounded(u, nd) for u in v] if isinstance(v, list) else round(v, nd)
+
+
+def phase_small_reference(n_walkers=1):
     """The same chain on a small model on the GPU (kernels) and the CPU (plain
     versions): the accept decisions must match and the fields agree to 1e-4
     relative (the f32 force solves stop at 1e-5 relative in both, with sums in
     another order, so forces may differ at that level)."""
-    import torch
-
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
     from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
 
     geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.6, 0.0)
-    cfg = SimulationConfig(beta=2.0, dtau=0.1, Nt=12, seed=5, preconditioner="spectral")
+    cfg = SimulationConfig(beta=2.0, dtau=0.1, Nt=12, seed=5, preconditioner="spectral", n_walkers=n_walkers)
     gpu = run_updates(tbm, em, cfg, 3, device="cuda")
     cpu = run_updates(tbm, em, cfg, 3, device="cpu")
     xg, xc = gpu["x_final"].cpu(), cpu["x_final"]
     err = float((xg - xc).abs().max() / xc.abs().max())
     same = all(gpu[f"{k}_acceptance_rate"] == cpu[f"{k}_acceptance_rate"] for k in ("reflection", "swap", "hmc"))
-    say(f"small-model reference (L=3, beta=2): GPU vs CPU field max rel err {err:.3e}; "
-        f"same acceptance {same}; dH gpu {[round(d, 6) for d in gpu['hmc_delta_H']]} "
-        f"cpu {[round(d, 6) for d in cpu['hmc_delta_H']]}")
+    say(f"small-model reference (L=3, beta=2, W={n_walkers}): GPU vs CPU field max rel err {err:.3e}; "
+        f"same acceptance {same}; dH gpu {rounded(gpu['hmc_delta_H'])} cpu {rounded(cpu['hmc_delta_H'])}")
     if not (same and err <= 1e-4 and gpu["all_converged"] and cpu["all_converged"]):
-        fail("the GPU chain disagrees with the CPU reference on the small model")
+        fail(f"the GPU chain disagrees with the CPU reference on the small model at W={n_walkers}")
+
+
+def phase_k3(results):
+    """K3 on N_WALKERS jittered headline fields (per-walker expV and Lambda,
+    one shared preconditioner) against its plain version, cold and warm."""
+    import dataclasses
+
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops import pcg_force
+    from smoqyelphqmc_tpu_torch.ops.derivatives import build_force_plan, holstein_force_from_planes
+    from smoqyelphqmc_tpu_torch.ops.lambda_shift import build_lambda, ldiv_lambda_T
+    from smoqyelphqmc_tpu_torch.ops.spectral_precond import build_spectral
+
+    tol, maxiter, W = 1e-5, 500, N_WALKERS
+    dev = torch.device("cuda")
+    tbp, elph = headline_model(dev)
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    xs = elph.x[None] + 0.1 * torch.randn((W,) + tuple(elph.x.shape), generator=gen, dtype=torch.float64).to(dev)
+    fdm = headline_fdm(dev, x=xs)
+    pre = build_spectral(dataclasses.replace(fdm, exp_nV=fdm.exp_nV.mean(dim=0)))
+    fdm32 = dataclasses.replace(fdm, exp_nV=fdm.exp_nV[:, None]).astype(torch.float32)
+    Lam = build_lambda(elph, xs, tbp.n_sites).to(torch.float32)
+    Phi = torch.randn((W, 2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to(dev)
+    b = ldiv_lambda_T(Lam[:, None], Phi).contiguous()
+    plan = build_force_plan(elph, fdm.structure)
+    nb = torch.linalg.vector_norm(b, dim=(-2, -1))
+
+    def force(P1, P2):
+        return holstein_force_from_planes(P1.double(), P2.double(), elph, xs, Lam.double(), plan)
+
+    def true_res(x):
+        return float((torch.linalg.vector_norm(b - fdm32.mul_Mt(fdm32.mul_M(x)), dim=(-2, -1)) / nb).max())
+
+    x_warm, *_ = pcg_force.pcg_force_plain(fdm32, pre, b, torch.zeros_like(b), Lam, 1e-3, maxiter, True)
+    max_err = 0.0
+    for tag, x0 in (("cold", torch.zeros_like(b)), ("warm", x_warm)):
+        xk, P1k, P2k, sk = pcg_force.solve_force(fdm32, pre, b, Lam, x0=x0, tol=tol, maxiter=maxiter)
+        xp, P1p, P2p, ep, ip = pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, tol, maxiter, True)
+        torch.cuda.synchronize()
+        conv_k = bool(sk.converged.all())
+        conv_p = bool(torch.isfinite(xp).all()) and bool((ep < tol).all())
+        diff = (xk - xp).abs()
+        err = float(diff.max())
+        scale = float(xp.abs().max())
+        x_ok = bool((diff <= 2e-5 * scale + 2e-4 * xp.abs()).all())
+        Fk, Fp = force(P1k, P2k), force(P1p, P2p)
+        f_err = float((Fk - Fp).abs().max())
+        f_ok = bool(((Fk - Fp).abs() <= 2e-4 * float(Fp.abs().max()) + 2e-4 * Fp.abs()).all())
+        res_k, res_p = true_res(xk), true_res(xp)
+        max_err = max(max_err, err)
+        say(f"K3 {tag} W={W}: converged kernel {conv_k} plain {conv_p}; iters/walker kernel "
+            f"{sk.iters.tolist()} plain {ip.tolist()}; true residual kernel {res_k:.3e} plain {res_p:.3e}; "
+            f"max|x| {scale:.4g} max |x_kernel - x_plain| {err:.3e} (rtol 2e-4, atol 2e-5 max|x|: {x_ok}); "
+            f"force max|F| {float(Fp.abs().max()):.4g} max diff {f_err:.3e} (rtol 2e-4, atol 2e-4 max|F|: {f_ok})")
+        if not (conv_k and conv_p):
+            fail(f"K3 {tag} solve did not converge (kernel {conv_k}, plain {conv_p})")
+        if not (x_ok and f_ok):
+            fail(f"K3 {tag}: kernel and plain solutions or forces differ beyond the tolerance")
+        if not res_k <= max(2 * tol, 2 * res_p):
+            fail(f"K3 {tag}: true residual {res_k:.3e} of the kernel's solution exceeds the plain one's")
+    zeros = torch.zeros_like(b)
+    ms = cuda_ms(lambda: pcg_force.solve_force(fdm32, pre, b, Lam, x0=zeros, tol=tol, maxiter=maxiter), 3)
+    plain_ms = cuda_ms(lambda: pcg_force.pcg_force_plain(fdm32, pre, b, zeros, Lam, tol, maxiter, True), 1)
+    grid = pcg_force._build.load_library().smoqy_pcg_force_grid(fdm.n_sites)
+    say(f"K3 cold solve + planes, W={W}: kernel {ms:.3f} ms plain {plain_ms:.3f} ms (grid {grid} CTAs)")
+    results["pcg_force"] = dict(name="pcg_force", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/pcg_force.cu",
+                                replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:620",
+                                max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+
+
+def phase_k4(results):
+    """K4 on one channel pair at the headline size (the fused_force path's
+    shape) against its plain version."""
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops import force
+    from smoqyelphqmc_tpu_torch.ops.lambda_shift import build_lambda
+
+    dev = torch.device("cuda")
+    tbp, elph = headline_model(dev)
+    fdm32 = headline_fdm(dev).astype(torch.float32)
+    Lam = build_lambda(elph, elph.x, tbp.n_sites).to(torch.float32)
+    psi = torch.randn((2, fdm32.Ltau, fdm32.n_sites), generator=torch.Generator().manual_seed(14),
+                      dtype=torch.float32).to(dev)
+    got = force.force_planes_cuda(fdm32, Lam, psi, True)
+    ref = force.force_planes_plain(fdm32, Lam, psi, True)
+    torch.cuda.synchronize()
+    err, ok = 0.0, True
+    for g, r in zip(got, ref):
+        d = (g - r).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool((d <= 1e-5 * float(r.abs().max()) + 1e-4 * r.abs()).all())
+    ms = cuda_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, True), 20)
+    plain_ms = cuda_ms(lambda: force.force_planes_plain(fdm32, Lam, psi, True), 5)
+    say(f"K4 planes (2, {fdm32.Ltau}, {fdm32.n_sites}): max abs err {err:.3e} at max|P| "
+        f"{max(float(r.abs().max()) for r in ref):.4g} (rtol 1e-4, atol 1e-5 max|P|: {ok}); "
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+    if not ok:
+        fail("K4 disagrees with its plain version")
+    results["force"] = dict(name="force", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/force.cu",
+                            replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:934", max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms)
+
+
+def phase_k5(results, card):
+    """K5's function (M^T M on an irregular partner map) through K1: the
+    headline honeycomb with its site labels permuted. K1 is held against its
+    plain version on those tables, then one W = 1 sweep runs on them: K5's
+    launches are K1 f32's in that sweep."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from smoqyelphqmc_tpu_torch.driver import run_sweeps
+
+    dev = torch.device("cuda")
+    tbp, elph = headline_model(dev)
+    perm = np.random.default_rng(15).permutation(tbp.n_sites)
+    nt = perm[np.asarray(tbp.neighbor_table)].astype(np.int32)
+    fdm64 = headline_fdm(dev, neighbor_table=nt)
+    partner = fdm64.structure.partner
+    classes = max(len(np.unique((p - np.arange(tbp.n_sites)) % tbp.n_sites)) for p in partner)
+    say(f"K5 lattice: headline honeycomb, site labels permuted; up to {classes} lane-shift classes per "
+        f"color (the JAX package takes _mtm_kernel_mm above 8)")
+    if classes <= 8:
+        fail("the permuted lattice is not irregular")
+    phase_k1(fdm64, results, tag="K5", names=("mtm_irregular_f32", "mtm_irregular_f64"),
+             replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:165")
+    md, counts = drive_path(lambda: run_sweeps(dataclasses.replace(tbp, neighbor_table=nt), elph,
+                                               headline_config(), 1),
+                            ("mtm_f32", "mtm_f64", "pcg"))
+    results["mtm_irregular_f32"]["launches"] = counts["mtm_f32"][0]
+    say(f"K5 path on {card}: 1 sweep on the permuted lattice; s/sweep {[round(t, 4) for t in md['sweep_s']]}; "
+        f"iters/solve hmc {md['hmc_iters']:.2f}; dH {rounded(md['hmc_delta_H'], 5)}; launches/plain calls {counts}")
+    if not md["all_converged"] or not all(math.isfinite(d) for d in md["hmc_delta_H"]):
+        fail("the sweep on the permuted lattice did not converge or has a non-finite Delta H")
+
+
+def phase_walkers(results, card):
+    """The walker path: N_WALKERS chains at the headline, shared refresh, every
+    trajectory force solve through K3."""
+    import math
+
+    from smoqyelphqmc_tpu_torch.driver import run_updates
+    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
+
+    h = HEADLINE
+    W = N_WALKERS
+    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    md, counts = drive_path(
+        lambda: run_updates(tbm, em, headline_config(n_walkers=W), N_WALKER_SWEEPS, device=MAIN_DEVICE),
+        ("mtm_f64", "pcg", "pcg_force"))
+    results["pcg_force"]["launches"] = counts["pcg_force"][0]
+    sweep_s = md["sweep_s"]
+    say(f"walker path on {card}: W={W}, {N_WALKER_SWEEPS} sweeps L={h['L']} beta={h['beta']}; "
+        f"walker-sweeps/s {[round(W / t, 3) for t in sweep_s]}; s/sweep {[round(t, 4) for t in sweep_s]} "
+        f"(init {md['t_init_s']:.3f} s); acceptance refl {md['reflection_acceptance_rate']:.3f} "
+        f"swap {md['swap_acceptance_rate']:.3f} hmc {md['hmc_acceptance_rate']:.3f}; iters/solve "
+        f"refl {md['reflection_iters']:.2f} swap {md['swap_iters']:.2f} hmc {md['hmc_iters']:.2f}; "
+        f"fallback sweeps {md['precond_fallback_sweeps']}; converged {md['walker_converged']}; "
+        f"dH {rounded(md['hmc_delta_H'], 5)}; launches/plain calls {counts}")
+    if not all(md["walker_converged"]):
+        fail("a walker of the walker path did not converge")
+    if not all(math.isfinite(d) for dw in md["hmc_delta_H"] for d in dw):
+        fail("a Delta H of the walker path is not finite")
+    x = md["x_final"]
+    if tuple(x.shape) != (W, 2 * h["L"] ** 2, md["Ltau"]) or not bool(x.isfinite().all()):
+        fail(f"walker fields have shape {tuple(x.shape)} or non-finite values")
+
+
+def phase_fused_force(results, card):
+    """The W = 1 path with fused_force: K2 solves, K4 force planes."""
+    import math
+
+    from smoqyelphqmc_tpu_torch.driver import run_updates
+    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
+
+    h = HEADLINE
+    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    md, counts = drive_path(
+        lambda: run_updates(tbm, em, headline_config(fused_force=True), N_WALKER_SWEEPS, device=MAIN_DEVICE),
+        ("mtm_f32", "mtm_f64", "pcg", "force"))
+    results["force"]["launches"] = counts["force"][0]
+    say(f"fused_force path on {card}: {N_WALKER_SWEEPS} sweeps; s/sweep {[round(t, 4) for t in md['sweep_s']]}; "
+        f"acceptance hmc {md['hmc_acceptance_rate']:.3f}; iters/solve hmc {md['hmc_iters']:.2f}; "
+        f"dH {rounded(md['hmc_delta_H'], 5)}; launches/plain calls {counts}")
+    if not md["all_converged"] or not all(math.isfinite(d) for d in md["hmc_delta_H"]):
+        fail("the fused_force path did not converge or has a non-finite Delta H")
 
 
 def main() -> None:
@@ -265,8 +509,14 @@ def main() -> None:
     phase_k2(fdm64, results)
     phase_main(results, card)
     phase_small_reference()
+    phase_k5(results, card)
+    phase_k3(results)
+    phase_k4(results)
+    phase_walkers(results, card)
+    phase_fused_force(results, card)
+    phase_small_reference(n_walkers=2)
     kernels = []
-    for k in ("mtm_f32", "mtm_f64", "pcg"):
+    for k in ("mtm_f32", "mtm_f64", "pcg", "pcg_force", "force", "mtm_irregular_f32"):
         r = results[k]
         kernels.append(dict(name=r["name"], route=r["route"], source=r["source"], replaces=r["replaces"],
                             launches=r.get("launches", 0), max_abs_err=r["max_abs_err"],

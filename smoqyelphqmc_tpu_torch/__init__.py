@@ -7,7 +7,14 @@ JAX package has Pallas kernels:
 - K1 `ops/mtm.py` + `csrc/mtm.cu`: the M^T M matvec (f32 and f64), replacing
   `_mtm_kernel_roll` (smoqyelphqmc_tpu/ops/pallas_fused.py);
 - K2 `ops/pcg.py` + `csrc/pcg.cu`: the whole-solve spectral PCG, replacing
-  `_pcg_kernel` (same file).
+  `_pcg_kernel` (same file);
+- K3 `ops/pcg_force.py` + `csrc/pcg_force.cu`: the same solve with an
+  in-kernel warm start and the Holstein force epilogue, over a walker batch,
+  replacing `_pcg_force_kernel`;
+- K4 `ops/force.py` + `csrc/force.cu`: the force epilogue alone, replacing
+  `_force_kernel`.
+
+K1's partner gather also computes `_mtm_kernel_mm`'s function (K5).
 
 Policy (the JAX package turns x64 on globally; torch defaults to f32):
 

@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels from `csrc/` and bind them with ctypes.
 
-`nvcc` compiles every `csrc/*.cu` for sm_90a into one shared library with a
-plain C interface, at first use, into `_build/` (listed in .gitignore). The
-library's name carries a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one is reused. Nothing here runs at import time.
+At first use, `nvcc` compiles every `csrc/*.cu` for sm_90a, one process per
+source, all started together, and links the objects into one shared library
+with a plain C interface in `_build/` (listed in .gitignore). The library's
+name carries a hash of the sources and flags, so an edited source rebuilds
+and an unchanged one is reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,10 +21,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +36,10 @@ _SIGNATURES = {
     "smoqy_pcg_max_systems": [],
     "smoqy_pcg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "smoqy_pcg_force_grid": [_I],
+    "smoqy_pcg_force": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    "smoqy_force": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -75,15 +78,28 @@ def build() -> dict:
     if out.exists():
         return {"path": str(out), "seconds": 0.0, "built": False, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.tmp{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=str(CSRC))
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)], cwd=str(CSRC),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [(src.name, proc.returncode, log) for src, proc, log in zip(sources, procs, logs) if proc.returncode]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(f"{name} ({rc}):\n{log}" for name, rc, log in failed))
+    tmp = BUILD_DIR / f"{tag}.so"
+    link = subprocess.run([nvcc, *GENCODE, "-shared", "-o", str(tmp), *[str(o) for o in objs]], capture_output=True,
+                          text=True, cwd=str(CSRC))
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, out)
-    log = proc.stdout + proc.stderr
+    log = "".join(logs) + link.stdout + link.stderr
     (BUILD_DIR / f"{out.stem}.log").write_text(log)
     return {"path": str(out), "seconds": seconds, "built": True, "log": log}
 

@@ -15,6 +15,7 @@ from .models.electron_phonon import ElectronPhononParameters
 from .models.tight_binding import TightBindingParameters
 from .ops.fourier import TauFourier
 from .ops.spectral_precond import SpectralPreconditioner
+from .parallel.walkers import PrecondFallbackController, WalkerStates
 
 
 def _t(a, device, dtype=torch.float64) -> torch.Tensor:
@@ -74,3 +75,20 @@ def spectral_preconditioner(Q, filt, Ltau: int, dtype: str = "float32", device="
         Q=Q, filt=_t(filt, device, dt), fft=TauFourier(Ltau, dtype=dt, device=device),
         Ltau=int(Ltau), n_sites=Q.shape[0], dtype=dtype,
     )
+
+
+def walker_states(x, precond=None, device="cpu") -> WalkerStates:
+    """A walker batch from the JAX package's walker state: x (W, n_phonon,
+    Ltau) and one preconditioner shared by every walker (for a JAX state,
+    `spectral_preconditioner(state.precond.Q[0], state.precond.filt[0], Ltau)`
+    after a shared refresh, or None)."""
+    xw = phonon_field(x, device)
+    return WalkerStates(x=xw, precond=[precond] * xw.shape[0])
+
+
+def fallback_controller(state: dict, ratio: float = 1.5, retry_every: int = 32,
+                        enabled: bool = True) -> PrecondFallbackController:
+    """A PrecondFallbackController restored from the JAX package's state_dict()."""
+    c = PrecondFallbackController(ratio=ratio, retry_every=retry_every, enabled=enabled)
+    c.load_state(state)
+    return c

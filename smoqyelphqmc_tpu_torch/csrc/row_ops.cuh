@@ -1,4 +1,5 @@
-// Site-row operators shared by kernels K1 (mtm.cu) and K2 (pcg.cu).
+// Site-row operators shared by kernels K1 (mtm.cu), K2 (pcg.cu), K3
+// (pcg_force.cu) and K4 (force.cu).
 //
 // One CTA works on one (system, tau) row of N sites held in shared memory. A
 // checkerboard color is u <- C_c u + S_c u[partner_c]: a gather by the
@@ -34,7 +35,9 @@ __device__ __forceinline__ T* other_buf(T* r, T* a, T* b) {
 }
 
 // All colors in order (reverse = transpose); returns the buffer with the result.
-template <typename T>
+// kNegS negates S: with reverse, that is the inverse CB^{-1} (each 2x2 hop
+// block has unit determinant).
+template <typename T, bool kNegS = false>
 __device__ T* cb_sweep(const CbTables<T>& tb, int l, T* u, T* t, bool reverse) {
   for (int i = 0; i < tb.n_colors; ++i) {
     const int c = reverse ? tb.n_colors - 1 - i : i;
@@ -43,7 +46,11 @@ __device__ T* cb_sweep(const CbTables<T>& tb, int l, T* u, T* t, bool reverse) {
     const T* Sc = tb.S + off;
     const int* pc = tb.partner + (size_t)c * tb.N;
     for (int n = threadIdx.x; n < tb.N; n += blockDim.x) {
-      t[n] = Cc[n] * u[n] + Sc[n] * u[pc[n]];
+      if (kNegS) {
+        t[n] = Cc[n] * u[n] - Sc[n] * u[pc[n]];
+      } else {
+        t[n] = Cc[n] * u[n] + Sc[n] * u[pc[n]];
+      }
     }
     __syncthreads();
     T* s = u;

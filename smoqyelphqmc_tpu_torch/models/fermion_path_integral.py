@@ -15,7 +15,7 @@ from .tight_binding import TightBindingParameters
 
 @dataclasses.dataclass
 class FermionPathIntegral:
-    V: torch.Tensor  # (Ltau, n_sites) eps - mu + Holstein terms
+    V: torch.Tensor  # (..., Ltau, n_sites) eps - mu + Holstein terms; leading axes are walkers
     t: torch.Tensor  # (Ltau, n_hops)
     dtau: float
     Ltau: int
@@ -27,8 +27,8 @@ class FermionPathIntegral:
 
 
 def holstein_potential(elph: ElectronPhononParameters, x: torch.Tensor) -> torch.Tensor:
-    """(n_holstein, Ltau) Holstein terms sum_k alpha_k x_p^k (caller scatters)."""
-    xp = x[elph.hol_to_phonon_t, :]
+    """(..., n_holstein, Ltau) Holstein terms sum_k alpha_k x_p^k (caller scatters)."""
+    xp = x[..., elph.hol_to_phonon_t, :]
     return (
         elph.hol_alpha[:, None] * xp
         + elph.hol_alpha2[:, None] * xp**2
@@ -43,16 +43,16 @@ def build_path_integral(
     x: torch.Tensor | None = None,
 ) -> FermionPathIntegral:
     """V[l, i] = eps_i - mu + sum_{holstein c -> i} sum_k alpha_k x_{p_c, l}^k,
-    t[l, h] = t0_h."""
+    t[l, h] = t0_h. A field x (W, n_phonon, Ltau) gives V (W, Ltau, N)."""
     if x is None:
         x = elph.x
     Ltau, n_sites = elph.Ltau, tbp.n_sites
     V = ((tbp.eps - tbp.mu)[None, :]).expand(Ltau, n_sites)
     if elph.n_holstein > 0:
         vals = holstein_potential(elph, x)
-        V_sc = torch.zeros((n_sites, Ltau), dtype=vals.dtype, device=vals.device)
-        V_sc.index_add_(0, elph.hol_to_site_t, vals)
-        V = V + V_sc.T
+        V_sc = torch.zeros(x.shape[:-2] + (n_sites, Ltau), dtype=vals.dtype, device=vals.device)
+        V_sc.index_add_(-2, elph.hol_to_site_t, vals)
+        V = V + V_sc.transpose(-1, -2)
     t = tbp.t0[None, :].expand(Ltau, tbp.n_hops)
     return FermionPathIntegral(V=V.contiguous(), t=t.contiguous(), dtau=elph.dtau, Ltau=Ltau,
                                n_sites=n_sites, static_hops=True)

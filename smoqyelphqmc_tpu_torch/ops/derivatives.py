@@ -4,7 +4,9 @@ smoqyelphqmc_tpu/ops/derivatives.py). The SSH color walk waits (ROADMAP
 Queue 1, item 15).
 
 u, v carry a leading complex-channel axis (2, Ltau, N); with real couplings
-Re <u|A|v> is the channel sum of elementwise products."""
+Re <u|A|v> is the channel sum of elementwise products. The force from the
+product planes of kernels K3 / K4 (`holstein_force_from_planes`) takes a
+leading walker axis."""
 
 from __future__ import annotations
 
@@ -82,4 +84,41 @@ def add_M_derivative_force(
         vp = cb.apply(vp, inverse=True)
     if elph.n_holstein > 0:
         force = _add_holstein_V_force(force, -nu, up, vp, elph, x, plan)
+    return force
+
+
+def holstein_force_from_planes(
+    P1: torch.Tensor,
+    P2: torch.Tensor,
+    elph: ElectronPhononParameters,
+    x: torch.Tensor,
+    Lam: torch.Tensor,
+    plan: ForcePlan,
+) -> torch.Tensor:
+    """dS_f/dx (..., n_phonon, Ltau) from the planes P1, P2 (..., Ltau, N) of
+    kernels K3 / K4 (smoqyelphqmc_tpu/ops/derivatives.py:215-256): P1 carries
+    the M-derivative site products, P2 the Lambda-derivative ones; x is
+    (..., n_phonon, Ltau) and Lam (..., Ltau, N) with the same leading axes."""
+    force = torch.zeros(x.shape[:-2] + (elph.n_phonon, elph.Ltau), dtype=P1.dtype, device=P1.device)
+    if elph.n_holstein == 0:
+        return force
+    sites, phonons = elph.hol_to_site_t, elph.hol_to_phonon_t
+    xp = x[..., phonons, :]
+    dV = elph.dtau * (
+        elph.hol_alpha[:, None]
+        + 2.0 * elph.hol_alpha2[:, None] * xp
+        + 3.0 * elph.hol_alpha3[:, None] * xp**2
+        + 4.0 * elph.hol_alpha4[:, None] * xp**3
+    )
+    finite = torch.as_tensor(plan.hol_finite, dtype=P1.dtype, device=P1.device)
+    val = 2.0 * dV * P1[..., sites].transpose(-1, -2) * finite[:, None]
+    force = force.index_add(-2, phonons, val)
+    idx = np.where(elph.hol_ph_sym)[0]
+    if idx.size:
+        idx_t = torch.as_tensor(idx, dtype=torch.long, device=P1.device)
+        s_sites, s_phonons = sites[idx_t], phonons[idx_t]
+        xs = x[..., s_phonons, :]
+        dcoup = 0.5 * elph.dtau * (elph.hol_alpha[idx_t][:, None] + 3.0 * elph.hol_alpha3[idx_t][:, None] * xs**2)
+        val2 = -2.0 * (dcoup.transpose(-1, -2) * Lam[..., s_sites] * P2[..., s_sites])
+        force = force.index_add(-2, s_phonons, val2.transpose(-1, -2))
     return force

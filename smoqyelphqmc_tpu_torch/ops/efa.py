@@ -5,7 +5,9 @@ masses m_k = M ((4/dtau) sin^2(pi k/Ltau) + dtau (Omega^2 + eta^2)), so the
 harmonic part rotates (x_k, p_k) exactly. The trajectory carries (x, p) as
 (re, im) pairs in the unnormalised forward-DFT convention (omega space); the
 per-step force path may run its two transforms in f32 while the carry stays
-f64. The momentum noise xi is an argument (drawn by updates/hmc.py).
+f64. The momentum noise xi is an argument (drawn by updates/hmc.py). The
+transforms, kicks and rotations act on the last (tau) axis, so fields may
+carry a leading walker axis.
 """
 
 from __future__ import annotations
@@ -48,21 +50,21 @@ class FourierAccelerator:
         return torch.where(live, 1.0 / torch.where(live, self.m, torch.ones_like(self.m)), torch.zeros_like(self.m))
 
     def to_omega(self, v: torch.Tensor) -> Pair:
-        return self.fwd.apply(v, None, axis=1)
+        return self.fwd.apply(v, None, axis=-1)
 
     def to_tau(self, vr: torch.Tensor, vi: torch.Tensor) -> torch.Tensor:
-        return self.inv.apply(vr, vi, axis=1)[0]
+        return self.inv.apply(vr, vi, axis=-1)[0]
 
     def to_tau_f32(self, vr: torch.Tensor, vi: torch.Tensor) -> torch.Tensor:
-        return self.inv32.apply(vr.to(torch.float32), vi.to(torch.float32), axis=1)[0]
+        return self.inv32.apply(vr.to(torch.float32), vi.to(torch.float32), axis=-1)[0]
 
     def kick_omega(self, pw: Pair, force: torch.Tensor, dt: float) -> Pair:
-        fr, fi = self.fwd.apply(force, None, axis=1)
+        fr, fi = self.fwd.apply(force, None, axis=-1)
         return pw[0] - dt * fr, pw[1] - dt * fi
 
     def kick_omega_f32(self, pw: Pair, force: torch.Tensor, dt: float) -> Pair:
         """kick_omega with the force transform in f32; the f64 carry stays f64."""
-        fr, fi = self.fwd32.apply(force.to(torch.float32), None, axis=1)
+        fr, fi = self.fwd32.apply(force.to(torch.float32), None, axis=-1)
         return pw[0] - dt * fr, pw[1] - dt * fi
 
     def rotation(self, t: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -89,7 +91,7 @@ class FourierAccelerator:
     def sample_momentum_omega(self, xi: torch.Tensor) -> Tuple[Pair, torch.Tensor]:
         """p_omega = sqrt(m) F xi for white noise xi (n_phonon, Ltau), and its
         kinetic energy."""
-        xr, xim = self.fwd.apply(xi, None, axis=1)
+        xr, xim = self.fwd.apply(xi, None, axis=-1)
         s = torch.sqrt(self.m)
         pw = (s * xr, s * xim)
         return pw, self.kinetic_energy_omega(pw)

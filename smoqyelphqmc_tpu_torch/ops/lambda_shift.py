@@ -18,21 +18,22 @@ from ..models.electron_phonon import ElectronPhononParameters
 
 
 def build_lambda(elph: ElectronPhononParameters, x: torch.Tensor, n_sites: int) -> torch.Tensor:
-    """(Ltau, n_sites) shift matrix for the phonon field x (dtype of x)."""
+    """(..., Ltau, n_sites) shift matrix for the phonon field x (..., n_phonon,
+    Ltau), in the dtype of x; leading axes are walkers."""
     Ltau = elph.Ltau
     base = torch.full((Ltau, 1), -1.0, dtype=x.dtype, device=x.device)
     base[0, 0] = 1.0
     idx = np.where(elph.hol_ph_sym)[0]
     if idx.size == 0:
-        return base.expand(Ltau, n_sites).contiguous()
+        return base.expand(x.shape[:-2] + (Ltau, n_sites)).contiguous()
     idx_t = torch.as_tensor(idx, dtype=torch.long, device=x.device)
-    xp = x[elph.hol_to_phonon_t[idx_t], :]
+    xp = x[..., elph.hol_to_phonon_t[idx_t], :]
     expo = 0.5 * elph.dtau * (elph.hol_alpha[idx_t][:, None] * xp + elph.hol_alpha3[idx_t][:, None] * xp**3)
     # the JAX package multiplies exp() factors per site; summing exponents is the
     # same product (bit-identical with one coupling per site, 1 ulp otherwise)
-    expo_site = torch.zeros((n_sites, Ltau), dtype=x.dtype, device=x.device)
-    expo_site.index_add_(0, elph.hol_to_site_t[idx_t], expo)
-    return base * torch.exp(expo_site).T
+    expo_site = torch.zeros(x.shape[:-2] + (n_sites, Ltau), dtype=x.dtype, device=x.device)
+    expo_site.index_add_(-2, elph.hol_to_site_t[idx_t], expo)
+    return base * torch.exp(expo_site).transpose(-1, -2)
 
 
 def mul_lambda(Lam: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -62,6 +62,8 @@ def mtm_cuda(fdm, v: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"mtm kernel: v is {v.dtype}, the fermion matrix {fdm.dtype}")
     if v.device != fdm.device:
         raise ValueError(f"mtm kernel: v on {v.device}, the fermion matrix on {fdm.device}")
+    if fdm.exp_nV.dim() != 2:
+        raise ValueError("mtm kernel: one fermion matrix, not a walker batch")
     Ltau, N = fdm.Ltau, fdm.n_sites
     if v.shape[-2:] != (Ltau, N):
         raise ValueError(f"mtm kernel: v has shape {tuple(v.shape)}, expected (..., {Ltau}, {N})")

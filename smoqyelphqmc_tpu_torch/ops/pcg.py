@@ -85,6 +85,8 @@ def pcg_cuda(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int):
     if b.device != fdm32.device or pre.Q.device != b.device:
         raise ValueError("pcg kernel: b, the fermion matrix and the preconditioner must share a device")
     B, Ltau, N = b.shape
+    if fdm32.exp_nV.dim() != 2:
+        raise ValueError("pcg kernel: one fermion matrix, not a walker batch")
     if (Ltau, N) != (fdm32.Ltau, fdm32.n_sites) or pre.n_sites != N or pre.Ltau != Ltau:
         raise ValueError(f"pcg kernel: shape {tuple(b.shape)} does not match the operator")
     lib = _build.load_library()

@@ -5,18 +5,25 @@ carried as a (2, Ltau, N) channel pair; one CG solve of
 [M^T M] psi = Lambda^{-T} Phi serves both channels. The Gaussian noise R is an
 argument: the caller draws it (updates/), so a test can feed the JAX
 package's exact draws.
+
+The f32 trajectory force has three forms, all the same function: the plain
+chain (K2 solve, then mul_M / checkerboard / mul_Mt products), `fused_force`
+(K2 solve, then kernel K4 for the product planes) and `fused_step` (kernel K3:
+solve and planes in one launch, with a leading walker axis allowed).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..models.electron_phonon import ElectronPhononParameters
 from .cg import CGStats
-from .derivatives import ForcePlan, add_M_derivative_force
+from .derivatives import ForcePlan, add_M_derivative_force, holstein_force_from_planes
 from .fermion_det import FermionDetMatrix, solve_MtM
+from .force import force_planes
 from .lambda_shift import (
     add_lambda_derivative_force,
     build_lambda,
@@ -25,6 +32,8 @@ from .lambda_shift import (
     mul_lambda,
     mul_lambda_T,
 )
+from .pcg_force import solve_force
+from .spectral_precond import SpectralPreconditioner
 
 
 class ActionResult(NamedTuple):
@@ -37,7 +46,7 @@ class ActionResult(NamedTuple):
 
 class ForceResult(NamedTuple):
     Sf: torch.Tensor
-    force: torch.Tensor  # (n_phonon, Ltau) dS_f/dx, float64
+    force: torch.Tensor  # (..., n_phonon, Ltau) dS_f/dx, float64
     psi_raw: torch.Tensor
     stats: CGStats
 
@@ -85,11 +94,19 @@ def fermionic_action_and_force(
     mixed: bool = False,
     solve_dtype: str = "float64",
     warm_start: Optional[torch.Tensor] = None,
+    fused_step: bool = False,
+    fused_force: bool = False,
 ) -> ForceResult:
     """dS_f/dx = -2 Re([A psi]^T [dM/dx][Lambda psi]) - 2 Re([M^T A psi]^T [dLambda/dx] psi),
     A = M Lambda. solve_dtype='float32' runs the whole evaluation in f32 (the
     trajectory force path; Metropolis exactness rests on the f64 endpoint
-    actions)."""
+    actions).
+
+    For an f32, symmetric evaluation, fused_step=True runs the solve and the
+    force planes as kernel K3 (spectral preconditioner; Phi, x and the fermion
+    matrix may then carry a leading walker axis, and the stats are per walker)
+    and fused_force=True runs the K2 solve and then kernel K4 for the planes
+    (smoqyelphqmc_tpu/ops/pff.py:157-227)."""
     if solve_dtype != "float64":
         dt = {"float32": torch.float32}[solve_dtype]
         elph = elph.to_dtype(dt)
@@ -99,9 +116,24 @@ def fermionic_action_and_force(
         if warm_start is not None:
             warm_start = warm_start.to(dt)
     mixed = mixed and Phi.dtype == torch.float64
+    planes_apply = Phi.dtype == torch.float32 and fdm.symmetric
+    want_p2 = bool(np.any(elph.hol_ph_sym))
+    if fused_step and planes_apply and isinstance(precond, SpectralPreconditioner):
+        Lam = build_lambda(elph, x, fdm.n_sites)
+        rhs = ldiv_lambda_T(Lam.unsqueeze(-3), Phi)
+        psi_raw, P1, P2, stats = solve_force(fdm, precond, rhs, Lam, x0=warm_start, tol=tol, maxiter=maxiter,
+                                             want_p2=want_p2)
+        # Sf = Re(Phi^dag psi) = rhs . psi_raw (Lambda is real diagonal)
+        Sf = torch.sum(rhs * psi_raw, dim=(-3, -2, -1))
+        force = holstein_force_from_planes(P1, P2, elph, x, Lam, plan)
+        return ForceResult(Sf=Sf, force=force.to(torch.float64), psi_raw=psi_raw, stats=stats)
     res = fermionic_action(Phi, elph, fdm, x, precond=precond, tol=tol, maxiter=maxiter, mixed=mixed,
                            warm_start=warm_start)
     Lam = build_lambda(elph, x, fdm.n_sites)
+    if fused_force and planes_apply:
+        P1, P2 = force_planes(fdm, Lam, res.psi_raw, want_p2)
+        force = holstein_force_from_planes(P1, P2, elph, x, Lam, plan)
+        return ForceResult(Sf=res.Sf, force=force.to(torch.float64), psi_raw=res.psi_raw, stats=res.stats)
     lam_psi = mul_lambda(Lam, res.psi)
     A_psi = fdm.mul_M(lam_psi)
     force = torch.zeros((elph.n_phonon, elph.Ltau), dtype=Phi.dtype, device=Phi.device)

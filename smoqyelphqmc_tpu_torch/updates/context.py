@@ -61,11 +61,20 @@ class QMCState:
 
 def make_fdm(ctx: QMCContext, x: torch.Tensor, dtype: Optional[str] = None) -> FermionDetMatrix:
     """Propagator factors at field x; dtype='float32' casts (V, t) before
-    exponentiation (the force path)."""
+    exponentiation (the force path).
+
+    For a walker batch x (W, n_phonon, Ltau) the fermion matrix carries exp_nV
+    as (W, 1, Ltau, N): its products broadcast over the channel axis of
+    (W, 2, Ltau, N) fields, and kernels K3 / K4 read the planes with a walker
+    stride. The hopping tables are shared (no SSH couplings)."""
     fpi = build_path_integral(ctx.tbp, ctx.elph, x)
     if dtype is not None and _DTYPES[dtype] != fpi.V.dtype:
         fpi = fpi.to_dtype(_DTYPES[dtype])
-    return FermionDetMatrix.from_path_integral(fpi, ctx.structure, symmetric=ctx.symmetric)
+    fdm = FermionDetMatrix.from_path_integral(fpi, ctx.structure, symmetric=ctx.symmetric)
+    if x.dim() == 3:
+        expV = torch.broadcast_to(fdm.exp_nV, (x.shape[0], fdm.Ltau, fdm.n_sites))
+        fdm = dataclasses.replace(fdm, exp_nV=expV[:, None])
+    return fdm
 
 
 def initialize_qmc(

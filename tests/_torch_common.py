@@ -94,9 +94,17 @@ def t32(a) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=np.float32), dtype=torch.float32)
 
 
-def fdm_pair(name, kw, x_seed=None, symmetric=True):
+def permuted_neighbor_table(neighbor_table, n_sites: int, seed: int) -> np.ndarray:
+    """The hopping graph with its site labels permuted by a seeded permutation:
+    an irregular partner map (more than 8 lane-shift classes per color)."""
+    perm = np.random.default_rng(seed).permutation(n_sites)
+    return perm[np.asarray(neighbor_table)].astype(np.int32)
+
+
+def fdm_pair(name, kw, x_seed=None, symmetric=True, perm_seed=None):
     """JAX and port fermion matrices of one model at one field (the model's
-    initial field, or a field from `x_seed`), both float64."""
+    initial field, or a field from `x_seed`), both float64; `perm_seed`
+    relabels the sites of the hopping graph (permuted_neighbor_table)."""
     import jax.numpy as jnp
 
     from smoqyelphqmc_tpu.models.fermion_path_integral import build_path_integral as jbuild
@@ -110,9 +118,11 @@ def fdm_pair(name, kw, x_seed=None, symmetric=True):
     x = np64(jelph.x)
     if x_seed is not None:
         x = 0.3 * np.random.default_rng(x_seed).standard_normal(x.shape)
-    jfdm = JFdm.from_path_integral(jbuild(jtbp, jelph, x=jnp.asarray(x)),
-                                   jstruct(np.asarray(jtbp.neighbor_table), jtbp.n_sites), symmetric=symmetric)
+    nt = np.asarray(ptbp.neighbor_table)
+    if perm_seed is not None:
+        nt = permuted_neighbor_table(nt, ptbp.n_sites, perm_seed)
+    jfdm = JFdm.from_path_integral(jbuild(jtbp, jelph, x=jnp.asarray(x)), jstruct(nt, jtbp.n_sites),
+                                   symmetric=symmetric)
     pfdm = FermionDetMatrix.from_path_integral(build_path_integral(ptbp, pelph, t64(x)),
-                                               build_checkerboard_structure(ptbp.neighbor_table, ptbp.n_sites),
-                                               symmetric=symmetric)
+                                               build_checkerboard_structure(nt, ptbp.n_sites), symmetric=symmetric)
     return jfdm, pfdm, (jtbp, jelph), (ptbp, pelph), x

@@ -4,7 +4,10 @@ Tolerances (tests/test_pallas.py): f64 propagator chains agree to 1e-12
 relative (the same operations in another library, so only the last bits of
 exp/cosh/sinh differ); K1's plain f32 version is held to the Pallas kernel
 `_mtm_kernel_roll` in interpret mode at 2e-6 (test_pallas.py:65). The CUDA
-kernel is held to its plain version on the GPU (tests/test_torch_gpu.py).
+kernel is held to its plain version on the GPU (tests/test_torch_gpu.py). On a
+lattice whose partner maps need more than 8 lane-shift classes the JAX package
+switches to `_mtm_kernel_mm` (exact bf16 permutation matmuls); K1's partner
+gather computes the same function, held to it at the same 2e-6.
 """
 
 import jax.numpy as jnp
@@ -54,6 +57,20 @@ def test_mtm_plain_f32_matches_pallas_interpret(name, kw, symmetric):
     fused = build_fused_mtm(jfdm, interpret=True)
     assert fused is not None and fused.mode == "roll"
     v = np.random.default_rng(8).standard_normal((2, jfdm.Ltau, jfdm.n_sites)).astype(np.float32)
+    ref = np.asarray(fused(jnp.asarray(v)), dtype=np.float32)
+    got = mtm.mtm_plain(pfdm.astype(torch.float32), t32(v)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("symmetric", SYM)
+def test_mtm_plain_f32_matches_pallas_matmul_variant(symmetric):
+    """An irregular lattice (honeycomb L=3, site labels permuted): the JAX
+    package takes `_mtm_kernel_mm`; K1's plain version matches it at 2e-6."""
+    jfdm, pfdm, *_ = fdm_pair("honeycomb", dict(L=3, beta=0.5, alpha=0.4), x_seed=9, symmetric=symmetric,
+                              perm_seed=10)
+    fused = build_fused_mtm(jfdm, interpret=True)
+    assert fused is not None and fused.mode == "matmul"
+    v = np.random.default_rng(11).standard_normal((2, jfdm.Ltau, jfdm.n_sites)).astype(np.float32)
     ref = np.asarray(fused(jnp.asarray(v)), dtype=np.float32)
     got = mtm.mtm_plain(pfdm.astype(torch.float32), t32(v)).numpy()
     np.testing.assert_allclose(got, ref, rtol=2e-6, atol=2e-6)

@@ -6,9 +6,15 @@ JAX test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py -m gpu
 
-Tolerances: K1 f32 2e-6 and f64 1e-12 relative (max-norm); K2 solutions
-rtol 2e-4 / atol 2e-5, both converged (tests/test_pallas.py:65, :96).
+Tolerances: K1 f32 2e-6 and f64 1e-12 relative (max-norm); K2 and K3
+solutions rtol 2e-4 / atol 2e-5, both converged (tests/test_pallas.py:65,
+:96); K3's iteration counts within one of the plain version's (same bf16
+preconditioner, f32 sums in another order); the force planes of K3 and K4
+rtol 1e-4 with atol 1e-5 of their largest value (the same f32 operations,
+contracted into FMAs in another order).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -18,9 +24,10 @@ from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononParamete
 from smoqyelphqmc_tpu_torch.models.fermion_path_integral import build_path_integral
 from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
 from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingParameters
-from smoqyelphqmc_tpu_torch.ops import mtm, pcg
+from smoqyelphqmc_tpu_torch.ops import force, mtm, pcg, pcg_force
 from smoqyelphqmc_tpu_torch.ops.checkerboard import build_checkerboard_structure
 from smoqyelphqmc_tpu_torch.ops.fermion_det import FermionDetMatrix
+from smoqyelphqmc_tpu_torch.ops.lambda_shift import build_lambda, ldiv_lambda_T
 from smoqyelphqmc_tpu_torch.ops.spectral_precond import build_spectral
 
 pytestmark = pytest.mark.gpu
@@ -114,3 +121,96 @@ def test_run_updates_on_gpu_launches_kernels(cuda_device):
     assert md["all_converged"] and all(np.isfinite(md["hmc_delta_H"]))
     for c in counters:
         assert c.launches > 0 and c.plain_calls == 0, c.name
+
+
+def _walker_problem(device, W, beta, seed=5):
+    """W jittered walker fields on honeycomb L=3: the f32 walker-batch fermion
+    matrix, Lambda (W, Ltau, N), right-hand sides (W, 2, Ltau, N) and a
+    spectral preconditioner."""
+    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.4, 0.0)
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=device)
+    elph = ElectronPhononParameters.from_model(beta, 0.1, em, tbp, rng, device=device)
+    structure = build_checkerboard_structure(tbp.neighbor_table, tbp.n_sites)
+    gen = torch.Generator().manual_seed(seed)
+    xs = elph.x[None] + 0.1 * torch.randn((W,) + tuple(elph.x.shape), generator=gen, dtype=torch.float64).to(device)
+    fdm = FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph, xs), structure)
+    pre = build_spectral(dataclasses.replace(fdm, exp_nV=fdm.exp_nV[0]))
+    fdm32 = dataclasses.replace(fdm, exp_nV=fdm.exp_nV[:, None]).astype(torch.float32)
+    Lam = build_lambda(elph, xs, tbp.n_sites).to(torch.float32)
+    Phi = torch.randn((W, 2, elph.Ltau, tbp.n_sites), generator=gen, dtype=torch.float32).to(device)
+    return fdm32, pre, Lam, ldiv_lambda_T(Lam[:, None], Phi).contiguous()
+
+
+def _close_planes(got, ref):
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("beta", [1.0, 0.9], ids=["Ltau-10", "Ltau-9"])
+@pytest.mark.parametrize("W", [1, 2, 3])
+def test_pcg_force_kernel_matches_plain(cuda_device, W, beta, warm):
+    """K3 on W walkers against its plain version on the same tensors:
+    solutions, per-walker iteration counts, eps and the force planes."""
+    fdm32, pre, Lam, b = _walker_problem(cuda_device, W, beta)
+    x0 = torch.zeros_like(b)
+    if warm:
+        x0, *_ = pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, 1e-3, 200, True)
+    launches = pcg_force.PCG_FORCE.launches
+    xk, P1k, P2k, sk = pcg_force.solve_force(fdm32, pre, b, Lam, x0=x0, tol=1e-5, maxiter=200)
+    assert pcg_force.PCG_FORCE.launches == launches + 1
+    xp, P1p, P2p, ep, ip = pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, 1e-5, 200, True)
+    assert sk.converged.shape == (W,) and bool(sk.converged.all()) and bool((ep < 1e-5).all())
+    assert int((sk.iters.cpu() - ip.cpu()).abs().max()) <= 1
+    torch.testing.assert_close(xk, xp, rtol=2e-4, atol=2e-5)
+    _close_planes(P1k, P1p)
+    _close_planes(P2k, P2p)
+
+
+@pytest.mark.parametrize("want_p2", [True, False], ids=["p2", "no-p2"])
+def test_force_kernel_matches_plain(cuda_device, want_p2):
+    """K4 on a walker batch and on one pair against its plain version."""
+    fdm32, pre, Lam, b = _walker_problem(cuda_device, 2, 1.0)
+    psi = torch.randn(b.shape, generator=torch.Generator().manual_seed(9), dtype=torch.float32).to(cuda_device)
+    launches = force.FORCE.launches
+    P1k, P2k = force.force_planes(fdm32, Lam, psi, want_p2)
+    assert force.FORCE.launches == launches + 1
+    P1p, P2p = force.force_planes_plain(fdm32, Lam, psi, want_p2)
+    _close_planes(P1k, P1p)
+    if want_p2:
+        _close_planes(P2k, P2p)
+    else:
+        assert not P2k.any()
+    one = dataclasses.replace(fdm32, exp_nV=fdm32.exp_nV[0, 0])
+    P1k, _ = force.force_planes(one, Lam[0], psi[0], want_p2)
+    _close_planes(P1k, force.force_planes_plain(one, Lam[0], psi[0], want_p2)[0])
+
+
+def test_run_updates_walkers_launch_k3(cuda_device):
+    """A short W = 2 run goes through K3 (and K1, K2), never a plain version."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+
+    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.6, 0.0)
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE, force.FORCE)
+    for c in counters:
+        c.reset()
+    md = run_updates(tbm, em, SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2, n_walkers=2), 2,
+                     device=cuda_device)
+    assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
+    assert md["x_final"].shape == (2, 18, 20)
+    assert pcg_force.PCG_FORCE.launches == 2 * 8 and force.FORCE.launches == 0
+    for c in counters:
+        assert c.plain_calls == 0, c.name
+
+
+def test_run_updates_fused_force_launches_k4(cuda_device):
+    """fused_force=True at W = 1: every trajectory force through K2 + K4."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+
+    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.6, 0.0)
+    force.FORCE.reset()
+    pcg_force.PCG_FORCE.reset()
+    md = run_updates(tbm, em, SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2, fused_force=True), 2,
+                     device=cuda_device)
+    assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
+    assert force.FORCE.launches == 2 * 8 and force.FORCE.plain_calls == 0 and pcg_force.PCG_FORCE.launches == 0
