@@ -26,27 +26,52 @@ Phases, one line each:
      walker must converge, every Delta H be finite, K3 must have launched and
      no plain version may have run;
  11. the W = 1 path with fused_force: the trajectory forces through K2 + K4;
- 12. the small model at W = 2 on the GPU and on the CPU: the chains must agree.
-Each path (5, 7, 10, 11) is driven with every kernel count set to 0 just before
-it and read just after. Then one JSON line of kernel results, and as the last
-line {"ok": true, "device": {...}}. Any failure exits nonzero without that
-line.
+ 12. the small model at W = 2 on the GPU and on the CPU: the chains must agree;
+ 13. K6 (matrix-free KPM apply, symmetric) against its plain version on the
+     large model's tables (Holstein honeycomb L=48, N=4608, alpha=1.5,
+     beta=12, Ltau=240) with live Lanczos bounds, u (2 vectors, re and im
+     planes of (2, 240, 4608));
+ 14. K7 (the asymmetric two-pass apply) the same on the asymmetric tables;
+ 15. the large-N path: `run_updates` on the large model with
+     preconditioner='auto', which resolves to the matrix-free KPM
+     preconditioner; KPM must stay active, every solve converge, every
+     Delta H be finite, and K1 f32, K1 f64 and K6 launch with no plain
+     version run;
+ 16. the same path with the asymmetric factorization (K7);
+ 17. a KPM chain (preconditioner='kpm', N=1152 > 1024, so matrix-free) on the
+     GPU and on the CPU: the chains must agree.
+Each path (5, 7, 10, 11, 15, 16) is driven with every kernel count set to 0
+just before it and read just after. Then one JSON line of kernel results,
+each with its bound: the larger of the bytes it must move over 3.35 TB/s
+and the operations it must do over the card's peak for their type (f32
+67 TFLOP/s, f64 34 TFLOP/s, bf16 989 TFLOP/s dense; H100 SXM data sheet),
+counted from this run's shapes, iteration counts and live orders. As the
+last line {"ok": true, "device": {...}}. Any failure exits nonzero without
+that line.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 HEADLINE = dict(L=12, beta=12.0, dtau=0.05, alpha=0.6, Omega=1.0, mu=0.0, Nt=24, tol=1e-10)
+# the JAX package's whole-driver large-N record (scripts/e2e_scaling.py:62,68-71)
+LARGE = dict(HEADLINE, L=48, alpha=1.5)
 N_SWEEPS = 3
 N_WALKERS = 8
 N_WALKER_SWEEPS = 2
+N_LARGE_SWEEPS = 2
 MAIN_DEVICE = "cuda"
+
+# H100 SXM (NVIDIA data sheet): HBM bytes/s and dense peaks (FLOP/s) by type
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
 
 
 def fail(msg: str, code: int = 1) -> None:
@@ -56,6 +81,22 @@ def fail(msg: str, code: int = 1) -> None:
 
 def say(line: str) -> None:
     print(line, flush=True)
+
+
+def ptxas_summary(log: str) -> list:
+    """One entry per kernel from nvcc's `-Xptxas -v` log: the mangled entry
+    name less its anonymous-namespace prefix (kernel name and template
+    arguments first), its registers and its spill stores / loads."""
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            name, spill = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", mangled)[:40], ""
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{name}: {ln.split('Used', 1)[1].strip()}; {spill}")
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -73,33 +114,81 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def headline_model(device):
-    """The headline model's expanded parameters (seed 0): (tbp, elph)."""
+def bound(nbytes: float, ops: dict):
+    """(bound_ms, bound_by): the larger of nbytes over the HBM rate and the
+    operations {type: count} over their peaks."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = sum(n / PEAK_FLOPS[k] for k, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def b_flops(n_colors: int, symmetric: bool) -> int:
+    """Operations per site of one propagator application B: each color is
+    C u + S u[partner] (3), the diagonal one multiply; the symmetric B sweeps
+    the colors twice."""
+    return (2 if symmetric else 1) * 3 * n_colors + 1
+
+
+def table_bytes(N: int, n_colors: int, es: int) -> int:
+    """The single-row checkerboard tables: C, S (es bytes) and the int32 partners."""
+    return n_colors * N * (2 * es + 4)
+
+
+def mtm_bound(n_sys, Ltau, N, n_colors, es):
+    """K1 (and K5): v in, out once; two B applications and four multiply-adds
+    per site of each row."""
+    ops = n_sys * Ltau * N * (2 * b_flops(n_colors, True) + 4)
+    nbytes = es * (2 * n_sys * Ltau * N + Ltau * N) + table_bytes(N, n_colors, es)
+    return bound(nbytes, {"f32" if es == 4 else "f64": ops})
+
+
+def pcg_iteration_ops(Ltau, N, n_colors):
+    """One CG iteration of one (Ltau, N) system in K2 / K3: M^T M and ten
+    vector operations per element in f32; the half-spectrum preconditioner's
+    four products in bf16 (DFT rows, Q, Q^T, inverse DFT) and its filter."""
+    Lh = Ltau // 2 if Ltau % 2 == 0 else Ltau
+    f32 = Ltau * N * (2 * b_flops(n_colors, True) + 4 + 10) + 2 * Lh * N
+    bf16 = 2 * (2 * Lh) * Ltau * N * 2 + 2 * (2 * Lh) * N * N * 2
+    return f32, bf16
+
+
+def precond_bytes(Ltau, N):
+    Lh = Ltau // 2 if Ltau % 2 == 0 else Ltau
+    return 2 * N * N + 2 * (2 * Lh) * Ltau + 4 * Lh * N
+
+
+def epilogue_ops(Ltau, N, n_colors):
+    """The force epilogue per channel pair: per channel and site one B, B^T
+    (for M^T A), CB^T and CB^{-1} (3 n_colors each) and ~10 products and sums."""
+    return 2 * Ltau * N * (2 * b_flops(n_colors, True) + 6 * n_colors + 10)
+
+
+def headline_model(device, h=HEADLINE):
+    """A model's expanded parameters (seed 0): (tbp, elph)."""
     import numpy as np
 
     from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononParameters
     from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
     from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingParameters
 
-    h = HEADLINE
     geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
     rng = np.random.default_rng(0)
     tbp = TightBindingParameters.from_model(tbm, rng, device=device)
     return tbp, ElectronPhononParameters.from_model(h["beta"], h["dtau"], em, tbp, rng, device=device)
 
 
-def headline_fdm(device, neighbor_table=None, x=None):
-    """The headline fermion matrix (f64) at field x (default: the initial
-    field; (W, n_phonon, Ltau) gives a walker batch), optionally on a
-    relabelled hopping graph."""
+def headline_fdm(device, neighbor_table=None, x=None, h=HEADLINE, symmetric=True):
+    """A model's fermion matrix (f64, the headline model by default) at field
+    x (default: the initial field; (W, n_phonon, Ltau) gives a walker batch),
+    optionally on a relabelled hopping graph."""
     from smoqyelphqmc_tpu_torch.models.fermion_path_integral import build_path_integral
     from smoqyelphqmc_tpu_torch.ops.checkerboard import build_checkerboard_structure
     from smoqyelphqmc_tpu_torch.ops.fermion_det import FermionDetMatrix
 
-    tbp, elph = headline_model(device)
+    tbp, elph = headline_model(device, h)
     nt = tbp.neighbor_table if neighbor_table is None else neighbor_table
     structure = build_checkerboard_structure(nt, tbp.n_sites)
-    return FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph, x), structure, symmetric=True)
+    return FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph, x), structure, symmetric=symmetric)
 
 
 def phase_k1(fdm64, results, tag="K1", names=("mtm_f32", "mtm_f64"),
@@ -123,8 +212,10 @@ def phase_k1(fdm64, results, tag="K1", names=("mtm_f32", "mtm_f64"),
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
         if not rel <= tol:
             fail(f"{tag} {name} disagrees with its plain version: {rel:.3e} > {tol:g}")
+        bound_ms, bound_by = mtm_bound(v.shape[0], fdm.Ltau, fdm.n_sites, fdm.cb.n_colors, v.element_size())
         results[name] = dict(name=name, route="cuda", source="smoqyelphqmc_tpu_torch/csrc/mtm.cu",
-                             replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                             replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
 
 
 def phase_k2(fdm64, results):
@@ -183,10 +274,18 @@ def phase_k2(fdm64, results):
     ms = cuda_ms(lambda: pcg.pcg_cuda(fdm32, pre, bu, tol, maxiter), 5)
     plain_ms = cuda_ms(lambda: pcg.pcg_plain(fdm32, pre, bu, tol, maxiter), 2)
     lib_grid = pcg._build.load_library().smoqy_pcg_grid(fdm32.n_sites)
-    say(f"K2 cold solve time: kernel {ms:.3f} ms plain {plain_ms:.3f} ms (grid {lib_grid} CTAs)")
+    # the timed cold solve: its iterations for each system, b in, x out, the
+    # preconditioner's operands and the tables read once
+    Ltau, N, nc = fdm32.Ltau, fdm32.n_sites, fdm32.cb.n_colors
+    f32_it, bf16_it = pcg_iteration_ops(Ltau, N, nc)
+    n_it = int(rows[0][3]) * bu.shape[0]
+    bound_ms, bound_by = bound(4 * (2 * bu.numel() + Ltau * N) + precond_bytes(Ltau, N) + table_bytes(N, nc, 4),
+                               {"f32": n_it * f32_it, "bf16": n_it * bf16_it})
+    say(f"K2 cold solve time: kernel {ms:.3f} ms plain {plain_ms:.3f} ms (grid {lib_grid} CTAs); "
+        f"bound {bound_ms:.4f} ms by {bound_by}")
     results["pcg"] = dict(name="pcg", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/pcg.cu",
                           replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:495",
-                          max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                          max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def all_counters():
@@ -194,12 +293,13 @@ def all_counters():
     import torch
 
     from smoqyelphqmc_tpu_torch.ops.force import FORCE
+    from smoqyelphqmc_tpu_torch.ops.kpm_mf import KPM_MF, KPM_MF_ASYM
     from smoqyelphqmc_tpu_torch.ops.mtm import MTM
     from smoqyelphqmc_tpu_torch.ops.pcg import PCG
     from smoqyelphqmc_tpu_torch.ops.pcg_force import PCG_FORCE
 
     return {"mtm_f32": MTM[torch.float32], "mtm_f64": MTM[torch.float64], "pcg": PCG,
-            "pcg_force": PCG_FORCE, "force": FORCE}
+            "pcg_force": PCG_FORCE, "force": FORCE, "kpm_mf": KPM_MF, "kpm_mf_asym": KPM_MF_ASYM}
 
 
 def drive_path(run, path_kernels):
@@ -260,7 +360,7 @@ def rounded(v, nd=6):
     return [rounded(u, nd) for u in v] if isinstance(v, list) else round(v, nd)
 
 
-def phase_small_reference(n_walkers=1):
+def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral"):
     """The same chain on a small model on the GPU (kernels) and the CPU (plain
     versions): the accept decisions must match and the fields agree to 1e-4
     relative (the f32 force solves stop at 1e-5 relative in both, with sums in
@@ -268,17 +368,26 @@ def phase_small_reference(n_walkers=1):
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
     from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
 
-    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.6, 0.0)
-    cfg = SimulationConfig(beta=2.0, dtau=0.1, Nt=12, seed=5, preconditioner="spectral", n_walkers=n_walkers)
+    geo, tbm, em = holstein_honeycomb_model(L, 1.0, 0.6, 0.0)
+    cfg = SimulationConfig(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner=preconditioner, n_walkers=n_walkers)
+    t0 = time.perf_counter()
     gpu = run_updates(tbm, em, cfg, 3, device="cuda")
+    t1 = time.perf_counter()
     cpu = run_updates(tbm, em, cfg, 3, device="cpu")
+    t2 = time.perf_counter()
     xg, xc = gpu["x_final"].cpu(), cpu["x_final"]
     err = float((xg - xc).abs().max() / xc.abs().max())
     same = all(gpu[f"{k}_acceptance_rate"] == cpu[f"{k}_acceptance_rate"] for k in ("reflection", "swap", "hmc"))
-    say(f"small-model reference (L=3, beta=2, W={n_walkers}): GPU vs CPU field max rel err {err:.3e}; "
-        f"same acceptance {same}; dH gpu {rounded(gpu['hmc_delta_H'])} cpu {rounded(cpu['hmc_delta_H'])}")
+    kpm = {d: md.get("kpm_active") for d, md in (("gpu", gpu), ("cpu", cpu))}
+    say(f"small-model reference (L={L}, N={gpu['n_sites']}, beta={beta}, {preconditioner}, W={n_walkers}): GPU vs "
+        f"CPU field max rel err {err:.3e}; same acceptance {same}; dH gpu {rounded(gpu['hmc_delta_H'])} "
+        f"cpu {rounded(cpu['hmc_delta_H'])}; hmc iters/solve gpu {gpu['hmc_iters']:.2f} cpu {cpu['hmc_iters']:.2f}; "
+        f"kpm_active {kpm}; {t1 - t0:.1f} s GPU, {t2 - t1:.1f} s CPU")
     if not (same and err <= 1e-4 and gpu["all_converged"] and cpu["all_converged"]):
-        fail(f"the GPU chain disagrees with the CPU reference on the small model at W={n_walkers}")
+        fail(f"the GPU chain disagrees with the CPU reference on the small model (L={L}, {preconditioner}, "
+             f"W={n_walkers})")
+    if preconditioner == "kpm" and kpm != {"gpu": True, "cpu": True}:
+        fail(f"the KPM preconditioner of the GPU-vs-CPU chain deactivated: {kpm}")
 
 
 def phase_k3(results):
@@ -315,6 +424,7 @@ def phase_k3(results):
 
     x_warm, *_ = pcg_force.pcg_force_plain(fdm32, pre, b, torch.zeros_like(b), Lam, 1e-3, maxiter, True)
     max_err = 0.0
+    cold_iters = None
     for tag, x0 in (("cold", torch.zeros_like(b)), ("warm", x_warm)):
         xk, P1k, P2k, sk = pcg_force.solve_force(fdm32, pre, b, Lam, x0=x0, tol=tol, maxiter=maxiter)
         xp, P1p, P2p, ep, ip = pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, tol, maxiter, True)
@@ -330,6 +440,7 @@ def phase_k3(results):
         f_ok = bool(((Fk - Fp).abs() <= 2e-4 * float(Fp.abs().max()) + 2e-4 * Fp.abs()).all())
         res_k, res_p = true_res(xk), true_res(xp)
         max_err = max(max_err, err)
+        cold_iters = sk.iters.tolist() if cold_iters is None else cold_iters
         say(f"K3 {tag} W={W}: converged kernel {conv_k} plain {conv_p}; iters/walker kernel "
             f"{sk.iters.tolist()} plain {ip.tolist()}; true residual kernel {res_k:.3e} plain {res_p:.3e}; "
             f"max|x| {scale:.4g} max |x_kernel - x_plain| {err:.3e} (rtol 2e-4, atol 2e-5 max|x|: {x_ok}); "
@@ -344,10 +455,20 @@ def phase_k3(results):
     ms = cuda_ms(lambda: pcg_force.solve_force(fdm32, pre, b, Lam, x0=zeros, tol=tol, maxiter=maxiter), 3)
     plain_ms = cuda_ms(lambda: pcg_force.pcg_force_plain(fdm32, pre, b, zeros, Lam, tol, maxiter, True), 1)
     grid = pcg_force._build.load_library().smoqy_pcg_force_grid(fdm.n_sites)
-    say(f"K3 cold solve + planes, W={W}: kernel {ms:.3f} ms plain {plain_ms:.3f} ms (grid {grid} CTAs)")
+    # the timed cold solve: each walker's two channels for its iterations,
+    # the epilogue per walker; b, x0, Lambda, expV in, x, P1, P2 out
+    Ltau, N, nc = fdm.Ltau, fdm.n_sites, fdm.cb.n_colors
+    f32_it, bf16_it = pcg_iteration_ops(Ltau, N, nc)
+    n_it = 2 * sum(cold_iters)
+    plane = W * Ltau * N * 4
+    bound_ms, bound_by = bound(2 * 2 * plane + 2 * plane + 2 * plane + 2 * plane + precond_bytes(Ltau, N)
+                               + table_bytes(N, nc, 4),
+                               {"f32": n_it * f32_it + W * epilogue_ops(Ltau, N, nc), "bf16": n_it * bf16_it})
+    say(f"K3 cold solve + planes, W={W}: kernel {ms:.3f} ms plain {plain_ms:.3f} ms (grid {grid} CTAs); "
+        f"bound {bound_ms:.4f} ms by {bound_by}")
     results["pcg_force"] = dict(name="pcg_force", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/pcg_force.cu",
                                 replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:620",
-                                max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_k4(results):
@@ -374,14 +495,17 @@ def phase_k4(results):
         ok = ok and bool((d <= 1e-5 * float(r.abs().max()) + 1e-4 * r.abs()).all())
     ms = cuda_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, True), 20)
     plain_ms = cuda_ms(lambda: force.force_planes_plain(fdm32, Lam, psi, True), 5)
+    Ltau, N, nc = fdm32.Ltau, fdm32.n_sites, fdm32.cb.n_colors
+    # psi (2 planes), Lambda and expV in, P1 and P2 out
+    bound_ms, bound_by = bound(6 * Ltau * N * 4 + table_bytes(N, nc, 4), {"f32": epilogue_ops(Ltau, N, nc)})
     say(f"K4 planes (2, {fdm32.Ltau}, {fdm32.n_sites}): max abs err {err:.3e} at max|P| "
         f"{max(float(r.abs().max()) for r in ref):.4g} (rtol 1e-4, atol 1e-5 max|P|: {ok}); "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
     if not ok:
         fail("K4 disagrees with its plain version")
     results["force"] = dict(name="force", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/force.cu",
                             replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:934", max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms)
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_k5(results, card):
@@ -472,6 +596,103 @@ def phase_fused_force(results, card):
         fail("the fused_force path did not converge or has a non-finite Delta H")
 
 
+def large_model_kpm(symmetric):
+    """The large model's KPM preconditioner at its initial field, built with
+    live Lanczos bounds from a seeded start vector: (fdm, preconditioner)."""
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops.kpm import KPMPreconditioner
+
+    fdm = headline_fdm(torch.device("cuda"), h=LARGE, symmetric=symmetric)
+    v0 = torch.randn(fdm.n_sites, generator=torch.Generator(device="cpu").manual_seed(16), dtype=torch.float64)
+    pre = KPMPreconditioner.build(fdm, v0)
+    if not (pre.matrix_free and pre.active):
+        fail(f"the large model's KPM preconditioner is not an active matrix-free one (matrix_free "
+             f"{pre.matrix_free}, active {pre.active}, bounds {pre.lo:.4f} {pre.hi:.4f})")
+    return fdm, pre
+
+
+def phase_kpm_kernel(results, symmetric):
+    """K6 (symmetric) or K7 (asymmetric) against its plain version at the
+    large-N path's shape: two vectors of (re, im) planes (2, 240, 4608), the
+    coefficient planes (240, C_pad), live orders from the preconditioner."""
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops import kpm_mf
+
+    fdm, pre = large_model_kpm(symmetric)
+    ops = pre.mf_operands()
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    ure, uim = torch.randn((2, 2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to("cuda")
+    plain = kpm_mf.kpm_mf_plain if symmetric else kpm_mf.kpm_mf_asym_plain
+    got = kpm_mf.kpm_mf_cuda(ops, ure, uim)
+    ref = plain(ops, ure, uim)
+    torch.cuda.synchronize()
+    scale = max(float(r.abs().max()) for r in ref)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    tol = 2e-4 if symmetric else 5e-4
+    ms = cuda_ms(lambda: kpm_mf.kpm_mf_cuda(ops, ure, uim), 20)
+    plain_ms = cuda_ms(lambda: plain(ops, ure, uim), 2)
+    # u in and y out once, the coefficient planes, tables, expV/half, orders
+    # and the sort; operations per site of every row for every order step:
+    # one Bbar (K6) or two (K7, re and im), the recurrence (5 per row) and the
+    # coefficient update (2 per row; 8 per vector with K7's i-rotation)
+    Ltau, N, nc = fdm.Ltau, fdm.n_sites, fdm.cb.n_colors
+    orders = pre.orders.astype(int)
+    C_pad = ops.coefs_re.shape[1]
+    n_vec = ure.shape[0]
+    nbytes = 2 * 2 * ure.numel() * 4 + (1 if symmetric else 2) * Ltau * C_pad * 4 + table_bytes(N, nc, 4) \
+        + N * 4 + 2 * Ltau * 4
+    if symmetric:
+        ops_f32 = 2 * n_vec * N * int(sum(1 + (o - 1) * (b_flops(nc, True) + 7) for o in orders))
+    else:
+        per_pass = int(sum(6 + (o - 1) * (2 * (b_flops(nc, False) + 5) + 8) for o in orders))
+        ops_f32 = 2 * n_vec * N * per_pass
+    bound_ms, bound_by = bound(nbytes, {"f32": ops_f32})
+    name = "kpm_mf" if symmetric else "kpm_mf_asym"
+    tag = "K6" if symmetric else "K7"
+    say(f"{tag} u 2 x (2, {Ltau}, {N}), coefficients ({Ltau}, {C_pad}): bounds [{pre.lo:.4f}, {pre.hi:.4f}]; "
+        f"live orders max {orders.max()} sum {orders.sum()}; max abs err {err:.3e} at max|y| {scale:.4g} "
+        f"(rel {err / scale:.3e}, tol {tol:g}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by}")
+    if not err <= tol * scale:
+        fail(f"{tag} disagrees with its plain version: {err / scale:.3e} > {tol:g}")
+    results[name] = dict(name=name, route="cuda", source="smoqyelphqmc_tpu_torch/csrc/kpm_mf.cu",
+                         replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:" + ("1186" if symmetric else "1243"),
+                         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_large_path(results, card, symmetric, n_sweeps):
+    """The large-N path: `run_updates` on the large model with
+    preconditioner='auto' (KPM above 4000 sites, matrix-free above 1024)."""
+    import math
+
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
+
+    h = LARGE
+    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    cfg = SimulationConfig(beta=h["beta"], dtau=h["dtau"], Nt=h["Nt"], tol=h["tol"], seed=1, mixed_precision=True,
+                           force_dtype="float32", preconditioner="auto", symmetric=symmetric)
+    name = "kpm_mf" if symmetric else "kpm_mf_asym"
+    md, counts = drive_path(lambda: run_updates(tbm, em, cfg, n_sweeps, device=MAIN_DEVICE),
+                            ("mtm_f32", "mtm_f64", name))
+    results[name]["launches"] = counts[name][0]
+    n_solves = n_sweeps * (2 + h["Nt"] + 1)
+    say(f"large-N path ({'symmetric' if symmetric else 'asymmetric'}) on {card}: {n_sweeps} sweep(s) L={h['L']} "
+        f"N={md['n_sites']} alpha={h['alpha']} beta={h['beta']} Ltau={md['Ltau']}; kpm_active "
+        f"{md.get('kpm_active')} order clips {md.get('kpm_order_clip_count')}; s/sweep "
+        f"{[round(t, 4) for t in md['sweep_s']]} (init {md['t_init_s']:.3f} s); acceptance refl "
+        f"{md['reflection_acceptance_rate']:.3f} swap {md['swap_acceptance_rate']:.3f} hmc "
+        f"{md['hmc_acceptance_rate']:.3f}; iters/solve refl {md['reflection_iters']:.2f} swap "
+        f"{md['swap_iters']:.2f} hmc {md['hmc_iters']:.2f}; {name} launches per solve "
+        f"{counts[name][0] / n_solves:.2f}; dH {rounded(md['hmc_delta_H'], 5)}; launches/plain calls {counts}")
+    if md.get("kpm_active") is not True:
+        fail(f"the large-N path did not keep an active KPM preconditioner (kpm_active {md.get('kpm_active')})")
+    if not md["all_converged"] or not all(math.isfinite(d) for d in md["hmc_delta_H"]):
+        fail("the large-N path did not converge or has a non-finite Delta H")
+
+
 def main() -> None:
     try:
         import torch
@@ -499,9 +720,8 @@ def main() -> None:
     t0 = time.perf_counter()
     info = _build.build()
     _build.load_library()
-    ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
     say(f"build: {time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s, built {info['built']}); "
-        f"ptxas: {' | '.join(ptxas)}")
+        f"ptxas: {' | '.join(ptxas_summary(info['log']))}")
 
     results: dict = {}
     fdm64 = headline_fdm(torch.device("cuda"))
@@ -515,12 +735,21 @@ def main() -> None:
     phase_walkers(results, card)
     phase_fused_force(results, card)
     phase_small_reference(n_walkers=2)
+    phase_kpm_kernel(results, symmetric=True)
+    phase_kpm_kernel(results, symmetric=False)
+    phase_large_path(results, card, symmetric=True, n_sweeps=N_LARGE_SWEEPS)
+    phase_large_path(results, card, symmetric=False, n_sweeps=1)
+    phase_small_reference(L=24, beta=1.0, preconditioner="kpm")
     kernels = []
-    for k in ("mtm_f32", "mtm_f64", "pcg", "pcg_force", "force", "mtm_irregular_f32"):
+    for k in ("mtm_f32", "mtm_f64", "pcg", "pcg_force", "force", "mtm_irregular_f32", "kpm_mf", "kpm_mf_asym"):
         r = results[k]
+        # no single PyTorch call computes any of these functions from their
+        # operands (checkerboard tables, a whole preconditioned solve, a
+        # Chebyshev recurrence): library_ms is null for each
         kernels.append(dict(name=r["name"], route=r["route"], source=r["source"], replaces=r["replaces"],
-                            launches=r.get("launches", 0), max_abs_err=r["max_abs_err"],
-                            ms=r["ms"], plain_ms=r["plain_ms"]))
+                            launches=r.get("launches", 0), max_abs_err=r["max_abs_err"], ms=r["ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=None))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -12,14 +12,19 @@ JAX package has Pallas kernels:
   in-kernel warm start and the Holstein force epilogue, over a walker batch,
   replacing `_pcg_force_kernel`;
 - K4 `ops/force.py` + `csrc/force.cu`: the force epilogue alone, replacing
-  `_force_kernel`.
+  `_force_kernel`;
+- K6 and K7 `ops/kpm_mf.py` + `csrc/kpm_mf.cu`: the matrix-free KPM
+  preconditioner apply, symmetric and asymmetric factorizations, replacing
+  `_kpm_mf_kernel` and `_kpm_mf_asym_kernel`.
 
 K1's partner gather also computes `_mtm_kernel_mm`'s function (K5).
 
 Policy (the JAX package turns x64 on globally; torch defaults to f32):
 
 - every tensor states its dtype; float64 is the default (`DEFAULT_DTYPE`);
-- every constructor takes an explicit `device`;
+- the entry points (`driver.run_updates`, the parameters' `from_model`, the
+  `convert` helpers, `TauFourier`) run on the card unless the caller passes
+  `device="cpu"`; everything else follows the device of its inputs;
 - random draws live outside the compute functions (see `updates/`), made from an
   explicit `torch.Generator`;
 - TF32 is off for matmuls and cuDNN: the dense Bbar build and the EFA / Fourier

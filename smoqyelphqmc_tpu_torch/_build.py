@@ -40,6 +40,9 @@ _SIGNATURES = {
     "smoqy_pcg_force": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "smoqy_force": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "smoqy_kpm_mf_max_sites": [_I],
+    "smoqy_kpm_mf": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P],
+    "smoqy_kpm_mf_asym": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -13,7 +13,10 @@ import torch
 
 from .models.electron_phonon import ElectronPhononParameters
 from .models.tight_binding import TightBindingParameters
+from .ops.checkerboard import CheckerboardOp
 from .ops.fourier import TauFourier
+from .ops import kpm
+from .ops.kpm import AveragedPropagator, KPMPreconditioner
 from .ops.spectral_precond import SpectralPreconditioner
 from .parallel.walkers import PrecondFallbackController, WalkerStates
 
@@ -22,7 +25,7 @@ def _t(a, device, dtype=torch.float64) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype, device=device)
 
 
-def tight_binding_parameters(tbp, device="cpu") -> TightBindingParameters:
+def tight_binding_parameters(tbp, device="cuda") -> TightBindingParameters:
     if getattr(tbp, "t0_im", None) is not None:
         raise NotImplementedError("complex hoppings are not ported yet (ROADMAP Queue 1, item 14)")
     return TightBindingParameters(
@@ -37,7 +40,7 @@ def tight_binding_parameters(tbp, device="cpu") -> TightBindingParameters:
     )
 
 
-def electron_phonon_parameters(elph, device="cpu", x=None) -> ElectronPhononParameters:
+def electron_phonon_parameters(elph, device="cuda", x=None) -> ElectronPhononParameters:
     """Holstein-model parameters; `x` (default elph.x) becomes the field."""
     if elph.n_ssh or elph.n_dispersion:
         raise NotImplementedError("SSH and dispersion couplings are not ported yet (ROADMAP Queue 1, item 15)")
@@ -62,12 +65,12 @@ def electron_phonon_parameters(elph, device="cpu", x=None) -> ElectronPhononPara
     )
 
 
-def phonon_field(x, device="cpu") -> torch.Tensor:
+def phonon_field(x, device="cuda") -> torch.Tensor:
     """The phonon field (n_phonon, Ltau) as float64."""
     return _t(x, device)
 
 
-def spectral_preconditioner(Q, filt, Ltau: int, dtype: str = "float32", device="cpu") -> SpectralPreconditioner:
+def spectral_preconditioner(Q, filt, Ltau: int, dtype: str = "float32", device="cuda") -> SpectralPreconditioner:
     """A spectral preconditioner from given Q (N, N) and filt (Ltau, N)."""
     dt = {"float32": torch.float32, "float64": torch.float64}[dtype]
     Q = _t(Q, device, dt)
@@ -77,7 +80,43 @@ def spectral_preconditioner(Q, filt, Ltau: int, dtype: str = "float32", device="
     )
 
 
-def walker_states(x, precond=None, device="cpu") -> WalkerStates:
+def kpm_preconditioner(pre, device="cuda") -> KPMPreconditioner:
+    """The port's KPMPreconditioner carrying a JAX KPMPreconditioner's state:
+    Bbar's tables, the buffered bounds, the activation flag, the coefficient
+    planes (one bucket), order_clip_count, the dense matrices of a dense
+    preconditioner and the static plan; the live orders follow from the
+    bounds."""
+    if pre.complex_pair:
+        raise NotImplementedError("complex hoppings are not ported yet (ROADMAP Queue 1, item 14)")
+    consts = {"rbuf": kpm.RBUF, "n_lanczos": kpm.N_LANCZOS, "a2": kpm.A2,
+              "a1": 2.0 * kpm.A1 if pre.symmetric else kpm.A1, "dtype": "float32"}
+    differ = {k: getattr(pre, k) for k, v in consts.items() if getattr(pre, k) != v}
+    if differ:
+        raise ValueError(f"the port's KPM preconditioner keeps the JAX defaults {consts}; this state has {differ}")
+    dt = kpm.APPLY_DTYPE
+    cb = pre.bbar.cb
+    bbar = AveragedPropagator(
+        cb=CheckerboardOp(C=_t(cb.C, device), S=_t(cb.S, device),
+                          partner=torch.as_tensor(np.asarray(cb.partner), dtype=torch.long, device=device)),
+        expV=_t(pre.bbar.expV, device), symmetric=bool(pre.symmetric),
+    )
+    lo, hi = float(pre.lo), float(pre.hi)
+    caps = np.asarray(pre.caps)
+    phi = np.asarray(pre.phi)
+    orders, _ = kpm.live_orders(lo, hi, phi, pre.a1, pre.a2, caps)
+    return KPMPreconditioner(
+        bbar=bbar, lo=lo, hi=hi, active=bool(pre.active),
+        coefs_re=_t(pre.coefs_re[0], device, dt), coefs_im=_t(pre.coefs_im[0], device, dt),
+        orders=orders, order_clip_count=int(pre.order_clip_count),
+        fft=TauFourier(int(pre.Ltau), dtype=dt, device=device),
+        BpT=None if pre.matrix_free else _t(pre.BpT, device, dt),
+        TsT=None if pre.matrix_free else _t(pre.TsT, device, dt),
+        symmetric=bool(pre.symmetric), Ltau=int(pre.Ltau), n_sites=int(pre.n_sites), phi=phi, caps=caps,
+        block_size=int(pre.block_size), n_blocks=int(pre.n_blocks), matrix_free=bool(pre.matrix_free),
+    )
+
+
+def walker_states(x, precond=None, device="cuda") -> WalkerStates:
     """A walker batch from the JAX package's walker state: x (W, n_phonon,
     Ltau) and one preconditioner shared by every walker (for a JAX state,
     `spectral_preconditioner(state.precond.Q[0], state.precond.filt[0], Ltau)`

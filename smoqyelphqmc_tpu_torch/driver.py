@@ -8,14 +8,19 @@ seeded with `cfg.seed`; at W >= 2 (the multi-walker driver, driver.py:774-865)
 each walker has its own generator, seeded from `cfg.seed` and its index, and
 the sweeps follow `parallel.walkers.walker_sweep` with the shared
 preconditioner refresh and its fallback controller. It returns
-run_simulation's acceptance / iteration metadata (walker-averaged) plus the
-per-update flags a caller needs to check the run.
+run_simulation's acceptance / iteration metadata (walker-averaged), the KPM
+preconditioner's diagnostics when the chain carries one, and the per-update
+flags a caller needs to check the run.
+
+A KPM preconditioner ('kpm', or 'auto' above 4000 sites) runs at W = 1: its
+initial Lanczos start vector is the first draw of the chain's generator.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -23,6 +28,8 @@ import torch
 
 from .models.electron_phonon import ElectronPhononParameters
 from .models.tight_binding import TightBindingParameters
+from .ops.kpm import KPMPreconditioner
+from .ops.preconditioner import resolve_kind
 from .parallel.walkers import PrecondFallbackController, draw_walker, init_walker_states, walker_sweep
 from .updates.context import initialize_qmc
 from .updates.global_updates import draw_reflection, draw_swap, reflection_update, swap_update
@@ -44,7 +51,7 @@ class SimulationConfig:
     seed: int = 1
     symmetric: bool = True
     use_preconditioner: bool = True
-    preconditioner: Optional[str] = None  # 'auto' | 'spectral' | 'none'
+    preconditioner: Optional[str] = None  # 'auto' | 'spectral' | 'kpm' | 'none'
     mixed_precision: bool = True
     force_dtype: str = "float32"
     # the W = 1 trajectory forces through the K2 solve and kernel K4 (the JAX
@@ -70,9 +77,30 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def fold_kpm_diagnostics(metadata: Dict, precond) -> None:
+    """Record a KPM preconditioner's self-diagnostics in the metadata
+    (smoqyelphqmc_tpu/driver.py:fold_kpm_diagnostics): whether it is active
+    in the final state (inactive means the solves ran unpreconditioned), and
+    how many frequencies the static order caps clipped; warn on either. No-op
+    for other preconditioners."""
+    if not isinstance(precond, KPMPreconditioner):
+        return
+    metadata["kpm_active"] = bool(precond.active)
+    metadata["kpm_inactive_walkers"] = int(not precond.active)
+    metadata["kpm_order_clip_count"] = int(precond.order_clip_count)
+    if not precond.active:
+        warnings.warn("KPM preconditioner DEACTIVATED in the final state: Lanczos bounds outside the valid "
+                      "window or the truncation-positivity guard fired, so those CG solves ran "
+                      "unpreconditioned", stacklevel=2)
+    if precond.order_clip_count > 0:
+        warnings.warn(f"KPM order cap clipped {precond.order_clip_count} frequency orders in the final refresh",
+                      stacklevel=2)
+
+
 def run_updates(tight_binding_model, electron_phonon_model, cfg: SimulationConfig, n_sweeps: int,
-                device="cpu") -> Dict:
-    """Run `n_sweeps` update sweeps on `device`; returns the metadata dict
+                device="cuda") -> Dict:
+    """Run `n_sweeps` update sweeps on `device` (the card unless the caller
+    asks for the CPU); returns the metadata dict
     (acceptance rates and CG iterations per solve, averaged over sweeps, as
     run_simulation reports them) with per-sweep lists and timings."""
     device = torch.device(device)
@@ -89,11 +117,17 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     caller with tables of its own, such as relabelled sites). Each sweep runs
     inside a profiler range named "sweep"."""
     device = elph.device
+    kind = resolve_kind(cfg.preconditioner or "auto", tbp.n_sites) if cfg.use_preconditioner else None
+    if kind == "kpm" and cfg.n_walkers > 1:
+        raise NotImplementedError("the walker path with a KPM preconditioner is not ported yet "
+                                  "(ROADMAP Queue 1, item 20)")
+    gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
+    v0 = torch.randn((tbp.n_sites,), generator=gen, dtype=torch.float64) if kind == "kpm" else None
     t0 = time.perf_counter()
     ctx, state = initialize_qmc(
         tbp, elph, symmetric=cfg.symmetric, tol=cfg.tol, maxiter=cfg.maxiter, eta=cfg.eta,
         use_preconditioner=cfg.use_preconditioner, preconditioner=cfg.preconditioner,
-        mixed_precision=cfg.mixed_precision, force_dtype=cfg.force_dtype,
+        mixed_precision=cfg.mixed_precision, force_dtype=cfg.force_dtype, lanczos_v0=v0,
     )
     _sync(device)
     t_init = time.perf_counter() - t0
@@ -112,7 +146,6 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     if cfg.n_walkers > 1:
         meta.update(_run_walkers(ctx, state, cfg, params, n_sweeps, device))
         return meta
-    gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
 
     keys = ("reflection", "swap", "hmc")
     acc = {k: 0.0 for k in keys}
@@ -125,7 +158,7 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
         with torch.profiler.record_function("sweep"):
             state, r = reflection_update(ctx, state, draw_reflection(gen, ctx))
             state, s = swap_update(ctx, state, draw_swap(gen, ctx))
-            state, h = hmc_update(ctx, state, params, draw_hmc(gen, ctx))
+            state, h = hmc_update(ctx, state, params, draw_hmc(gen, ctx, state.precond))
             _sync(device)
         sweep_s.append(time.perf_counter() - t0)
         for k, st in zip(keys, (r, s, h)):
@@ -138,6 +171,7 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     n = max(n_sweeps, 1)
     meta.update({"sweep_s": sweep_s, "hmc_delta_H": delta_H, "all_converged": all(converged),
                  "x_final": state.x})
+    fold_kpm_diagnostics(meta, state.precond)
     for k in keys:
         meta[f"{k}_acceptance_rate"] = acc[k] / n
         meta[f"{k}_iters"] = iters[k] / n

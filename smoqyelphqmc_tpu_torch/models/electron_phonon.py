@@ -165,7 +165,7 @@ def initialize_electron_phonon_parameters(
     tight_binding_parameters: TightBindingParameters,
     rng: np.random.Generator | None = None,
     x_init: np.ndarray | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> ElectronPhononParameters:
     """Expand the model onto the lattice and sample the initial field (the same
     draws, in the same order, as the JAX package for Holstein models)."""

@@ -81,7 +81,7 @@ class TightBindingParameters:
 def initialize_tight_binding_parameters(
     tight_binding_model: TightBindingModel,
     rng: np.random.Generator | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> TightBindingParameters:
     """Expand a TightBindingModel onto the finite lattice, sampling disorder
     (the same draws, in the same order, as the JAX package)."""

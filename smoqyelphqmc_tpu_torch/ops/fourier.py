@@ -32,7 +32,7 @@ def _complex(vre: torch.Tensor, vim: Optional[torch.Tensor], dtype: torch.dtype)
 class TauFourier:
     """Unitary antiperiodic tau -> omega transform along axis -2 (and inverse)."""
 
-    def __init__(self, Ltau: int, dtype: torch.dtype = torch.float64, device="cpu"):
+    def __init__(self, Ltau: int, dtype: torch.dtype = torch.float64, device="cuda"):
         self.Ltau = Ltau
         self.dtype = dtype
         l = torch.arange(Ltau, dtype=torch.float64, device=device)

@@ -1,0 +1,204 @@
+"""Kernels K6 and K7: the matrix-free KPM apply, with its plain PyTorch versions.
+
+y = sum_k c_k(f) T_k(Bbar') u for every frequency row f of complex
+frequency-space vectors u = (u_re, u_im) of shape (..., F, N), with
+Bbar' = (Bbar - center) / half applied through the tau-averaged checkerboard
+and each frequency's recurrence running to its own live order (coefficients
+beyond it are zero). The port's counterpart of the KPM part of
+smoqyelphqmc_tpu/ops/pallas_fused.py (:1468-1651):
+
+- symmetric factorization: real coefficients, one pass; the re and im planes
+  are independent rows (K6, `csrc/kpm_mf.cu:kpm_mf_kernel`, replacing
+  `_kpm_mf_kernel`);
+- asymmetric factorization: two passes, conj(c) then c, the complex
+  coefficients acting through the i-rotation (re, im) -> (-im, re) of one
+  vector (K7, `csrc/kpm_mf.cu:kpm_mf_asym_kernel`, replacing
+  `_kpm_mf_asym_kernel`).
+
+`kpm_mf_apply(ops, u_re, u_im)` is the dispatcher: a CPU tensor takes the
+plain version (`kpm_mf_plain` / `kpm_mf_asym_plain`, the `_mf_cheb`
+recurrence of smoqyelphqmc_tpu/ops/kpm.py:611-656), a CUDA tensor launches
+the kernel or raises. The static plan is the frequency order sorted by
+descending order (`build_kpm_mf_plan`): the kernels start the longest
+recurrences first.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import _build
+from .kpm import AveragedPropagator
+from .mtm import KernelCounter
+
+KPM_MF = KernelCounter("kpm_mf")
+KPM_MF_ASYM = KernelCounter("kpm_mf_asym")
+
+
+def build_kpm_mf_plan(phi: np.ndarray) -> np.ndarray:
+    """The static plan: the frequencies (F,) int32 in descending order, the
+    sort of `build_kpm_mf_plan` (pallas_fused.py:1516-1517) taken by
+    ascending phi_eff = min(phi, 2 pi - phi). The static caps and the live
+    orders both grow with 1 / phi_eff, so this sorts both (the JAX package
+    sorts by the caps alone, whose ties hide live orders that differ). The
+    kernels index each frequency's own row, so no inverse is needed."""
+    phi = np.asarray(phi)
+    return np.argsort(np.minimum(phi, 2 * np.pi - phi), kind="stable").astype(np.int32)
+
+
+@dataclasses.dataclass
+class KPMMFOperands:
+    """One refresh's operands of the matrix-free apply, in float32.
+
+    bbar: Bbar in float32 (the plain versions apply it); partner (n_colors, N)
+    int32, the kernels' copy of its gather table; center and inv_half the
+    affine map to Bbar' (f32 values); expVih = expV * inv_half and
+    cih = center * inv_half, the map folded into the kernels' operands as the
+    TPU kernels fold it; coefs_re / coefs_im (F, C_pad); orders (F,) int32
+    live orders (host copy `orders_host`); perm (F,) int32 the plan's sort."""
+
+    bbar: AveragedPropagator
+    partner: torch.Tensor
+    center: float
+    inv_half: float
+    expVih: torch.Tensor
+    cih: float
+    coefs_re: torch.Tensor
+    coefs_im: torch.Tensor
+    orders: torch.Tensor
+    orders_host: np.ndarray
+    perm: torch.Tensor
+    symmetric: bool
+
+    @property
+    def n_sites(self) -> int:
+        return self.expVih.shape[0]
+
+
+def build_operands(pre) -> KPMMFOperands:
+    """The operands of a matrix-free KPMPreconditioner's current refresh."""
+    f32 = torch.float32
+    dev = pre.bbar.expV.device
+    center = float(np.float32(pre.center))
+    inv_half = float(np.float32(1.0 / max(pre.half, 1e-12)))
+    bbar = pre.bbar.to_dtype(f32)
+    return KPMMFOperands(
+        bbar=bbar,
+        partner=bbar.cb.partner.to(torch.int32).contiguous(),
+        center=center,
+        inv_half=inv_half,
+        expVih=(bbar.expV * inv_half).contiguous(),
+        cih=float(np.float32(center) * np.float32(inv_half)),
+        coefs_re=pre.coefs_re.to(f32).contiguous(),
+        coefs_im=pre.coefs_im.to(f32).contiguous(),
+        orders=torch.as_tensor(pre.orders, dtype=torch.int32, device=dev),
+        orders_host=np.asarray(pre.orders, dtype=np.int32),
+        perm=torch.as_tensor(build_kpm_mf_plan(pre.phi), device=dev),
+        symmetric=pre.symmetric,
+    )
+
+
+# ----------------------------------------------------------------------
+# plain versions
+# ----------------------------------------------------------------------
+
+
+def _mf_cheb(ops: KPMMFOperands, u_re, u_im, cre, cim):
+    """One Chebyshev pass y = sum_k c_k T_k(Bbar') u, the real and imaginary
+    planes stacked as one recurrence state; cim None means real coefficients.
+    Runs to the largest live order: the coefficients beyond it are zero."""
+    n_orders = int(ops.orders_host.max())
+
+    def applyBp(t):
+        return (ops.bbar.apply(t) - ops.center * t) * ops.inv_half
+
+    def rot(t):  # i (re, im) = (-im, re)
+        return torch.stack([-t[1], t[0]])
+
+    def term(k, t):
+        out = cre[:, k][:, None] * t
+        return out if cim is None else out + cim[:, k][:, None] * rot(t)
+
+    t_prev = torch.stack([u_re, u_im])
+    y = term(0, t_prev)
+    if n_orders > 1:
+        t_cur = applyBp(t_prev)
+        for k in range(1, n_orders):
+            y = y + term(k, t_cur)
+            if k + 1 < n_orders:
+                t_prev, t_cur = t_cur, 2.0 * applyBp(t_cur) - t_prev
+    return y[0], y[1]
+
+
+def kpm_mf_plain(ops: KPMMFOperands, u_re, u_im):
+    """K6's function in plain PyTorch ops (symmetric factorization)."""
+    KPM_MF.plain_calls += 1
+    return _mf_cheb(ops, u_re, u_im, ops.coefs_re, None)
+
+
+def kpm_mf_asym_plain(ops: KPMMFOperands, u_re, u_im):
+    """K7's function in plain PyTorch ops: conj(c), then c."""
+    KPM_MF_ASYM.plain_calls += 1
+    y_re, y_im = _mf_cheb(ops, u_re, u_im, ops.coefs_re, -ops.coefs_im)
+    return _mf_cheb(ops, y_re, y_im, ops.coefs_re, ops.coefs_im)
+
+
+# ----------------------------------------------------------------------
+# kernels
+# ----------------------------------------------------------------------
+
+
+def max_sites(symmetric: bool) -> int:
+    """The largest N a kernel takes (register tiles and shared memory)."""
+    return int(_build.load_library().smoqy_kpm_mf_max_sites(int(symmetric)))
+
+
+def kpm_mf_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):
+    """Launch K6 (symmetric) or K7 (asymmetric) on CUDA tensors u_re, u_im
+    (..., F, N) float32."""
+    F, N = ops.coefs_re.shape[0], ops.n_sites
+    if u_re.dtype != torch.float32 or u_im.dtype != torch.float32:
+        raise TypeError(f"kpm_mf kernel: u is {u_re.dtype} / {u_im.dtype}, expected float32")
+    if u_re.shape != u_im.shape or u_re.shape[-2:] != (F, N):
+        raise ValueError(f"kpm_mf kernel: u planes {tuple(u_re.shape)} / {tuple(u_im.shape)}, "
+                         f"expected (..., {F}, {N})")
+    if not (u_re.device == u_im.device == ops.expVih.device):
+        raise ValueError("kpm_mf kernel: operands on different devices")
+    limit = max_sites(ops.symmetric)
+    if N > limit:
+        raise ValueError(f"kpm_mf kernel: N = {N} sites exceeds the kernel's {limit} "
+                         f"({'K6' if ops.symmetric else 'K7'} shared-memory rows and register tiles)")
+    ure = u_re.reshape(-1, F, N).contiguous()
+    uim = u_im.reshape(-1, F, N).contiguous()
+    yre, yim = torch.empty_like(ure), torch.empty_like(uim)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(u_re.device).cuda_stream
+    cb = ops.bbar.cb
+    common = (cb.C.data_ptr(), cb.S.data_ptr(), ops.partner.data_ptr(), ops.expVih.data_ptr(),
+              ops.coefs_re.data_ptr())
+    if ops.symmetric:
+        rc = lib.smoqy_kpm_mf(ure.data_ptr(), uim.data_ptr(), yre.data_ptr(), yim.data_ptr(), *common,
+                              ops.orders.data_ptr(), ops.perm.data_ptr(), ops.cih, ure.shape[0], F, N,
+                              cb.n_colors, ops.coefs_re.shape[1], stream)
+        _build.check(rc, "kpm_mf kernel launch")
+        KPM_MF.launches += 1
+    else:
+        rc = lib.smoqy_kpm_mf_asym(ure.data_ptr(), uim.data_ptr(), yre.data_ptr(), yim.data_ptr(), *common,
+                                   ops.coefs_im.data_ptr(), ops.orders.data_ptr(), ops.perm.data_ptr(), ops.cih,
+                                   ure.shape[0], F, N, cb.n_colors, ops.coefs_re.shape[1], stream)
+        _build.check(rc, "kpm_mf_asym kernel launch")
+        KPM_MF_ASYM.launches += 1
+    return yre.reshape(u_re.shape), yim.reshape(u_im.shape)
+
+
+def kpm_mf_apply(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):
+    """K6 / K7 dispatcher: plain versions for CPU tensors, the kernels for CUDA
+    tensors. Returns (y_re, y_im)."""
+    if u_re.device.type == "cpu":
+        return (kpm_mf_plain if ops.symmetric else kpm_mf_asym_plain)(ops, u_re, u_im)
+    if u_re.device.type == "cuda":
+        return kpm_mf_cuda(ops, u_re, u_im)
+    raise RuntimeError(f"kpm_mf_apply: no kernel for device {u_re.device}")

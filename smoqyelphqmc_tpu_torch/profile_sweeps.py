@@ -1,19 +1,28 @@
 """Device-time profile of the update sweeps.
 
     python -m smoqyelphqmc_tpu_torch.profile_sweeps [--walkers 8] [--sweeps 3] [--warmup 2]
+    python -m smoqyelphqmc_tpu_torch.profile_sweeps --walkers 1 --L 48 --alpha 1.5 --preconditioner auto \
+        --sweeps 2 --warmup 1 --compare-preconditioners
 
 Runs the headline model (Holstein honeycomb L=12, beta=12, dtau=0.05,
 alpha=0.6, Omega=1, mu=0, Nt=24, tol 1e-10, mixed precision, f32 forces,
-spectral preconditioner, seed 1; `--L` and `--beta` shrink it): first
+spectral preconditioner, seed 1; `--L`, `--beta`, `--alpha` and
+`--preconditioner` change it): first
 `--warmup` sweeps without the profiler (they also pay the kernels' build and
 first-use costs), then a second `run_updates` call whose `--sweeps` sweeps run
 under torch.profiler. It prints both calls' seconds per sweep, the device time
 per sweep of each kernel with its share of the profiled sweeps' wall time,
-and the device's idle share. All shares are read from the trace: the window
+the same summed by kernel family (the port's kernels, cuFFT, the rest), and
+the device's idle share. All shares are read from the trace: the window
 is the union of the driver's "sweep" ranges (initialization excluded), the
 busy time the union of the device's activity inside that window. The
 profiler slows the host, so the profiled sweeps run slower and idle more
 than unprofiled ones.
+
+`--compare-preconditioners` then times, at the model's initial field, the
+refresh (build) of the spectral and the KPM preconditioner and one f32 solve
+(tol 1e-5, from zero, two channels) with each: host clock around
+synchronised calls, the mean of three after one warm-up.
 """
 
 from __future__ import annotations
@@ -40,6 +49,66 @@ def _clip(intervals, windows):
     return [(max(s, ws), min(e, we)) for s, e in intervals for ws, we in windows if s < we and e > ws]
 
 
+# kernel families of the trace, by kernel-name substring; the first match wins
+FAMILIES = (("K3 pcg_force", "pcg_force_kernel"), ("K2 pcg", "pcg_kernel"), ("K4 force", "force_kernel"),
+            ("K1 mtm", "mtm_kernel"), ("K7 kpm_mf_asym", "kpm_mf_asym_kernel"), ("K6 kpm_mf", "kpm_mf_kernel"),
+            ("cuFFT", "fft"))
+
+
+def family(name: str) -> str:
+    for fam, key in FAMILIES:
+        if key in name:
+            return fam
+    return "other"
+
+
+def preconditioner_times(tbm, em, cfg, device, reps: int = 3) -> dict:
+    """Refresh and one f32 solve with the spectral and the KPM preconditioner
+    at the model's initial field (see the module docstring)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from .models.electron_phonon import ElectronPhononParameters
+    from .models.tight_binding import TightBindingParameters
+    from .ops.fermion_det import solve_MtM
+    from .ops.preconditioner import build_preconditioner
+    from .updates.context import initialize_qmc, make_fdm
+
+    rng = np.random.default_rng(cfg.seed)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=device)
+    elph = ElectronPhononParameters.from_model(cfg.beta, cfg.dtau, em, tbp, rng, device=device)
+    ctx, state = initialize_qmc(tbp, elph, use_preconditioner=False)
+    fdm = make_fdm(ctx, state.x)
+    gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
+    v0 = torch.randn(fdm.n_sites, generator=gen, dtype=torch.float64)
+    b = torch.randn((2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def timed(fn):
+        out = fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) / reps * 1e3
+
+    out = {}
+    for kind in ("spectral", "kpm"):
+        pre, refresh_ms = timed(lambda: build_preconditioner(kind, fdm, v0))
+        (x, st), solve_ms = timed(lambda: solve_MtM(fdm, b, precond=pre, tol=1e-5, maxiter=5000))
+        out[kind] = dict(refresh_ms=refresh_ms, solve_ms=solve_ms, iters=int(st.iters),
+                         converged=bool(st.converged))
+        print(f"{kind}: refresh {refresh_ms:.3f} ms; f32 solve (2 channels, tol 1e-5) {solve_ms:.3f} ms, "
+              f"{int(st.iters)} iterations, converged {bool(st.converged)}")
+    return out
+
+
 def main(argv=None) -> dict:
     import torch
     from torch.autograd import DeviceType
@@ -54,13 +123,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--L", type=int, default=12)
     ap.add_argument("--beta", type=float, default=12.0)
+    ap.add_argument("--alpha", type=float, default=0.6)
+    ap.add_argument("--preconditioner", default="spectral", choices=("spectral", "kpm", "auto"))
+    ap.add_argument("--compare-preconditioners", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--top", type=int, default=12, help="kernels listed")
     args = ap.parse_args(argv)
 
-    _, tbm, em = holstein_honeycomb_model(args.L, 1.0, 0.6, 0.0)
+    _, tbm, em = holstein_honeycomb_model(args.L, 1.0, args.alpha, 0.0)
     cfg = SimulationConfig(beta=args.beta, dtau=0.05, Nt=24, tol=1e-10, seed=1, mixed_precision=True,
-                           force_dtype="float32", preconditioner="spectral", n_walkers=args.walkers)
+                           force_dtype="float32", preconditioner=args.preconditioner, n_walkers=args.walkers)
     warm = run_updates(tbm, em, cfg, args.warmup, device=args.device)
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if args.device.startswith("cuda") else [])
     with profile(activities=activities) as prof:
@@ -77,9 +149,10 @@ def main(argv=None) -> dict:
             per_kernel[e.name][0] += t - s
             per_kernel[e.name][1] += 1
     n = max(len(windows), 1)
-    print(f"W={args.walkers} L={args.L} beta={args.beta}: unprofiled s/sweep {warm['sweep_s']}; "
+    print(f"W={args.walkers} L={args.L} beta={args.beta} alpha={args.alpha} {args.preconditioner}: "
+          f"unprofiled s/sweep {warm['sweep_s']}; "
           f"profiled s/sweep {md['sweep_s']}; iters/solve hmc {md['hmc_iters']:.3f} "
-          f"refl {md['reflection_iters']:.3f} swap {md['swap_iters']:.3f}")
+          f"refl {md['reflection_iters']:.3f} swap {md['swap_iters']:.3f}; kpm_active {md.get('kpm_active')}")
     print(f"trace: {len(windows)} sweep ranges, window {window_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
           f"idle share {1.0 - busy_us / window_us if window_us else float('nan'):.4f}")
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
@@ -87,10 +160,20 @@ def main(argv=None) -> dict:
         print(f"  {us / n / 1e3:10.3f} ms/sweep {count / n:9.1f} launches/sweep {us / window_us:7.2%}  {name[:100]}")
     rest = sum(us for _, (us, _) in rows[args.top:])
     print(f"  {rest / n / 1e3:10.3f} ms/sweep (the other {max(len(rows) - args.top, 0)} kernels)")
+    families = defaultdict(lambda: [0.0, 0])
+    for name, (us, count) in rows:
+        families[family(name)][0] += us
+        families[family(name)][1] += count
+    print("by family:")
+    for fam, (us, count) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {us / n / 1e3:10.3f} ms/sweep {count / n:9.1f} launches/sweep {us / window_us:7.2%}  {fam}")
     summary = dict(walkers=args.walkers, sweeps=len(windows), window_ms=window_us / 1e3, busy_ms=busy_us / 1e3,
                    idle_share=(1.0 - busy_us / window_us) if window_us else None,
                    unprofiled_sweep_s=warm["sweep_s"], profiled_sweep_s=md["sweep_s"],
-                   kernels_ms_per_sweep={k: v[0] / n / 1e3 for k, v in rows[:args.top]})
+                   kernels_ms_per_sweep={k: v[0] / n / 1e3 for k, v in rows[:args.top]},
+                   families_ms_per_sweep={k: v[0] / n / 1e3 for k, v in families.items()})
+    if args.compare_preconditioners:
+        summary["preconditioners"] = preconditioner_times(tbm, em, cfg, torch.device(args.device))
     print(json.dumps(summary))
     return summary
 

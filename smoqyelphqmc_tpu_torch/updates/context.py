@@ -89,9 +89,12 @@ def initialize_qmc(
     preconditioner: Optional[str] = None,
     mixed_precision: bool = False,
     force_dtype: str = "float64",
+    lanczos_v0: Optional[torch.Tensor] = None,
 ) -> tuple[QMCContext, QMCState]:
     """Context and initial state on the device of `elph` (preconditioner:
-    'auto' by default, 'spectral', or None)."""
+    'auto' by default, 'spectral', 'kpm', or None). A KPM preconditioner's
+    Lanczos iteration starts from `lanczos_v0` (N,), which the JAX package
+    draws from split(PRNGKey(seed))[1]."""
     structure = build_checkerboard_structure(np.asarray(tbp.neighbor_table), tbp.n_sites)
     ctx = QMCContext(
         tbp=tbp,
@@ -109,5 +112,5 @@ def initialize_qmc(
     x0 = elph.x.clone()
     precond = None
     if use_preconditioner:
-        precond = build_preconditioner(preconditioner or "auto", make_fdm(ctx, x0))
+        precond = build_preconditioner(preconditioner or "auto", make_fdm(ctx, x0), lanczos_v0)
     return ctx, QMCState(x=x0, precond=precond)

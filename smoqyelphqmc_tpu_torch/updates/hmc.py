@@ -17,12 +17,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from ..ops.bosonic import add_anharmonic_force, bosonic_action
 from ..ops.cg import CGStats
+from ..ops.kpm import KPMPreconditioner
 from ..ops.preconditioner import refresh_preconditioner
 from ..ops.pff import ForceResult, fermionic_action, fermionic_action_and_force, sample_pseudofermion_fields
 from ..ops.spectral_precond import SpectralPreconditioner
@@ -56,22 +57,30 @@ class HMCParams:
 class HMCDraws:
     """The trajectory's random numbers: timestep jitter u_dt ~ U(0,1),
     pseudofermion noise R (2, Ltau, N) ~ N(0, 1/2), momentum noise xi
-    (n_phonon, Ltau) ~ N(0, 1), acceptance u_acc ~ U(0,1)."""
+    (n_phonon, Ltau) ~ N(0, 1), acceptance u_acc ~ U(0,1), and the Lanczos
+    start vector v_pre0 (N,) ~ N(0, 1) of the trajectory-start refresh of a
+    KPM preconditioner (the JAX package's k_pre0; None for other chains)."""
 
     u_dt: float
     R: torch.Tensor
     xi: torch.Tensor
     u_acc: float
+    v_pre0: Optional[torch.Tensor] = None
 
 
-def draw_hmc(gen: torch.Generator, ctx: QMCContext) -> HMCDraws:
-    """Draws on the generator's device, moved to the context's device in float64."""
+def draw_hmc(gen: torch.Generator, ctx: QMCContext, precond=None) -> HMCDraws:
+    """Draws on the generator's device, moved to the context's device in
+    float64. v_pre0 is drawn, last, only when the chain carries a KPM
+    preconditioner, so the other chains keep their random streams."""
     f64, dev = torch.float64, ctx.device
     u_dt = float(torch.rand((), generator=gen, dtype=f64))
     R = torch.randn((2, ctx.Ltau, ctx.n_sites), generator=gen, dtype=f64) / math.sqrt(2.0)
     xi = torch.randn((ctx.elph.n_phonon, ctx.Ltau), generator=gen, dtype=f64)
     u_acc = float(torch.rand((), generator=gen, dtype=f64))
-    return HMCDraws(u_dt=u_dt, R=R.to(dev), xi=xi.to(dev), u_acc=u_acc)
+    v_pre0 = None
+    if isinstance(precond, KPMPreconditioner):
+        v_pre0 = torch.randn((ctx.n_sites,), generator=gen, dtype=f64).to(dev)
+    return HMCDraws(u_dt=u_dt, R=R.to(dev), xi=xi.to(dev), u_acc=u_acc, v_pre0=v_pre0)
 
 
 class HMCStats(NamedTuple):
@@ -193,7 +202,7 @@ def hmc_update(ctx: QMCContext, state: QMCState, params: HMCParams, draws):
     fdm0 = [make_fdm(ctx, xw) for xw in xs0]
     precond = state.precond
     if precond is not None and params.refresh_precond_at_start:  # once per trajectory, at its start
-        precond = refresh_preconditioner(precond, fdm0[0])
+        precond = refresh_preconditioner(precond, fdm0[0], ds[0].v_pre0)
 
     Phis, H0, pws = [], [], []
     for xw, fw, d in zip(xs0, fdm0, ds):

@@ -38,8 +38,8 @@ def port_chain_model(L=4, t=1.0, mu=0.1, Omega=1.0, alpha=0.5, beta=1.0, dtau=0.
         HolsteinCoupling(phonon_id=pid, orbital_id=0, displacement=[0], alpha_mean=alpha, ph_sym_form=True)
     )
     rng = np.random.default_rng(seed)
-    tbp = TightBindingParameters.from_model(tbm, rng)
-    elph = ElectronPhononParameters.from_model(beta, dtau, em, tbp, rng)
+    tbp = TightBindingParameters.from_model(tbm, rng, device="cpu")
+    elph = ElectronPhononParameters.from_model(beta, dtau, em, tbp, rng, device="cpu")
     return geo, tbm, tbp, em, elph
 
 
@@ -62,8 +62,8 @@ def port_honeycomb_model(L=2, t=1.0, mu=0.0, Omega=1.0, alpha=0.5, beta=1.0, dta
     em.add_holstein_coupling(HolsteinCoupling(phonon_id=p2, orbital_id=1, displacement=[0, 0], alpha_mean=alpha,
                                               ph_sym_form=ph_sym))
     rng = np.random.default_rng(seed)
-    tbp = TightBindingParameters.from_model(tbm, rng)
-    elph = ElectronPhononParameters.from_model(beta, dtau, em, tbp, rng)
+    tbp = TightBindingParameters.from_model(tbm, rng, device="cpu")
+    elph = ElectronPhononParameters.from_model(beta, dtau, em, tbp, rng, device="cpu")
     return geo, tbm, tbp, em, elph
 
 

@@ -11,7 +11,9 @@ solutions rtol 2e-4 / atol 2e-5, both converged (tests/test_pallas.py:65,
 :96); K3's iteration counts within one of the plain version's (same bf16
 preconditioner, f32 sums in another order); the force planes of K3 and K4
 rtol 1e-4 with atol 1e-5 of their largest value (the same f32 operations,
-contracted into FMAs in another order).
+contracted into FMAs in another order); K6 2e-4 and K7 5e-4 relative to
+max|y| (f32 Chebyshev recurrences with the affine map folded into the
+tables, tests/test_kpm_matrix_free.py:137,192).
 """
 
 import dataclasses
@@ -24,9 +26,10 @@ from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononParamete
 from smoqyelphqmc_tpu_torch.models.fermion_path_integral import build_path_integral
 from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
 from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingParameters
-from smoqyelphqmc_tpu_torch.ops import force, mtm, pcg, pcg_force
+from smoqyelphqmc_tpu_torch.ops import force, kpm_mf, mtm, pcg, pcg_force
 from smoqyelphqmc_tpu_torch.ops.checkerboard import build_checkerboard_structure
 from smoqyelphqmc_tpu_torch.ops.fermion_det import FermionDetMatrix
+from smoqyelphqmc_tpu_torch.ops.kpm import KPMPreconditioner
 from smoqyelphqmc_tpu_torch.ops.lambda_shift import build_lambda, ldiv_lambda_T
 from smoqyelphqmc_tpu_torch.ops.spectral_precond import build_spectral
 
@@ -214,3 +217,66 @@ def test_run_updates_fused_force_launches_k4(cuda_device):
                      device=cuda_device)
     assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
     assert force.FORCE.launches == 2 * 8 and force.FORCE.plain_calls == 0 and pcg_force.PCG_FORCE.launches == 0
+
+
+@pytest.mark.parametrize("L", [3, 24], ids=["N-18", "N-1152"])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_kernel_matches_plain(cuda_device, symmetric, L):
+    """K6 / K7 against their plain versions on a matrix-free preconditioner's
+    operands, two complex vectors of (Ltau, N) frequency planes."""
+    fdm = _fdm(cuda_device, symmetric, L=L)
+    gen = torch.Generator().manual_seed(6)
+    v0 = torch.randn(fdm.n_sites, generator=gen, dtype=torch.float64)
+    pre = KPMPreconditioner.build(fdm, v0, matrix_free=True)
+    assert pre.active and pre.orders.max() > 1
+    ops = pre.mf_operands()
+    ure, uim = torch.randn((2, 2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to(cuda_device)
+    counter = kpm_mf.KPM_MF if symmetric else kpm_mf.KPM_MF_ASYM
+    launches = counter.launches
+    got = kpm_mf.kpm_mf_apply(ops, ure, uim)
+    assert counter.launches == launches + 1
+    ref = (kpm_mf.kpm_mf_plain if symmetric else kpm_mf.kpm_mf_asym_plain)(ops, ure, uim)
+    scale = max(float(r.abs().max()) for r in ref)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    assert err <= (2e-4 if symmetric else 5e-4) * scale
+
+
+def test_kpm_mf_kernel_largest_tiles(cuda_device):
+    """Honeycomb L = 66 (N = 8712): K6's 16-site register tiles, which take
+    8192 < N <= 16384, against the plain version; K7's limit is 8192 sites,
+    so it refuses this N with the size."""
+    gen = torch.Generator().manual_seed(7)
+    v0 = torch.randn(2 * 66 * 66, generator=gen, dtype=torch.float64)
+    fdm = _fdm(cuda_device, True, L=66, beta=0.5)
+    pre = KPMPreconditioner.build(fdm, v0, matrix_free=True)
+    assert fdm.n_sites == 8712 and pre.active and pre.orders.max() > 1
+    ops = pre.mf_operands()
+    ure, uim = torch.randn((2, 1, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to(cuda_device)
+    launches = kpm_mf.KPM_MF.launches
+    got = kpm_mf.kpm_mf_apply(ops, ure, uim)
+    assert kpm_mf.KPM_MF.launches == launches + 1
+    ref = kpm_mf.kpm_mf_plain(ops, ure, uim)
+    scale = max(float(r.abs().max()) for r in ref)
+    assert max(float((g - r).abs().max()) for g, r in zip(got, ref)) <= 2e-4 * scale
+    asym = KPMPreconditioner.build(_fdm(cuda_device, False, L=66, beta=0.5), v0, matrix_free=True)
+    with pytest.raises(ValueError, match="N = 8712 sites exceeds the kernel's 8192"):
+        kpm_mf.kpm_mf_apply(asym.mf_operands(), ure, uim)
+
+
+@pytest.mark.parametrize("symmetric", SYM)
+def test_run_updates_kpm_launches_k6_k7(cuda_device, symmetric):
+    """preconditioner='kpm' at N = 1152 (matrix-free): every CG iteration
+    applies K1 and K6 (symmetric) or K7 (asymmetric), never a plain version."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+
+    geo, tbm, em = holstein_honeycomb_model(24, 1.0, 0.6, 0.0)
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], kpm_mf.KPM_MF, kpm_mf.KPM_MF_ASYM)
+    for c in counters:
+        c.reset()
+    cfg = SimulationConfig(beta=1.0, dtau=0.1, Nt=4, seed=2, symmetric=symmetric, preconditioner="kpm")
+    md = run_updates(tbm, em, cfg, 1, device=cuda_device)
+    assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all() and md["kpm_active"]
+    kpm = kpm_mf.KPM_MF if symmetric else kpm_mf.KPM_MF_ASYM
+    assert kpm.launches > 0 and mtm.MTM[torch.float32].launches > 0 and mtm.MTM[torch.float64].launches > 0
+    for c in counters:
+        assert c.plain_calls == 0, c.name

@@ -181,7 +181,8 @@ def _both_chains(seed=2, **kw):
     (_, _, jtbp, _, jelph), _ = both_models("honeycomb", **kw)
     opts = dict(mixed_precision=True, force_dtype="float32", preconditioner="spectral")
     jctx, jstate = jctx_mod.initialize_qmc(jtbp, jelph, seed=seed, **opts)
-    pctx, pstate = initialize_qmc(convert.tight_binding_parameters(jtbp), convert.electron_phonon_parameters(jelph),
+    pctx, pstate = initialize_qmc(convert.tight_binding_parameters(jtbp, device="cpu"),
+                                  convert.electron_phonon_parameters(jelph, device="cpu"),
                                   **opts)
     return jctx, jstate, pctx, pstate
 
@@ -252,7 +253,7 @@ def test_run_updates_on_cpu_uses_plain_versions():
     geo, tbm, em = holstein_honeycomb_model(2, 1.0, 0.5, 0.0)
     counters = (MTM[torch.float32], MTM[torch.float64], PCG)
     before = [(c.launches, c.plain_calls) for c in counters]
-    md = run_updates(tbm, em, SimulationConfig(beta=1.0, dtau=0.1, Nt=6, seed=7), 2)
+    md = run_updates(tbm, em, SimulationConfig(beta=1.0, dtau=0.1, Nt=6, seed=7), 2, device="cpu")
     after = [(c.launches, c.plain_calls) for c in counters]
     assert md["all_converged"] and all(np.isfinite(md["hmc_delta_H"]))
     assert md["x_final"].shape == (8, 10) and md["x_final"].dtype == torch.float64

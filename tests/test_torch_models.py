@@ -135,8 +135,8 @@ def test_convert_carries_parameters(name, kw):
     """convert.py turns the JAX package's parameters into the port's, equal to
     the port's own expansion of the same model."""
     (_, _, jtbp, _, jelph), (_, _, ptbp, _, pelph) = both_models(name, **kw)
-    ctbp = convert.tight_binding_parameters(jtbp)
-    celph = convert.electron_phonon_parameters(jelph)
+    ctbp = convert.tight_binding_parameters(jtbp, device="cpu")
+    celph = convert.electron_phonon_parameters(jelph, device="cpu")
     np.testing.assert_array_equal(ctbp.t0.numpy(), ptbp.t0.numpy())
     np.testing.assert_array_equal(ctbp.neighbor_table, ptbp.neighbor_table)
     assert ctbp.bond_slices == ptbp.bond_slices

@@ -11,14 +11,12 @@ to 1e-8 (test_pallas.py:276). Iteration counts are not compared: the bf16
 preconditioner of K2 and the f32 XLA one take different paths.
 """
 
-from types import SimpleNamespace
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_common import CASES, fdm_pair, np64, t32, t64
+from _torch_common import CASES, fdm_pair, np64, port_chain_model, t32, t64
 
 from smoqyelphqmc_tpu.ops.fermion_det import solve_MtM as jsolve
 from smoqyelphqmc_tpu.ops.fourier import AxisDFT as JAxisDFT
@@ -31,15 +29,17 @@ from smoqyelphqmc_tpu_torch.ops import pcg
 from smoqyelphqmc_tpu_torch.ops.cg import cg_solve
 from smoqyelphqmc_tpu_torch.ops.fermion_det import solve_MtM
 from smoqyelphqmc_tpu_torch.ops.fourier import AxisDFT, TauFourier
+from smoqyelphqmc_tpu_torch.ops.kpm import KPMPreconditioner
 from smoqyelphqmc_tpu_torch.ops.preconditioner import build_preconditioner
-from smoqyelphqmc_tpu_torch.ops.spectral_precond import build_spectral, spectral_apply
+from smoqyelphqmc_tpu_torch.ops.spectral_precond import SpectralPreconditioner, build_spectral, spectral_apply
+from smoqyelphqmc_tpu_torch.updates.context import initialize_qmc
 
 
 @pytest.mark.parametrize("Ltau", [8, 9, 240])
 def test_tau_fourier_matches(Ltau):
     rng = np.random.default_rng(Ltau)
     vre, vim = rng.standard_normal((2, 3, Ltau, 5))
-    jf, pf = JTauFourier.build(Ltau), TauFourier(Ltau)
+    jf, pf = JTauFourier.build(Ltau), TauFourier(Ltau, device="cpu")
     for pair, jpair in ((pf.forward(t64(vre), t64(vim)), jf.forward(jnp.asarray(vre), jnp.asarray(vim))),
                         (pf.forward(t64(vre)), jf.forward(jnp.asarray(vre))),
                         (pf.inverse(t64(vre), t64(vim)), jf.inverse(jnp.asarray(vre), jnp.asarray(vim)))):
@@ -75,7 +75,7 @@ def test_pcg_plain_matches_pallas_interpret(name, kw):
     jpre = jbuild_spectral(jfdm)
     fused = build_fused_pcg(jfdm, jpre, interpret=True)
     assert fused is not None
-    ppre = convert.spectral_preconditioner(jpre.Q, jpre.filt, jfdm.Ltau)
+    ppre = convert.spectral_preconditioner(jpre.Q, jpre.filt, jfdm.Ltau, device="cpu")
     b = np.random.default_rng(13).standard_normal((2, jfdm.Ltau, jfdm.n_sites)).astype(np.float32)
     xj, sj = fused(jnp.asarray(b), tol=1e-5, maxiter=200)
     xp, sp = pcg.SpectralPCG(pfdm, ppre)(t32(b), tol=1e-5, maxiter=200)
@@ -153,13 +153,18 @@ def test_cg_solve_f64_matches_jax():
 
 
 def test_preconditioner_kinds():
-    """spectral and auto are ported; kpm, and auto above 4000 sites, raise."""
+    """spectral, auto, kpm and none; auto picks KPM above 4000 sites, and a
+    KPM preconditioner needs its Lanczos start vector."""
     _, pfdm, *_ = fdm_pair("chain", dict(L=4, beta=0.4))
-    assert build_preconditioner("auto", pfdm) is not None
+    v0 = torch.ones(pfdm.n_sites, dtype=torch.float64)
+    assert isinstance(build_preconditioner("auto", pfdm), SpectralPreconditioner)
     assert build_preconditioner("none", pfdm) is None and build_preconditioner(None, pfdm) is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    pre = build_preconditioner("kpm", pfdm, v0)
+    assert isinstance(pre, KPMPreconditioner) and not pre.matrix_free
+    with pytest.raises(ValueError, match="start vector"):
         build_preconditioner("kpm", pfdm)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_preconditioner("auto", SimpleNamespace(n_sites=4001))
+    _, _, tbp, _, elph = port_chain_model(L=4001, beta=0.2)
+    _, state = initialize_qmc(tbp, elph, lanczos_v0=torch.ones(4001, dtype=torch.float64))
+    assert isinstance(state.precond, KPMPreconditioner) and state.precond.matrix_free
     with pytest.raises(ValueError):
         build_preconditioner("cheb", pfdm)

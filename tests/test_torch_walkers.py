@@ -95,7 +95,7 @@ def test_pcg_force_plain_matches_pallas_interpret(name, kw, warm):
     jpre = jbuild_spectral(jfdm)
     fused = build_fused_pcg(jfdm, jpre, interpret=True)
     assert fused is not None and fused.can_force
-    ppre = convert.spectral_preconditioner(jpre.Q, jpre.filt, jfdm.Ltau)
+    ppre = convert.spectral_preconditioner(jpre.Q, jpre.filt, jfdm.Ltau, device="cpu")
     want_p2 = bool(np.any(pelph.hol_ph_sym))
     x0 = None
     if warm:
@@ -140,7 +140,7 @@ def test_pcg_force_plain_walker_batch_matches_vmap():
 
     pf = FermionDetMatrix.from_path_integral(build_path_integral(ptbp, pelph, t64(xs)), pfdm.structure)
     pf = dataclasses.replace(pf, exp_nV=pf.exp_nV[:, None])
-    ppre = convert.spectral_preconditioner(jpre.Q, jpre.filt, jfdm.Ltau)
+    ppre = convert.spectral_preconditioner(jpre.Q, jpre.filt, jfdm.Ltau, device="cpu")
     xp, P1p, P2p, sp = pcg_force.solve_force(pf, ppre, t32(b), t32(Lam), x0=t32(x0), tol=TOL, maxiter=MAXITER)
     assert np.asarray(sj.converged).all() and sp.converged.shape == (2,) and bool(sp.converged.all())
     assert sp.iters.shape == (2,) and np.max(np.abs(sp.iters.numpy() - np.asarray(sj.iters))) <= 1
@@ -188,7 +188,7 @@ def test_fused_forces_match_jax_force_path(fused, fused_env, monkeypatch):
     jres = jforce(jnp.asarray(Phi), jelph, jfdm, jnp.asarray(x),
                   jplan(jelph, jstruct(np.asarray(jtbp.neighbor_table), jtbp.n_sites)), precond=jpre, tol=TOL,
                   maxiter=MAXITER, solve_dtype="float32")
-    ppre = convert.spectral_preconditioner(jpre.Q, jpre.filt, jfdm.Ltau)
+    ppre = convert.spectral_preconditioner(jpre.Q, jpre.filt, jfdm.Ltau, device="cpu")
     pres = fermionic_action_and_force(t64(Phi), pelph, pfdm, t64(x), build_force_plan(pelph, pfdm.structure),
                                       precond=ppre, tol=TOL, maxiter=MAXITER, solve_dtype="float32",
                                       fused_step=fused == "step", fused_force=fused == "force")
@@ -258,9 +258,10 @@ def _both_walker_chains(W, seed, **kw):
     opts = dict(mixed_precision=True, force_dtype="float32", preconditioner="spectral")
     jctx, jstate = jctx_mod.initialize_qmc(jtbp, jelph, seed=seed, **opts)
     jstates = jwalkers.init_walker_states(jctx, jstate, W, seed=seed + 1)
-    pctx, pstate = initialize_qmc(convert.tight_binding_parameters(jtbp), convert.electron_phonon_parameters(jelph),
+    pctx, pstate = initialize_qmc(convert.tight_binding_parameters(jtbp, device="cpu"),
+                                  convert.electron_phonon_parameters(jelph, device="cpu"),
                                   **opts)
-    pstates = convert.walker_states(jstates.x, precond=pstate.precond)
+    pstates = convert.walker_states(jstates.x, precond=pstate.precond, device="cpu")
     return jctx, jstates, pctx, pstates
 
 
@@ -355,13 +356,13 @@ def test_run_updates_walkers_on_cpu(mode):
               shared_precond=mode != "perwalker",
               force_dtype="float64" if mode == "shared-f64-forces" else "float32")
     k3 = pcg_force.PCG_FORCE.plain_calls
-    md = run_updates(tbm, em, SimulationConfig(**kw), 2)
+    md = run_updates(tbm, em, SimulationConfig(**kw), 2, device="cpu")
     assert pcg_force.PCG_FORCE.plain_calls - k3 == (2 * 4 if mode == "shared" else 0)
     assert md["all_converged"] and md["walker_converged"] == [True, True]
     assert np.isfinite(md["hmc_delta_H"]).all() and np.asarray(md["hmc_delta_H"]).shape == (2, 2)
     assert md["x_final"].shape == (2, 8, 10) and bool(md["x_final"].isfinite().all())
     assert md["precond_fallback_sweeps"] == (2 if mode == "perwalker" else 0)
     if mode == "perwalker":
-        md3 = run_updates(tbm, em, SimulationConfig(**dict(kw, n_walkers=3)), 2)
+        md3 = run_updates(tbm, em, SimulationConfig(**dict(kw, n_walkers=3)), 2, device="cpu")
         assert torch.equal(md3["x_final"][:2], md["x_final"])
         assert md3["hmc_delta_H"][:2] == md["hmc_delta_H"]
