@@ -39,9 +39,25 @@ Phases, one line each:
      version run;
  16. the same path with the asymmetric factorization (K7);
  17. a KPM chain (preconditioner='kpm', N=1152 > 1024, so matrix-free) on the
-     GPU and on the CPU: the chains must agree.
-Each path (5, 7, 10, 11, 15, 16) is driven with every kernel count set to 0
-just before it and read just after. Then one JSON line of kernel results,
+     GPU and on the CPU: the chains must agree;
+ 18. K8 (the complex-hopping matrix-free KPM apply, channel-mixing
+     checkerboard) against its plain version, symmetric and asymmetric, on
+     the complex chain's tables (t e^{0.7 i}, N=1152, beta=12, Ltau=240) with
+     live Lanczos bounds, u (2 vectors, re and im planes of (2, 240, 1152));
+ 19. the complex path: `run_updates` on that chain with preconditioner='kpm'
+     (matrix-free above 1024 sites), 2 symmetric sweeps and 1 asymmetric;
+     KPM must stay active, every solve converge, every Delta H be finite, K8
+     launch and none of K1-K4, K6, K7 (the complex M^dag M is plain PyTorch
+     by design, as in the JAX package);
+ 20. the same chain with preconditioner='auto' (the doubled-basis spectral
+     preconditioner), 1 sweep in each factorization;
+ 21. K2 in its asymmetric form against its plain version on the headline
+     tables, then 1 asymmetric headline sweep with 'auto' (the half-angle
+     spectral build; K1 and K2 launch);
+ 22. the complex KPM chain (N=1152, beta=1, dtau=0.1) on the GPU and on the
+     CPU: the chains must agree.
+Each path (5, 7, 10, 11, 15, 16, 19, 20, 21) is driven with every kernel
+count set to 0 just before it and read just after. Then one JSON line of kernel results,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
 and the operations it must do over the card's peak for their type (f32
 67 TFLOP/s, f64 34 TFLOP/s, bf16 989 TFLOP/s dense; H100 SXM data sheet),
@@ -63,6 +79,9 @@ from pathlib import Path
 HEADLINE = dict(L=12, beta=12.0, dtau=0.05, alpha=0.6, Omega=1.0, mu=0.0, Nt=24, tol=1e-10)
 # the JAX package's whole-driver large-N record (scripts/e2e_scaling.py:62,68-71)
 LARGE = dict(HEADLINE, L=48, alpha=1.5)
+# the complex chain of the JAX package's K8 record (scripts/kpm_cplx_ab.py:8,49,69;
+# tests/test_complex_hoppings.py:32): t e^{0.7 i}, N = 1152 > 1024 sites
+COMPLEX = dict(L=1152, beta=12.0, dtau=0.05, phase=0.7, alpha=0.5, Omega=1.0, mu=0.1, Nt=24, tol=1e-10)
 N_SWEEPS = 3
 N_WALKERS = 8
 N_WALKER_SWEEPS = 2
@@ -142,12 +161,12 @@ def mtm_bound(n_sys, Ltau, N, n_colors, es):
     return bound(nbytes, {"f32" if es == 4 else "f64": ops})
 
 
-def pcg_iteration_ops(Ltau, N, n_colors):
+def pcg_iteration_ops(Ltau, N, n_colors, symmetric=True):
     """One CG iteration of one (Ltau, N) system in K2 / K3: M^T M and ten
     vector operations per element in f32; the half-spectrum preconditioner's
     four products in bf16 (DFT rows, Q, Q^T, inverse DFT) and its filter."""
     Lh = Ltau // 2 if Ltau % 2 == 0 else Ltau
-    f32 = Ltau * N * (2 * b_flops(n_colors, True) + 4 + 10) + 2 * Lh * N
+    f32 = Ltau * N * (2 * b_flops(n_colors, symmetric) + 4 + 10) + 2 * Lh * N
     bf16 = 2 * (2 * Lh) * Ltau * N * 2 + 2 * (2 * Lh) * N * N * 2
     return f32, bf16
 
@@ -218,7 +237,7 @@ def phase_k1(fdm64, results, tag="K1", names=("mtm_f32", "mtm_f64"),
                              bound_by=bound_by)
 
 
-def phase_k2(fdm64, results):
+def phase_k2(fdm64, results, key="pcg"):
     import torch
 
     from smoqyelphqmc_tpu_torch.ops import mtm, pcg
@@ -235,6 +254,7 @@ def phase_k2(fdm64, results):
         n = torch.sqrt(torch.sum(rhs * rhs, dim=(1, 2), keepdim=True))
         return (rhs / n).contiguous(), n
 
+    tag = "K2" if fdm32.symmetric else "K2 asymmetric"
     rows = []
     bu, nb = unit(b)
     xk, ek, ik = pcg.pcg_cuda(fdm32, pre, bu, tol, maxiter)
@@ -248,7 +268,7 @@ def phase_k2(fdm64, results):
     rows.append(("warm", x0 + xkw * nb, ekw, ikw, x0 + xpw * nb, epw, ipw))
     torch.cuda.synchronize()
     max_err = 0.0
-    for tag, xk_, ek_, ik_, xp_, ep_, ip_ in rows:
+    for run, xk_, ek_, ik_, xp_, ep_, ip_ in rows:
         conv_k = bool(torch.isfinite(xk_).all()) and bool((ek_ < tol).all())
         conv_p = bool(torch.isfinite(xp_).all()) and bool((ep_ < tol).all())
         # true residuals |b - A x| / |b| in the plain f32 operator: the CG's
@@ -262,28 +282,28 @@ def phase_k2(fdm64, results):
         scale = float(xp_.abs().max())
         bound_ok = bool((diff <= 2e-5 * scale + 2e-4 * xp_.abs()).all())
         max_err = max(max_err, err)
-        say(f"K2 {tag}: converged kernel {conv_k} plain {conv_p}; iters kernel {int(ik_)} "
+        say(f"{tag} {run}: converged kernel {conv_k} plain {conv_p}; iters kernel {int(ik_)} "
             f"plain {int(ip_)}; true residual kernel {res_k:.3e} plain {res_p:.3e}; max|x| {scale:.4g}; "
             f"max |x_kernel - x_plain| {err:.3e} (rtol 2e-4, atol 2e-5 max|x|: {bound_ok})")
         if not (conv_k and conv_p):
-            fail(f"K2 {tag} solve did not converge (kernel {conv_k}, plain {conv_p})")
+            fail(f"{tag} {run} solve did not converge (kernel {conv_k}, plain {conv_p})")
         if not bound_ok:
-            fail(f"K2 {tag} solve: kernel and plain solutions differ beyond the tolerance")
+            fail(f"{tag} {run} solve: kernel and plain solutions differ beyond the tolerance")
         if not res_k <= max(2 * tol, 2 * res_p):
-            fail(f"K2 {tag} solve: true residual {res_k:.3e} of the kernel's solution exceeds the plain one's")
+            fail(f"{tag} {run} solve: true residual {res_k:.3e} of the kernel's solution exceeds the plain one's")
     ms = cuda_ms(lambda: pcg.pcg_cuda(fdm32, pre, bu, tol, maxiter), 5)
     plain_ms = cuda_ms(lambda: pcg.pcg_plain(fdm32, pre, bu, tol, maxiter), 2)
     lib_grid = pcg._build.load_library().smoqy_pcg_grid(fdm32.n_sites)
     # the timed cold solve: its iterations for each system, b in, x out, the
     # preconditioner's operands and the tables read once
     Ltau, N, nc = fdm32.Ltau, fdm32.n_sites, fdm32.cb.n_colors
-    f32_it, bf16_it = pcg_iteration_ops(Ltau, N, nc)
+    f32_it, bf16_it = pcg_iteration_ops(Ltau, N, nc, fdm32.symmetric)
     n_it = int(rows[0][3]) * bu.shape[0]
     bound_ms, bound_by = bound(4 * (2 * bu.numel() + Ltau * N) + precond_bytes(Ltau, N) + table_bytes(N, nc, 4),
                                {"f32": n_it * f32_it, "bf16": n_it * bf16_it})
-    say(f"K2 cold solve time: kernel {ms:.3f} ms plain {plain_ms:.3f} ms (grid {lib_grid} CTAs); "
+    say(f"{tag} cold solve time: kernel {ms:.3f} ms plain {plain_ms:.3f} ms (grid {lib_grid} CTAs); "
         f"bound {bound_ms:.4f} ms by {bound_by}")
-    results["pcg"] = dict(name="pcg", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/pcg.cu",
+    results[key] = dict(name="pcg", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/pcg.cu",
                           replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:495",
                           max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -293,18 +313,20 @@ def all_counters():
     import torch
 
     from smoqyelphqmc_tpu_torch.ops.force import FORCE
-    from smoqyelphqmc_tpu_torch.ops.kpm_mf import KPM_MF, KPM_MF_ASYM
+    from smoqyelphqmc_tpu_torch.ops.kpm_mf import KPM_MF, KPM_MF_ASYM, KPM_MF_CPLX
     from smoqyelphqmc_tpu_torch.ops.mtm import MTM
     from smoqyelphqmc_tpu_torch.ops.pcg import PCG
     from smoqyelphqmc_tpu_torch.ops.pcg_force import PCG_FORCE
 
     return {"mtm_f32": MTM[torch.float32], "mtm_f64": MTM[torch.float64], "pcg": PCG,
-            "pcg_force": PCG_FORCE, "force": FORCE, "kpm_mf": KPM_MF, "kpm_mf_asym": KPM_MF_ASYM}
+            "pcg_force": PCG_FORCE, "force": FORCE, "kpm_mf": KPM_MF, "kpm_mf_asym": KPM_MF_ASYM,
+            "kpm_mf_cplx": KPM_MF_CPLX}
 
 
-def drive_path(run, path_kernels):
+def drive_path(run, path_kernels, only=False):
     """Run one path with every count set to 0 just before it and read just
-    after; fail if a kernel of the path never launched or a plain version ran.
+    after; fail if a kernel of the path never launched, if a plain version
+    ran, or (only=True) if a kernel off the path launched.
     Returns (run's result, {name: (launches, plain calls)})."""
     counters = all_counters()
     for c in counters.values():
@@ -314,18 +336,21 @@ def drive_path(run, path_kernels):
     for k in path_kernels:
         if counts[k][0] <= 0:
             fail(f"kernel {k} never launched on its path")
+    for k, (launches, _) in counts.items():
+        if only and k not in path_kernels and launches != 0:
+            fail(f"kernel {k} launched {launches} times on a path that must not reach it")
     for k, (_, plain) in counts.items():
         if plain != 0:
             fail(f"the plain version of {k} ran {plain} times on a path")
     return out, counts
 
 
-def headline_config(**kw):
+def headline_config(h=HEADLINE, **kw):
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig
 
-    h = HEADLINE
-    return SimulationConfig(beta=h["beta"], dtau=h["dtau"], Nt=h["Nt"], tol=h["tol"], seed=1,
-                            mixed_precision=True, force_dtype="float32", preconditioner="spectral", **kw)
+    opts = dict(beta=h["beta"], dtau=h["dtau"], Nt=h["Nt"], tol=h["tol"], seed=1, mixed_precision=True,
+                force_dtype="float32", preconditioner="spectral")
+    return SimulationConfig(**{**opts, **kw})
 
 
 def phase_main(results, card):
@@ -360,15 +385,20 @@ def rounded(v, nd=6):
     return [rounded(u, nd) for u in v] if isinstance(v, list) else round(v, nd)
 
 
-def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral"):
+def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral", complex_chain=False):
     """The same chain on a small model on the GPU (kernels) and the CPU (plain
     versions): the accept decisions must match and the fields agree to 1e-4
     relative (the f32 force solves stop at 1e-5 relative in both, with sums in
-    another order, so forces may differ at that level)."""
+    another order, so forces may differ at that level). The model is the
+    honeycomb, or the complex chain of L sites."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
-    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model, holstein_honeycomb_model
 
-    geo, tbm, em = holstein_honeycomb_model(L, 1.0, 0.6, 0.0)
+    if complex_chain:
+        h = COMPLEX
+        geo, tbm, em = complex_chain_model(L, 1.0, h["phase"], h["mu"], h["Omega"], h["alpha"])
+    else:
+        geo, tbm, em = holstein_honeycomb_model(L, 1.0, 0.6, 0.0)
     cfg = SimulationConfig(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner=preconditioner, n_walkers=n_walkers)
     t0 = time.perf_counter()
     gpu = run_updates(tbm, em, cfg, 3, device="cuda")
@@ -379,13 +409,15 @@ def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral")
     err = float((xg - xc).abs().max() / xc.abs().max())
     same = all(gpu[f"{k}_acceptance_rate"] == cpu[f"{k}_acceptance_rate"] for k in ("reflection", "swap", "hmc"))
     kpm = {d: md.get("kpm_active") for d, md in (("gpu", gpu), ("cpu", cpu))}
-    say(f"small-model reference (L={L}, N={gpu['n_sites']}, beta={beta}, {preconditioner}, W={n_walkers}): GPU vs "
+    model = "complex chain" if complex_chain else "honeycomb"
+    say(f"small-model reference ({model} L={L}, N={gpu['n_sites']}, beta={beta}, {preconditioner}, W={n_walkers}): "
+        f"GPU vs "
         f"CPU field max rel err {err:.3e}; same acceptance {same}; dH gpu {rounded(gpu['hmc_delta_H'])} "
         f"cpu {rounded(cpu['hmc_delta_H'])}; hmc iters/solve gpu {gpu['hmc_iters']:.2f} cpu {cpu['hmc_iters']:.2f}; "
         f"kpm_active {kpm}; {t1 - t0:.1f} s GPU, {t2 - t1:.1f} s CPU")
     if not (same and err <= 1e-4 and gpu["all_converged"] and cpu["all_converged"]):
-        fail(f"the GPU chain disagrees with the CPU reference on the small model (L={L}, {preconditioner}, "
-             f"W={n_walkers})")
+        fail(f"the GPU chain disagrees with the CPU reference on the small model ({model} L={L}, "
+             f"{preconditioner}, W={n_walkers})")
     if preconditioner == "kpm" and kpm != {"gpu": True, "cpu": True}:
         fail(f"the KPM preconditioner of the GPU-vs-CPU chain deactivated: {kpm}")
 
@@ -692,6 +724,159 @@ def phase_large_path(results, card, symmetric, n_sweeps):
     if not md["all_converged"] or not all(math.isfinite(d) for d in md["hmc_delta_H"]):
         fail("the large-N path did not converge or has a non-finite Delta H")
 
+def complex_model(device, h=COMPLEX):
+    """The complex chain's expanded parameters (seed 0): (tbm, em, tbp, elph)."""
+    import numpy as np
+
+    from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononParameters
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
+    from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingParameters
+
+    geo, tbm, em = complex_chain_model(h["L"], 1.0, h["phase"], h["mu"], h["Omega"], h["alpha"])
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=device)
+    return tbm, em, tbp, ElectronPhononParameters.from_model(h["beta"], h["dtau"], em, tbp, rng, device=device)
+
+
+def cplx_bbar_flops(n_colors: int, symmetric: bool) -> int:
+    """Operations per site of one channel-mixing Bbar application on a
+    channel pair: each color is re' = C re + S re[p] - S_im im[p] and the
+    same for im' (10); the diagonal two multiplies; the symmetric Bbar sweeps
+    the colors twice."""
+    return (2 if symmetric else 1) * 10 * n_colors + 2
+
+
+def phase_kpm_cplx_kernel(results, symmetric):
+    """K8 against its plain version on the complex chain's matrix-free KPM
+    operands at the path's shape: one complex vector, the channel pair's
+    frequency planes (240, 1152) each (each solve's right-hand side is one
+    pair), the coefficient planes (240, C_pad), live orders from the
+    preconditioner. Two vectors are checked as well, not timed."""
+    import torch
+
+    from smoqyelphqmc_tpu_torch.models.fermion_path_integral import build_path_integral
+    from smoqyelphqmc_tpu_torch.ops import kpm_mf
+    from smoqyelphqmc_tpu_torch.ops.checkerboard import build_checkerboard_structure
+    from smoqyelphqmc_tpu_torch.ops.fermion_det import FermionDetMatrix
+    from smoqyelphqmc_tpu_torch.ops.kpm import KPMPreconditioner
+
+    *_, tbp, elph = complex_model(torch.device("cuda"))
+    structure = build_checkerboard_structure(tbp.neighbor_table, tbp.n_sites)
+    fdm = FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph), structure, symmetric=symmetric)
+    v0 = torch.randn(2 * fdm.n_sites, generator=torch.Generator(device="cpu").manual_seed(18), dtype=torch.float64)
+    pre = KPMPreconditioner.build(fdm, v0)
+    if not (pre.complex_pair and pre.matrix_free and pre.active):
+        fail(f"the complex chain's KPM preconditioner is not an active matrix-free complex one (complex_pair "
+             f"{pre.complex_pair}, matrix_free {pre.matrix_free}, active {pre.active})")
+    ops = pre.mf_operands()
+    gen = torch.Generator(device="cpu").manual_seed(19)
+    ure, uim = torch.randn((2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to("cuda")
+    tol = 2e-4 if symmetric else 5e-4
+
+    def rel_err(u_re, u_im):
+        got = kpm_mf.kpm_mf_cplx_cuda(ops, u_re, u_im)
+        ref = kpm_mf.kpm_mf_cplx_plain(ops, u_re, u_im)
+        scale = max(float(r.abs().max()) for r in ref)
+        return max(float((g - r).abs().max()) for g, r in zip(got, ref)), scale
+
+    err, scale = rel_err(ure, uim)
+    u2 = torch.randn((2, 2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to("cuda")
+    err2, scale2 = rel_err(*u2)
+    ms = cuda_ms(lambda: kpm_mf.kpm_mf_cplx_cuda(ops, ure, uim), 20)
+    plain_ms = cuda_ms(lambda: kpm_mf.kpm_mf_cplx_plain(ops, ure, uim), 2)
+    # the single vector's u in and y out once, the coefficient planes, the
+    # tables C, S, S_im and partners, expV/half, orders and the sort;
+    # operations per site for every order step: one channel-mixing Bbar, the
+    # recurrence on the pair (10) and the coefficient update (4 real, 8 with
+    # the asymmetric passes' i-rotation)
+    Ltau, N, nc = fdm.Ltau, fdm.n_sites, fdm.cb.n_colors
+    orders = pre.orders.astype(int)
+    C_pad = ops.coefs_re.shape[1]
+    nbytes = 2 * 2 * ure.numel() * 4 + (1 if symmetric else 2) * Ltau * C_pad * 4 \
+        + nc * N * (3 * 4 + 4) + N * 4 + 2 * Ltau * 4
+    if symmetric:
+        ops_f32 = N * int(sum(2 + (o - 1) * (cplx_bbar_flops(nc, True) + 14) for o in orders))
+    else:
+        ops_f32 = 2 * N * int(sum(6 + (o - 1) * (cplx_bbar_flops(nc, False) + 18) for o in orders))
+    bound_ms, bound_by = bound(nbytes, {"f32": ops_f32})
+    kind = "symmetric" if symmetric else "asymmetric"
+    say(f"K8 {kind} u 2 x ({Ltau}, {N}), coefficients ({Ltau}, {C_pad}): bounds [{pre.lo:.4f}, {pre.hi:.4f}]; "
+        f"max|S_im| {float(ops.S_im.abs().max()):.4f}; live orders max {orders.max()} sum {orders.sum()}; "
+        f"max abs err {err:.3e} at max|y| {scale:.4g} (rel {err / scale:.3e}, tol {tol:g}; two vectors "
+        f"rel {err2 / scale2:.3e}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+    if not (err <= tol * scale and err2 <= tol * scale2):
+        fail(f"K8 ({kind}) disagrees with its plain version: {err / scale:.3e}, two vectors {err2 / scale2:.3e} "
+             f"> {tol:g}")
+    results["kpm_mf_cplx" if symmetric else "kpm_mf_cplx_asym"] = dict(
+        name="kpm_mf_cplx", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/kpm_mf.cu",
+        replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:1307", max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_cplx_path(results, card, symmetric, n_sweeps, preconditioner):
+    """The complex path: `run_updates` on the complex chain. With 'kpm' K8 is
+    the only kernel launched; with 'auto' (the doubled-basis spectral
+    preconditioner) none is. The complex M^dag M runs as plain PyTorch (its
+    calls are counted on ops.fermion_det.CPLX_MTM, by dtype)."""
+    import math
+
+    import torch
+
+    from smoqyelphqmc_tpu_torch.driver import run_updates
+    from smoqyelphqmc_tpu_torch.ops.fermion_det import CPLX_MTM
+
+    h = COMPLEX
+    tbm, em, *_ = complex_model("cpu")
+    cfg = headline_config(h, preconditioner=preconditioner, symmetric=symmetric)
+    kpm = preconditioner == "kpm"
+    for c in CPLX_MTM.values():
+        c.reset()
+    md, counts = drive_path(lambda: run_updates(tbm, em, cfg, n_sweeps, device=MAIN_DEVICE),
+                            ("kpm_mf_cplx",) if kpm else (), only=True)
+    n_solves = n_sweeps * (2 + h["Nt"] + 1)
+    kind = "symmetric" if symmetric else "asymmetric"
+    if kpm:
+        results["kpm_mf_cplx"]["launches"] = results["kpm_mf_cplx"].get("launches", 0) + counts["kpm_mf_cplx"][0]
+    say(f"complex path ({kind}, {preconditioner}) on {card}: {n_sweeps} sweep(s) N={md['n_sites']} "
+        f"phase={h['phase']} beta={h['beta']} Ltau={md['Ltau']}; kpm_active {md.get('kpm_active')}; s/sweep "
+        f"{[round(t, 4) for t in md['sweep_s']]} (init {md['t_init_s']:.3f} s); acceptance refl "
+        f"{md['reflection_acceptance_rate']:.3f} swap {md['swap_acceptance_rate']:.3f} hmc "
+        f"{md['hmc_acceptance_rate']:.3f}; iters/solve refl {md['reflection_iters']:.2f} swap "
+        f"{md['swap_iters']:.2f} hmc {md['hmc_iters']:.2f}; K8 launches per solve "
+        f"{counts['kpm_mf_cplx'][0] / n_solves:.2f}; plain complex M^dag M calls per sweep "
+        f"f32 {CPLX_MTM[torch.float32].plain_calls / n_sweeps:.1f} f64 {CPLX_MTM[torch.float64].plain_calls / n_sweeps:.1f}; "
+        f"dH {rounded(md['hmc_delta_H'], 5)}; launches/plain calls {counts}")
+    if kpm and md.get("kpm_active") is not True:
+        fail(f"the complex path did not keep an active KPM preconditioner (kpm_active {md.get('kpm_active')})")
+    if not md["all_converged"] or not all(math.isfinite(d) for d in md["hmc_delta_H"]):
+        fail(f"the complex path ({kind}, {preconditioner}) did not converge or has a non-finite Delta H")
+    if any(c.plain_calls <= 0 for c in CPLX_MTM.values()):
+        fail("the complex path never applied the complex M^dag M in f32 and f64")
+
+
+def phase_asym_headline(results, card):
+    """Item 13 on the headline: K2 in its asymmetric form against its plain
+    version, then 1 asymmetric sweep with 'auto' (the half-angle spectral
+    preconditioner), K1 and K2 launching."""
+    import math
+
+    import torch
+
+    from smoqyelphqmc_tpu_torch.driver import run_updates
+    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
+
+    phase_k2(headline_fdm(torch.device("cuda"), symmetric=False), results, key="pcg_asym")
+    h = HEADLINE
+    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    cfg = headline_config(preconditioner="auto", symmetric=False)
+    md, counts = drive_path(lambda: run_updates(tbm, em, cfg, 1, device=MAIN_DEVICE), ("mtm_f32", "mtm_f64", "pcg"))
+    say(f"asymmetric headline path on {card}: 1 sweep; s/sweep {[round(t, 4) for t in md['sweep_s']]}; "
+        f"acceptance hmc {md['hmc_acceptance_rate']:.3f}; iters/solve refl {md['reflection_iters']:.2f} swap "
+        f"{md['swap_iters']:.2f} hmc {md['hmc_iters']:.2f}; dH {rounded(md['hmc_delta_H'], 5)}; "
+        f"launches/plain calls {counts}")
+    if not md["all_converged"] or not all(math.isfinite(d) for d in md["hmc_delta_H"]):
+        fail("the asymmetric headline path did not converge or has a non-finite Delta H")
+
 
 def main() -> None:
     try:
@@ -740,8 +925,21 @@ def main() -> None:
     phase_large_path(results, card, symmetric=True, n_sweeps=N_LARGE_SWEEPS)
     phase_large_path(results, card, symmetric=False, n_sweeps=1)
     phase_small_reference(L=24, beta=1.0, preconditioner="kpm")
+    phase_kpm_cplx_kernel(results, symmetric=True)
+    phase_kpm_cplx_kernel(results, symmetric=False)
+    phase_cplx_path(results, card, symmetric=True, n_sweeps=2, preconditioner="kpm")
+    phase_cplx_path(results, card, symmetric=False, n_sweeps=1, preconditioner="kpm")
+    phase_cplx_path(results, card, symmetric=True, n_sweeps=1, preconditioner="auto")
+    phase_cplx_path(results, card, symmetric=False, n_sweeps=1, preconditioner="auto")
+    phase_asym_headline(results, card)
+    phase_small_reference(L=COMPLEX["L"], beta=1.0, preconditioner="kpm", complex_chain=True)
+    # K8's entry carries its symmetric instantiation's times (the asymmetric
+    # one's are on its own line above), the larger error of the two, and the
+    # launches of both complex KPM paths
+    results["kpm_mf_cplx"]["max_abs_err"] = max(results[k]["max_abs_err"] for k in ("kpm_mf_cplx", "kpm_mf_cplx_asym"))
     kernels = []
-    for k in ("mtm_f32", "mtm_f64", "pcg", "pcg_force", "force", "mtm_irregular_f32", "kpm_mf", "kpm_mf_asym"):
+    for k in ("mtm_f32", "mtm_f64", "pcg", "pcg_force", "force", "mtm_irregular_f32", "kpm_mf", "kpm_mf_asym",
+              "kpm_mf_cplx"):
         r = results[k]
         # no single PyTorch call computes any of these functions from their
         # operands (checkerboard tables, a whole preconditioned solve, a

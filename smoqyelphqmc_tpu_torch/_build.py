@@ -43,6 +43,8 @@ _SIGNATURES = {
     "smoqy_kpm_mf_max_sites": [_I],
     "smoqy_kpm_mf": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P],
     "smoqy_kpm_mf_asym": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P],
+    "smoqy_kpm_mf_cplx_max_sites": [],
+    "smoqy_kpm_mf_cplx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -8,12 +8,16 @@ index tables stay host NumPy arrays.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .models.electron_phonon import ElectronPhononParameters
+from .models.fermion_path_integral import FermionPathIntegral
 from .models.tight_binding import TightBindingParameters
-from .ops.checkerboard import CheckerboardOp
+from .ops.checkerboard import CheckerboardOp, CheckerboardStructure
+from .ops.fermion_det import FermionDetMatrix
 from .ops.fourier import TauFourier
 from .ops import kpm
 from .ops.kpm import AveragedPropagator, KPMPreconditioner
@@ -25,9 +29,12 @@ def _t(a, device, dtype=torch.float64) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=np.float64), dtype=dtype, device=device)
 
 
+def _t_opt(a, device, dtype=torch.float64):
+    return None if a is None else _t(a, device, dtype)
+
+
 def tight_binding_parameters(tbp, device="cuda") -> TightBindingParameters:
-    if getattr(tbp, "t0_im", None) is not None:
-        raise NotImplementedError("complex hoppings are not ported yet (ROADMAP Queue 1, item 14)")
+    """Tight-binding parameters, complex hoppings (t0_im) included."""
     return TightBindingParameters(
         t0=_t(tbp.t0, device),
         eps=_t(tbp.eps, device),
@@ -37,7 +44,37 @@ def tight_binding_parameters(tbp, device="cuda") -> TightBindingParameters:
         bond_slices=tuple(tuple(s) for s in tbp.bond_slices),
         n_sites=int(tbp.n_sites),
         n_orbitals=int(tbp.n_orbitals),
+        t0_im=_t_opt(getattr(tbp, "t0_im", None), device),
     )
+
+
+def path_integral(fpi, device="cuda") -> FermionPathIntegral:
+    """A fermion path integral: V, t and, for complex hoppings, t_im."""
+    return FermionPathIntegral(V=_t(fpi.V, device), t=_t(fpi.t, device), dtau=float(fpi.dtau), Ltau=int(fpi.Ltau),
+                               n_sites=int(fpi.n_sites), static_hops=bool(fpi.static_hops),
+                               t_im=_t_opt(fpi.t_im, device))
+
+
+def checkerboard_op(cb, device="cuda", dtype=torch.float64) -> CheckerboardOp:
+    """Checkerboard planes C, S, S_im (None for real hoppings) and the partners."""
+    return CheckerboardOp(C=_t(cb.C, device, dtype), S=_t(cb.S, device, dtype),
+                          partner=torch.as_tensor(np.asarray(cb.partner), dtype=torch.long, device=device),
+                          S_im=_t_opt(cb.S_im, device, dtype))
+
+
+def fermion_det_matrix(fdm, device="cuda") -> FermionDetMatrix:
+    """A fermion matrix with its propagator factors (sinh_hop_im and cb.S_im
+    for complex hoppings) and its checkerboard structure."""
+    st = fdm.structure
+    structure = CheckerboardStructure(**{f.name: np.asarray(getattr(st, f.name))
+                                         for f in dataclasses.fields(CheckerboardStructure)
+                                         if f.name != "color_slices"},
+                                      color_slices=tuple(tuple(int(i) for i in c) for c in st.color_slices))
+    return FermionDetMatrix(exp_nV=_t(fdm.exp_nV, device), cb=checkerboard_op(fdm.cb, device),
+                            cosh_hop=_t(fdm.cosh_hop, device), sinh_hop=_t(fdm.sinh_hop, device),
+                            symmetric=bool(fdm.symmetric), structure=structure, Ltau=int(fdm.Ltau),
+                            n_sites=int(fdm.n_sites), static_hops=bool(fdm.static_hops),
+                            sinh_hop_im=_t_opt(fdm.sinh_hop_im, device))
 
 
 def electron_phonon_parameters(elph, device="cuda", x=None) -> ElectronPhononParameters:
@@ -70,13 +107,16 @@ def phonon_field(x, device="cuda") -> torch.Tensor:
     return _t(x, device)
 
 
-def spectral_preconditioner(Q, filt, Ltau: int, dtype: str = "float32", device="cuda") -> SpectralPreconditioner:
-    """A spectral preconditioner from given Q (N, N) and filt (Ltau, N)."""
+def spectral_preconditioner(Q, filt, Ltau: int, dtype: str = "float32", device="cuda",
+                            complex_pair: bool = False) -> SpectralPreconditioner:
+    """A spectral preconditioner from given Q (N, N) and filt (Ltau, N); with
+    complex_pair, the doubled-basis Q (2N, 2N) and filt (Ltau, 2N) of complex
+    hoppings."""
     dt = {"float32": torch.float32, "float64": torch.float64}[dtype]
     Q = _t(Q, device, dt)
     return SpectralPreconditioner(
         Q=Q, filt=_t(filt, device, dt), fft=TauFourier(Ltau, dtype=dt, device=device),
-        Ltau=int(Ltau), n_sites=Q.shape[0], dtype=dtype,
+        Ltau=int(Ltau), n_sites=Q.shape[0] // (2 if complex_pair else 1), dtype=dtype, complex_pair=complex_pair,
     )
 
 
@@ -84,22 +124,16 @@ def kpm_preconditioner(pre, device="cuda") -> KPMPreconditioner:
     """The port's KPMPreconditioner carrying a JAX KPMPreconditioner's state:
     Bbar's tables, the buffered bounds, the activation flag, the coefficient
     planes (one bucket), order_clip_count, the dense matrices of a dense
-    preconditioner and the static plan; the live orders follow from the
-    bounds."""
-    if pre.complex_pair:
-        raise NotImplementedError("complex hoppings are not ported yet (ROADMAP Queue 1, item 14)")
+    preconditioner (2N x 2N for complex hoppings) and the static plan; the
+    live orders follow from the bounds."""
     consts = {"rbuf": kpm.RBUF, "n_lanczos": kpm.N_LANCZOS, "a2": kpm.A2,
               "a1": 2.0 * kpm.A1 if pre.symmetric else kpm.A1, "dtype": "float32"}
     differ = {k: getattr(pre, k) for k, v in consts.items() if getattr(pre, k) != v}
     if differ:
         raise ValueError(f"the port's KPM preconditioner keeps the JAX defaults {consts}; this state has {differ}")
     dt = kpm.APPLY_DTYPE
-    cb = pre.bbar.cb
-    bbar = AveragedPropagator(
-        cb=CheckerboardOp(C=_t(cb.C, device), S=_t(cb.S, device),
-                          partner=torch.as_tensor(np.asarray(cb.partner), dtype=torch.long, device=device)),
-        expV=_t(pre.bbar.expV, device), symmetric=bool(pre.symmetric),
-    )
+    bbar = AveragedPropagator(cb=checkerboard_op(pre.bbar.cb, device), expV=_t(pre.bbar.expV, device),
+                              symmetric=bool(pre.symmetric))
     lo, hi = float(pre.lo), float(pre.hi)
     caps = np.asarray(pre.caps)
     phi = np.asarray(pre.phi)

@@ -13,7 +13,8 @@ preconditioner's diagnostics when the chain carries one, and the per-update
 flags a caller needs to check the run.
 
 A KPM preconditioner ('kpm', or 'auto' above 4000 sites) runs at W = 1: its
-initial Lanczos start vector is the first draw of the chain's generator.
+initial Lanczos start vector is the first draw of the chain's generator
+(length 2N for complex hoppings). Complex hoppings run at W = 1.
 """
 
 from __future__ import annotations
@@ -121,8 +122,14 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     if kind == "kpm" and cfg.n_walkers > 1:
         raise NotImplementedError("the walker path with a KPM preconditioner is not ported yet "
                                   "(ROADMAP Queue 1, item 20)")
+    if tbp.t0_im is not None and cfg.n_walkers > 1:
+        raise NotImplementedError("the walker path with complex hoppings is not ported yet "
+                                  "(ROADMAP Queue 1, item 21)")
     gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
-    v0 = torch.randn((tbp.n_sites,), generator=gen, dtype=torch.float64) if kind == "kpm" else None
+    v0 = None
+    if kind == "kpm":  # the doubled (re, im) basis for complex hoppings
+        v0 = torch.randn((2 * tbp.n_sites if tbp.t0_im is not None else tbp.n_sites,), generator=gen,
+                         dtype=torch.float64)
     t0 = time.perf_counter()
     ctx, state = initialize_qmc(
         tbp, elph, symmetric=cfg.symmetric, tol=cfg.tol, maxiter=cfg.maxiter, eta=cfg.eta,

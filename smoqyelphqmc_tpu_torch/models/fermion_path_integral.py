@@ -1,11 +1,15 @@
 """Fermion path integral: V(tau, site) and t(tau, hop) as a pure function of x.
 
 Port of smoqyelphqmc_tpu/models/fermion_path_integral.py (Holstein couplings;
-without SSH couplings the hoppings carry no tau dependence, `static_hops`)."""
+without SSH couplings the hoppings carry no tau dependence, `static_hops`).
+Complex hoppings carry their imaginary parts in `t_im` (None for real ones);
+the SSH dressing of the imaginary part waits with the SSH couplings (ROADMAP
+Queue 1, item 15)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -16,14 +20,16 @@ from .tight_binding import TightBindingParameters
 @dataclasses.dataclass
 class FermionPathIntegral:
     V: torch.Tensor  # (..., Ltau, n_sites) eps - mu + Holstein terms; leading axes are walkers
-    t: torch.Tensor  # (Ltau, n_hops)
+    t: torch.Tensor  # (Ltau, n_hops) real parts
     dtau: float
     Ltau: int
     n_sites: int
     static_hops: bool = True
+    t_im: Optional[torch.Tensor] = None  # (Ltau, n_hops) imaginary parts; None for real hoppings
 
     def to_dtype(self, dtype: torch.dtype) -> "FermionPathIntegral":
-        return dataclasses.replace(self, V=self.V.to(dtype), t=self.t.to(dtype))
+        return dataclasses.replace(self, V=self.V.to(dtype), t=self.t.to(dtype),
+                                   t_im=None if self.t_im is None else self.t_im.to(dtype))
 
 
 def holstein_potential(elph: ElectronPhononParameters, x: torch.Tensor) -> torch.Tensor:
@@ -43,7 +49,8 @@ def build_path_integral(
     x: torch.Tensor | None = None,
 ) -> FermionPathIntegral:
     """V[l, i] = eps_i - mu + sum_{holstein c -> i} sum_k alpha_k x_{p_c, l}^k,
-    t[l, h] = t0_h. A field x (W, n_phonon, Ltau) gives V (W, Ltau, N)."""
+    t[l, h] = t0_h (and t_im[l, h] = t0_im_h for complex hoppings). A field x
+    (W, n_phonon, Ltau) gives V (W, Ltau, N)."""
     if x is None:
         x = elph.x
     Ltau, n_sites = elph.Ltau, tbp.n_sites
@@ -54,5 +61,6 @@ def build_path_integral(
         V_sc.index_add_(-2, elph.hol_to_site_t, vals)
         V = V + V_sc.transpose(-1, -2)
     t = tbp.t0[None, :].expand(Ltau, tbp.n_hops)
+    t_im = None if tbp.t0_im is None else tbp.t0_im[None, :].expand(Ltau, tbp.n_hops).contiguous()
     return FermionPathIntegral(V=V.contiguous(), t=t.contiguous(), dtau=elph.dtau, Ltau=Ltau,
-                               n_sites=n_sites, static_hops=True)
+                               n_sites=n_sites, static_hops=True, t_im=t_im)

@@ -33,3 +33,20 @@ def holstein_honeycomb_model(L: int, Omega: float, alpha: float, mu: float, t: f
     em.add_holstein_coupling(HolsteinCoupling(p1, 0, [0, 0], alpha, ph_sym_form=True))
     em.add_holstein_coupling(HolsteinCoupling(p2, 1, [0, 0], alpha, ph_sym_form=True))
     return geo, tbm, em
+
+
+def complex_chain_model(L: int, t: float = 1.0, phase: float = 0.7, mu: float = 0.1, Omega: float = 1.0,
+                        alpha: float = 0.5):
+    """Periodic chain with the complex hopping t e^{i phase} (a threaded flux)
+    and a Holstein coupling (tests/test_complex_hoppings.py:complex_chain_model,
+    examples/holstein_flux_chain.py): one orbital per cell, one bond, one
+    phonon mode. Returns (geometry, tight-binding model, electron-phonon
+    model)."""
+    geo = ModelGeometry(UnitCell(lattice_vecs=[[1.0]], basis_vecs=[[0.0]]), Lattice(L=[L]))
+    bond = Bond(orbitals=(0, 0), displacement=[1])
+    geo.add_bond(bond)
+    tbm = TightBindingModel(geo, [bond], [t * np.exp(1j * phase)], [0.0], mu=mu)
+    em = ElectronPhononModel(geo, tbm)
+    p = em.add_phonon_mode(PhononMode([0.0], Omega))
+    em.add_holstein_coupling(HolsteinCoupling(p, 0, [0], alpha, ph_sym_form=True))
+    return geo, tbm, em

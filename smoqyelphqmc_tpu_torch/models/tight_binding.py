@@ -3,13 +3,14 @@
 Port of smoqyelphqmc_tpu/models/tight_binding.py. The host-side expansion is the
 same NumPy code driven by the same `np.random.Generator`, so the expanded arrays
 are bit-identical; they are then placed on `device` as float64 tensors.
-Complex hoppings are not ported yet (ROADMAP Queue 1, item 14).
+Complex hopping amplitudes keep their imaginary parts in `t0_im` (None for a
+real model).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,7 +65,7 @@ class TightBindingParameters:
     Hoppings are bond-type-major (hop h = bond_type * n_cells + cell) with
     `neighbor_table` (2, n_hops) kept as host NumPy metadata."""
 
-    t0: torch.Tensor  # (n_hops,) float64
+    t0: torch.Tensor  # (n_hops,) float64 real parts
     eps: torch.Tensor  # (n_sites,) float64
     mu: torch.Tensor  # () float64
     neighbor_table: np.ndarray  # (2, n_hops) int32
@@ -72,6 +73,7 @@ class TightBindingParameters:
     bond_slices: Tuple[Tuple[int, int], ...]
     n_sites: int
     n_orbitals: int
+    t0_im: Optional[torch.Tensor] = None  # (n_hops,) float64 imaginary parts; None for real hoppings
 
     @property
     def n_hops(self) -> int:
@@ -88,10 +90,8 @@ def initialize_tight_binding_parameters(
     geo = tight_binding_model.model_geometry
     if rng is None:
         rng = np.random.default_rng(0)
-    if any(np.imag(t) != 0 for t in tight_binding_model.t_mean):
-        raise NotImplementedError(
-            "complex hoppings are not ported yet (ROADMAP Queue 1, item 14)"
-        )
+    any_complex = any(np.imag(t) != 0 for t in tight_binding_model.t_mean)
+    t_dtype = np.complex128 if any_complex else np.float64
 
     n_cells = geo.n_cells
     tables: List[np.ndarray] = []
@@ -100,7 +100,8 @@ def initialize_tight_binding_parameters(
     start = 0
     for b, bond in enumerate(tight_binding_model.t_bonds):
         tables.append(geo.build_neighbor_table(bond))
-        tm = np.full(n_cells, float(np.real(tight_binding_model.t_mean[b])), dtype=np.float64)
+        t_mean = tight_binding_model.t_mean[b]
+        tm = np.full(n_cells, t_mean if any_complex else float(np.real(t_mean)), dtype=t_dtype)
         if tight_binding_model.t_std is not None and tight_binding_model.t_std[b] > 0:
             tm = tm + tight_binding_model.t_std[b] * rng.standard_normal(n_cells)
         tm[geo.bond_wrap_mask(bond)] = 0.0
@@ -109,7 +110,7 @@ def initialize_tight_binding_parameters(
         start += n_cells
 
     neighbor_table = np.concatenate(tables, axis=1) if tables else np.zeros((2, 0), dtype=np.int32)
-    t0 = np.concatenate(t_vals) if t_vals else np.zeros(0, dtype=np.float64)
+    t0 = np.concatenate(t_vals) if t_vals else np.zeros(0, dtype=t_dtype)
 
     eps = np.empty(geo.n_sites, dtype=np.float64)
     eps_mean = np.asarray(tight_binding_model.eps_mean)
@@ -121,7 +122,7 @@ def initialize_tight_binding_parameters(
 
     f64 = torch.float64
     return TightBindingParameters(
-        t0=torch.as_tensor(t0, dtype=f64, device=device),
+        t0=torch.as_tensor(np.real(t0), dtype=f64, device=device),
         eps=torch.as_tensor(eps, dtype=f64, device=device),
         mu=torch.tensor(tight_binding_model.mu, dtype=f64, device=device),
         neighbor_table=neighbor_table.astype(np.int32),
@@ -129,6 +130,7 @@ def initialize_tight_binding_parameters(
         bond_slices=tuple(bond_slices),
         n_sites=geo.n_sites,
         n_orbitals=geo.n_orbitals,
+        t0_im=torch.as_tensor(np.imag(t0), dtype=f64, device=device) if any_complex else None,
     )
 
 

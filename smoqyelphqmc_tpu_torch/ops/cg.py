@@ -1,8 +1,10 @@
 """Batched preconditioned conjugate gradient (port of smoqyelphqmc_tpu/ops/cg.py).
 
 One CG drives many right-hand sides at once (every leading axis of a
-(..., Ltau, N) tensor is an independent system), with per-system convergence
-masks. The loop runs eagerly; its condition reads one flag per iteration.
+(..., Ltau, N) tensor is an independent system; with sys_ndim = 3 the
+trailing (channel, Ltau, N) axes form one system, for an operator that mixes
+the complex channel pair), with per-system convergence masks. The loop runs
+eagerly; its condition reads one flag per iteration.
 `converged` is False on non-finite values or iteration exhaustion, and callers
 fold it into the Metropolis decision.
 """
@@ -20,13 +22,13 @@ class CGStats(NamedTuple):
     converged: torch.Tensor  # () bool: all systems converged to finite solutions
 
 
-def _sys_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Per-system inner product over the trailing (Ltau, N) axes."""
-    return torch.sum(a * b, dim=(-2, -1))
+def _sys_dot(a: torch.Tensor, b: torch.Tensor, sys_ndim: int = 2) -> torch.Tensor:
+    """Per-system inner product over the trailing sys_ndim axes."""
+    return torch.sum(a * b, dim=tuple(range(-sys_ndim, 0)))
 
 
-def _col(v: torch.Tensor) -> torch.Tensor:
-    return v[..., None, None]
+def _col(v: torch.Tensor, sys_ndim: int = 2) -> torch.Tensor:
+    return v.reshape(v.shape + (1,) * sys_ndim)
 
 
 def cg_solve(
@@ -36,12 +38,20 @@ def cg_solve(
     tol: float = 1e-10,
     maxiter: int = 1000,
     x0: Optional[torch.Tensor] = None,
+    sys_ndim: int = 2,
 ):
-    """Solve A x = b (A symmetric positive definite, left preconditioner).
-    Returns (x, CGStats)."""
+    """Solve A x = b (A symmetric positive definite, left preconditioner);
+    the trailing sys_ndim axes of b form one system. Returns (x, CGStats)."""
     if precond is None:
         precond = lambda r: r  # noqa: E731
-    normb = torch.sqrt(_sys_dot(b, b))
+
+    def dot(u, v):
+        return _sys_dot(u, v, sys_ndim)
+
+    def col(v):
+        return _col(v, sys_ndim)
+
+    normb = torch.sqrt(dot(b, b))
     safe_normb = torch.where(normb > 0, normb, torch.ones_like(normb))
     if x0 is None:
         x = torch.zeros_like(b)
@@ -51,23 +61,23 @@ def cg_solve(
         r = b - apply_A(x0)
     z = precond(r)
     p = z
-    rdotz = _sys_dot(r, z)
-    eps = torch.sqrt(_sys_dot(r, r)) / safe_normb
+    rdotz = dot(r, z)
+    eps = torch.sqrt(dot(r, r)) / safe_normb
     active = eps >= tol
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     it = 0
     while it < maxiter and bool(active.any()):
         Ap = apply_A(p)
-        pAp = _sys_dot(p, Ap)
+        pAp = dot(p, Ap)
         alpha = torch.where(active, rdotz / torch.where(pAp != 0, pAp, torch.ones_like(pAp)), zero)
-        x = x + _col(alpha) * p
-        r = r - _col(alpha) * Ap
-        eps = torch.where(active, torch.sqrt(_sys_dot(r, r)) / safe_normb, eps)
+        x = x + col(alpha) * p
+        r = r - col(alpha) * Ap
+        eps = torch.where(active, torch.sqrt(dot(r, r)) / safe_normb, eps)
         active_new = active & (eps >= tol)
         z = precond(r)
-        new_rdotz = _sys_dot(r, z)
+        new_rdotz = dot(r, z)
         beta = torch.where(active_new, new_rdotz / torch.where(rdotz != 0, rdotz, torch.ones_like(rdotz)), zero)
-        p = torch.where(_col(active_new), z + _col(beta) * p, p)
+        p = torch.where(col(active_new), z + col(beta) * p, p)
         rdotz = torch.where(active_new, new_rdotz, rdotz)
         active = active_new
         it += 1
@@ -86,12 +96,17 @@ def cg_solve_mixed(
     max_outer: int = 12,
     inner_solver: Optional[Callable] = None,
     x0: Optional[torch.Tensor] = None,
+    sys_ndim: int = 2,
 ):
     """Mixed-precision defect-correction CG: f32 inner solves of A e = r,
     f64 residuals r = b - A x, with the adaptive last-cycle tolerance
     itol = max(inner_tol, min(0.25, 0.25 tol / max eps)). `inner_solver(r32,
     itol, maxiter)` replaces the inner cg_solve (kernel K2 on the main path)."""
-    normb = torch.sqrt(_sys_dot(b, b))
+
+    def dot(u, v):
+        return _sys_dot(u, v, sys_ndim)
+
+    normb = torch.sqrt(dot(b, b))
     safe_normb = torch.where(normb > 0, normb, torch.ones_like(normb))
     if x0 is None:
         x = torch.zeros_like(b)
@@ -99,7 +114,7 @@ def cg_solve_mixed(
     else:
         x = x0.to(b.dtype)
         r = b - apply_A(x)
-    eps = torch.sqrt(_sys_dot(r, r)) / safe_normb
+    eps = torch.sqrt(dot(r, r)) / safe_normb
     it_total = torch.zeros((), dtype=torch.int64)
     outer = 0
     while outer < max_outer and not bool((eps < tol).all()):
@@ -107,10 +122,11 @@ def cg_solve_mixed(
         if inner_solver is not None:
             e32, stats = inner_solver(r.to(torch.float32), itol, maxiter)
         else:
-            e32, stats = cg_solve(apply_A_low, r.to(torch.float32), precond=precond, tol=itol, maxiter=maxiter)
+            e32, stats = cg_solve(apply_A_low, r.to(torch.float32), precond=precond, tol=itol, maxiter=maxiter,
+                                   sys_ndim=sys_ndim)
         x = x + e32.to(x.dtype)
         r = b - apply_A(x)
-        eps = torch.sqrt(_sys_dot(r, r)) / safe_normb
+        eps = torch.sqrt(dot(r, r)) / safe_normb
         it_total = it_total + stats.iters.cpu()
         outer += 1
     converged = torch.isfinite(x).all() & (eps < tol).all()

@@ -10,11 +10,11 @@ contracts into dS_f/dx (smoqyelphqmc_tpu/ops/pallas_fused.py:934-976,
     P1 = sum_ch (CB^T A) (CB^{-1} sw)
     P2 = sum_ch roll(M^T A, +1) psi     (zeros unless want_p2)
 
-Symmetric factorization, float32. psi_raw is (..., 2, Ltau, N) and Lambda
-(..., Ltau, N); a walker batch carries its fermion matrix's exp_nV as
-(W, 1, Ltau, N) (`updates.context.make_fdm`). `force_planes` is the
-dispatcher: a CPU tensor takes `force_planes_plain`, a CUDA tensor launches
-`csrc/force.cu` or raises. K3 (`ops/pcg_force.py`) runs the same epilogue
+Symmetric factorization, real hoppings, float32. psi_raw is
+(..., 2, Ltau, N) and Lambda (..., Ltau, N); a walker batch carries its
+fermion matrix's exp_nV as (W, 1, Ltau, N) (`updates.context.make_fdm`).
+`force_planes` is the dispatcher: a CPU tensor takes `force_planes_plain`, a
+CUDA tensor launches `csrc/force.cu` or raises. K3 (`ops/pcg_force.py`) runs the same epilogue
 after its solve.
 """
 
@@ -24,7 +24,7 @@ import torch
 
 from .. import _build
 from .fermion_det import boundary_sign
-from .mtm import KernelCounter, mtm_tables
+from .mtm import KernelCounter, mtm_tables, require_real
 
 FORCE = KernelCounter("force")
 
@@ -50,6 +50,7 @@ def planes(fdm32, Lam: torch.Tensor, x: torch.Tensor, want_p2: bool):
 
 def check_operands(fdm32, Lam: torch.Tensor, psi_raw: torch.Tensor) -> int:
     """Validate the operands of K3 / K4; returns the number of walkers."""
+    require_real(fdm32, "force kernels (K3 / K4)")
     if psi_raw.dtype != torch.float32 or Lam.dtype != torch.float32 or fdm32.dtype != torch.float32:
         raise TypeError("force kernels: psi_raw, Lambda and the fermion matrix must be float32")
     if not fdm32.symmetric:
@@ -68,6 +69,7 @@ def check_operands(fdm32, Lam: torch.Tensor, psi_raw: torch.Tensor) -> int:
 
 def force_planes_plain(fdm32, Lam: torch.Tensor, psi_raw: torch.Tensor, want_p2: bool):
     """(P1, P2) in plain PyTorch ops (the function K4 computes)."""
+    require_real(fdm32, "force (K4)")
     FORCE.plain_calls += 1
     return planes(fdm32, Lam, psi_raw, want_p2)
 

@@ -1,5 +1,5 @@
 """KPM (Chebyshev) preconditioner for the M^T M solves (port of
-smoqyelphqmc_tpu/ops/kpm.py for real hoppings).
+smoqyelphqmc_tpu/ops/kpm.py).
 
 P^{-1} = [Mbar^T Mbar]^{-1}, where Mbar replaces every propagator by the
 tau-averaged Bbar. In the antiperiodic frequency basis Mbar is block diagonal
@@ -19,14 +19,22 @@ is not positive on the spectrum.
 Two applies, as in the JAX package: the dense blocked recurrence
 (`_block_cheb`, plain matmuls, N <= 1024 by default) and the matrix-free
 checkerboard recurrence (`ops/kpm_mf.py`: kernel K6 for the symmetric
-factorization, K7 for the asymmetric one) above 1024 sites.
+factorization, K7 for the asymmetric one, K8 for complex hoppings) above 1024
+sites.
+
+Complex hoppings (`complex_pair`): Bbar is complex (Hermitian for the
+symmetric factorization) and acts on the (re, im) channel pair. Lanczos runs
+on the real 2N-dimensional embedding [[B_re, -B_im], [B_im, B_re]] (its
+spectrum is Bbar's, doubled), so the start vector has length 2N; the dense
+apply runs the blocked recurrence in that doubled basis (`_block_cheb_pair`)
+and the matrix-free one runs the channel-mixing checkerboard (K8). Complex
+frequency coefficients act through the i-rotation (re, im) -> (-im, re).
 
 Differences of form from the JAX package: the Lanczos start vector is an
 argument (the caller draws it), the refresh's scalars (bounds, activation,
 orders) and the coefficient fit are computed on the host in float64 (the
 fit's matrices are (Ltau, C)), and there is one frequency bucket with the
-identity permutation, which is all the JAX plan ever builds. Complex
-hoppings wait for ROADMAP Queue 1, item 14.
+identity permutation, which is all the JAX plan ever builds.
 """
 
 from __future__ import annotations
@@ -82,8 +90,8 @@ class AveragedPropagator:
 
 
 def averaged_propagator(fdm) -> AveragedPropagator:
-    expV_bar, cosh_bar, sinh_bar = fdm.averaged_factors()
-    cb = build_checkerboard_op(fdm.structure, cosh_bar, sinh_bar)
+    expV_bar, cosh_bar, sinh_bar, sinh_bar_im = fdm.averaged_factors()
+    cb = build_checkerboard_op(fdm.structure, cosh_bar, sinh_bar, sinh_bar_im)
     return AveragedPropagator(cb=cb, expV=expV_bar, symmetric=fdm.symmetric)
 
 
@@ -186,7 +194,7 @@ class KPMPreconditioner:
     live per-frequency orders, coefs_re / coefs_im the (Ltau, C_pad)
     coefficient planes in APPLY_DTYPE (coefs_im all zero for the symmetric
     factorization), BpT / TsT the dense scaled propagator and stride matrix
-    (None when matrix-free)."""
+    (None when matrix-free; 2N x 2N in the doubled basis when complex_pair)."""
 
     bbar: AveragedPropagator
     lo: float
@@ -210,6 +218,11 @@ class KPMPreconditioner:
     _mf_operands: Optional[object] = dataclasses.field(default=None, repr=False)
 
     @property
+    def complex_pair(self) -> bool:
+        """Complex hoppings: the doubled basis, channel pairs through the apply."""
+        return self.bbar.cb.S_im is not None
+
+    @property
     def center(self) -> float:
         return 0.5 * (self.hi + self.lo)
 
@@ -226,8 +239,8 @@ class KPMPreconditioner:
     def build(fdm, v0: torch.Tensor, cap_delta_eps: float = 1.0, cap_max=None,
               matrix_free: Optional[bool] = None) -> "KPMPreconditioner":
         """Construct and refresh from the fermion matrix, with the Lanczos
-        start vector v0 (N,). matrix_free=None picks the checkerboard
-        recurrence above MATRIX_FREE_MIN_SITES."""
+        start vector v0 (N,), or (2N,) for complex hoppings. matrix_free=None
+        picks the checkerboard recurrence above MATRIX_FREE_MIN_SITES."""
         Ltau, N = fdm.Ltau, fdm.n_sites
         if matrix_free is None:
             matrix_free = N > MATRIX_FREE_MIN_SITES
@@ -286,16 +299,31 @@ def _coefficients(pre: KPMPreconditioner, lo: float, hi: float, orders: np.ndarr
 
 def kpm_update(pre: KPMPreconditioner, fdm, v0: torch.Tensor) -> KPMPreconditioner:
     """A refreshed copy of the preconditioner for the current fermion matrix;
-    v0 (N,) starts the Lanczos iteration."""
+    v0 (N,), or (2N,) for complex hoppings, starts the Lanczos iteration."""
     bbar = averaged_propagator(fdm)
     N = pre.n_sites
+    dim = 2 * N if pre.complex_pair else N
+    if tuple(v0.shape) != (dim,):
+        raise ValueError(f"the Lanczos start vector has shape {tuple(v0.shape)}, expected ({dim},)")
     v0 = v0.to(fdm.device, bbar.expV.dtype)
     BbarT = None
-    if pre.matrix_free:
+    if pre.matrix_free and pre.complex_pair:
+        # the doubled vector's halves are the channel pair the checkerboard mixes
+        apply_B = lambda w: bbar.apply(w.reshape(2, 1, N)).reshape(-1)  # noqa: E731
+        apply_Bt = lambda w: bbar.apply_T(w.reshape(2, 1, N)).reshape(-1)  # noqa: E731
+    elif pre.matrix_free:
         apply_B, apply_Bt = bbar.apply, bbar.apply_T
     else:
         # row k of BbarT is Bbar e_k: v @ BbarT applies Bbar to row vectors
-        BbarT = bbar.apply(torch.eye(N, dtype=bbar.expV.dtype, device=fdm.device))
+        eye = torch.eye(N, dtype=bbar.expV.dtype, device=fdm.device)
+        if pre.complex_pair:
+            # the doubled embedding from channel-paired unit vectors (2N, 2, 1, N)
+            zero = torch.zeros_like(eye)
+            basis = torch.cat([torch.stack([eye, zero], dim=1), torch.stack([zero, eye], dim=1)])[:, :, None, :]
+            out = bbar.apply(basis)
+            BbarT = torch.cat([out[:, 0, 0, :], out[:, 1, 0, :]], dim=-1)
+        else:
+            BbarT = bbar.apply(eye)
         apply_B = lambda v: v @ BbarT  # noqa: E731
         apply_Bt = lambda v: v @ BbarT.T  # noqa: E731
     if pre.symmetric:
@@ -320,12 +348,12 @@ def kpm_update(pre: KPMPreconditioner, fdm, v0: torch.Tensor) -> KPMPrecondition
     BpT = TsT = None
     if not pre.matrix_free:
         half_safe = max((hi - lo) / 2.0, 1e-12)
-        eye = torch.eye(N, dtype=BbarT.dtype, device=BbarT.device)
+        eye = torch.eye(dim, dtype=BbarT.dtype, device=BbarT.device)
         BpT = ((BbarT - (hi + lo) / 2.0 * eye) / half_safe).to(dt)
         # TsT = T_s(Bbar')^T by the dense Chebyshev matrix recurrence
         TsT = BpT
         if pre.block_size > 1:
-            m_prev, m_cur = torch.eye(N, dtype=dt, device=BpT.device), BpT
+            m_prev, m_cur = torch.eye(dim, dtype=dt, device=BpT.device), BpT
             for _ in range(pre.block_size - 1):
                 m_prev, m_cur = m_cur, 2.0 * (BpT @ m_cur) - m_prev
             TsT = m_cur
@@ -380,14 +408,83 @@ def _block_cheb(pre: KPMPreconditioner, u_re, u_im, cre, cim):
     return y_re, y_im
 
 
+def _rot_i(pre: KPMPreconditioner, w: torch.Tensor) -> torch.Tensor:
+    """i times w in the doubled (re, im)-site basis: [a, b] -> [-b, a]."""
+    N = pre.n_sites
+    return torch.cat([-w[..., N:], w[..., :N]], dim=-1)
+
+
+def _block_cheb_pair(pre: KPMPreconditioner, w, cre, cim):
+    """y = sum_k c_k T_k(E') w in the doubled real site basis (complex
+    hoppings): w (..., F, 2N) holds the (re, im) halves of the complex
+    frequency-space vector, E' the scaled 2N x 2N embedding, and the complex
+    coefficient acts as cre + cim rot_i (cim unused for the symmetric
+    factorization, whose coefficients are real). The recurrence of
+    `_block_cheb` on one doubled channel."""
+    s, nb = pre.block_size, pre.n_blocks
+    BpT, TsT = pre.BpT, pre.TsT
+    F = cre.shape[0]
+    cre_b = cre.T.reshape(nb, s, F)
+    cim_b = cim.T.reshape(nb, s, F)
+
+    def acc(y, B, cb_re, cb_im):
+        y = y + torch.einsum("jf,j...fn->...fn", cb_re, B)
+        if not pre.symmetric:
+            y = y + _rot_i(pre, torch.einsum("jf,j...fn->...fn", cb_im, B))
+        return y
+
+    ts = [w]
+    if s > 1:
+        ts.append(w @ BpT)
+        for _ in range(s - 2):
+            ts.append(2.0 * (ts[-1] @ BpT) - ts[-2])
+    B0 = torch.stack(ts)
+    y = acc(torch.zeros_like(w), B0, cre_b[0], cim_b[0])
+    if nb == 1:
+        return y
+    Bp = torch.cat([(w @ TsT)[None], B0[1:].flip(0)])
+    Bc = B0
+    for b in range(1, nb):
+        Bn = 2.0 * (Bc @ TsT) - Bp
+        y = acc(y, Bn, cre_b[b], cim_b[b])
+        Bp, Bc = Bc, Bn
+    return y
+
+
+def _apply_pair(pre: KPMPreconditioner, r: torch.Tensor) -> torch.Tensor:
+    """Complex hoppings: the channel pair r (..., 2, Ltau, N) through the
+    complex tau-FFT, the recurrence on the pair (K8, or the doubled-basis
+    dense recurrence) and the inverse FFT back to (..., 2, Ltau, N)."""
+    ure, uim = pre.fft.forward(r[..., 0, :, :], r[..., 1, :, :])
+    cre, cim = pre.coefs_re, pre.coefs_im
+    if pre.matrix_free:
+        from .kpm_mf import kpm_mf_apply
+
+        yre, yim = kpm_mf_apply(pre.mf_operands(), ure, uim)
+    else:
+        N = pre.n_sites
+        w = torch.cat([ure, uim], dim=-1)
+        if pre.symmetric:
+            w = _block_cheb_pair(pre, w, cre, cim)
+        else:
+            # two passes: conj(coefs), then coefs
+            w = _block_cheb_pair(pre, _block_cheb_pair(pre, w, cre, -cim), cre, cim)
+        yre, yim = w[..., :N], w[..., N:]
+    zre, zim = pre.fft.inverse(yre, yim)
+    return torch.stack([zre, zim], dim=-3)
+
+
 def kpm_apply(pre: KPMPreconditioner, r: torch.Tensor) -> torch.Tensor:
-    """z = P^{-1} r for real r (..., Ltau, N): tau-FFT, Chebyshev expansion,
-    inverse FFT, real part; in APPLY_DTYPE, returned in r's dtype. The
-    identity when the preconditioner is inactive."""
+    """z = P^{-1} r for real r (..., Ltau, N), or the channel pair
+    (..., 2, Ltau, N) of complex hoppings: tau-FFT, Chebyshev expansion,
+    inverse FFT (the real part for real hoppings); in APPLY_DTYPE, returned
+    in r's dtype. The identity when the preconditioner is inactive."""
     if not pre.active:
         return r
     in_dtype = r.dtype
     r = r.to(APPLY_DTYPE)
+    if pre.complex_pair:
+        return _apply_pair(pre, r).to(in_dtype)
     ure, uim = pre.fft.forward(r)
     if pre.matrix_free:
         from .kpm_mf import kpm_mf_apply

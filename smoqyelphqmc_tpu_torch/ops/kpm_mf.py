@@ -1,4 +1,4 @@
-"""Kernels K6 and K7: the matrix-free KPM apply, with its plain PyTorch versions.
+"""Kernels K6, K7 and K8: the matrix-free KPM apply, with its plain PyTorch versions.
 
 y = sum_k c_k(f) T_k(Bbar') u for every frequency row f of complex
 frequency-space vectors u = (u_re, u_im) of shape (..., F, N), with
@@ -13,12 +13,19 @@ smoqyelphqmc_tpu/ops/pallas_fused.py (:1468-1651):
 - asymmetric factorization: two passes, conj(c) then c, the complex
   coefficients acting through the i-rotation (re, im) -> (-im, re) of one
   vector (K7, `csrc/kpm_mf.cu:kpm_mf_asym_kernel`, replacing
-  `_kpm_mf_asym_kernel`).
+  `_kpm_mf_asym_kernel`);
+- complex hoppings (`complex_pair`): (u_re, u_im) is the channel pair the
+  checkerboard mixes, re' = C re + S re[p] - S_im im[p] and
+  im' = C im + S im[p] + S_im re[p]; one pass with real coefficients
+  (symmetric) or the two conjugate passes through the i-rotation of the same
+  pair (asymmetric) (K8, `csrc/kpm_mf.cu:kpm_mf_cplx_kernel`, replacing
+  `_kpm_mf_cplx_kernel`).
 
 `kpm_mf_apply(ops, u_re, u_im)` is the dispatcher: a CPU tensor takes the
 plain version (`kpm_mf_plain` / `kpm_mf_asym_plain`, the `_mf_cheb`
-recurrence of smoqyelphqmc_tpu/ops/kpm.py:611-656), a CUDA tensor launches
-the kernel or raises. The static plan is the frequency order sorted by
+recurrence of smoqyelphqmc_tpu/ops/kpm.py:611-656, or `kpm_mf_cplx_plain`,
+its `_mf_cheb_pair` at :659-700), a CUDA tensor launches the kernel or
+raises. The static plan is the frequency order sorted by
 descending order (`build_kpm_mf_plan`): the kernels start the longest
 recurrences first.
 """
@@ -26,6 +33,7 @@ recurrences first.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,6 +44,7 @@ from .mtm import KernelCounter
 
 KPM_MF = KernelCounter("kpm_mf")
 KPM_MF_ASYM = KernelCounter("kpm_mf_asym")
+KPM_MF_CPLX = KernelCounter("kpm_mf_cplx")
 
 
 def build_kpm_mf_plan(phi: np.ndarray) -> np.ndarray:
@@ -58,7 +67,9 @@ class KPMMFOperands:
     affine map to Bbar' (f32 values); expVih = expV * inv_half and
     cih = center * inv_half, the map folded into the kernels' operands as the
     TPU kernels fold it; coefs_re / coefs_im (F, C_pad); orders (F,) int32
-    live orders (host copy `orders_host`); perm (F,) int32 the plan's sort."""
+    live orders (host copy `orders_host`); perm (F,) int32 the plan's sort;
+    S_im (n_colors, N) the kernels' copy of Bbar's S_im for complex hoppings
+    (complex_pair; None otherwise)."""
 
     bbar: AveragedPropagator
     partner: torch.Tensor
@@ -72,10 +83,15 @@ class KPMMFOperands:
     orders_host: np.ndarray
     perm: torch.Tensor
     symmetric: bool
+    S_im: Optional[torch.Tensor] = None
 
     @property
     def n_sites(self) -> int:
         return self.expVih.shape[0]
+
+    @property
+    def complex_pair(self) -> bool:
+        return self.S_im is not None
 
 
 def build_operands(pre) -> KPMMFOperands:
@@ -98,6 +114,7 @@ def build_operands(pre) -> KPMMFOperands:
         orders_host=np.asarray(pre.orders, dtype=np.int32),
         perm=torch.as_tensor(build_kpm_mf_plan(pre.phi), device=dev),
         symmetric=pre.symmetric,
+        S_im=None if bbar.cb.S_im is None else bbar.cb.S_im.contiguous(),
     )
 
 
@@ -108,21 +125,22 @@ def build_operands(pre) -> KPMMFOperands:
 
 def _mf_cheb(ops: KPMMFOperands, u_re, u_im, cre, cim):
     """One Chebyshev pass y = sum_k c_k T_k(Bbar') u, the real and imaginary
-    planes stacked as one recurrence state; cim None means real coefficients.
-    Runs to the largest live order: the coefficients beyond it are zero."""
+    planes stacked as one recurrence state at axis -3 (the channel pair Bbar
+    mixes when ops.complex_pair); cim None means real coefficients. Runs to
+    the largest live order: the coefficients beyond it are zero."""
     n_orders = int(ops.orders_host.max())
 
     def applyBp(t):
         return (ops.bbar.apply(t) - ops.center * t) * ops.inv_half
 
     def rot(t):  # i (re, im) = (-im, re)
-        return torch.stack([-t[1], t[0]])
+        return torch.stack([-t[..., 1, :, :], t[..., 0, :, :]], dim=-3)
 
     def term(k, t):
         out = cre[:, k][:, None] * t
         return out if cim is None else out + cim[:, k][:, None] * rot(t)
 
-    t_prev = torch.stack([u_re, u_im])
+    t_prev = torch.stack([u_re, u_im], dim=-3)
     y = term(0, t_prev)
     if n_orders > 1:
         t_cur = applyBp(t_prev)
@@ -130,20 +148,44 @@ def _mf_cheb(ops: KPMMFOperands, u_re, u_im, cre, cim):
             y = y + term(k, t_cur)
             if k + 1 < n_orders:
                 t_prev, t_cur = t_cur, 2.0 * applyBp(t_cur) - t_prev
-    return y[0], y[1]
+    return y[..., 0, :, :], y[..., 1, :, :]
+
+
+def _require_real(ops: KPMMFOperands, what: str) -> None:
+    if ops.complex_pair:
+        raise ValueError(f"{what}: real hoppings only; complex hoppings take K8 (kpm_mf_cplx)")
 
 
 def kpm_mf_plain(ops: KPMMFOperands, u_re, u_im):
     """K6's function in plain PyTorch ops (symmetric factorization)."""
+    _require_real(ops, "kpm_mf (K6)")
     KPM_MF.plain_calls += 1
     return _mf_cheb(ops, u_re, u_im, ops.coefs_re, None)
 
 
-def kpm_mf_asym_plain(ops: KPMMFOperands, u_re, u_im):
-    """K7's function in plain PyTorch ops: conj(c), then c."""
-    KPM_MF_ASYM.plain_calls += 1
+def _two_passes(ops: KPMMFOperands, u_re, u_im):
+    """conj(c), then c: the asymmetric factorization's two passes."""
     y_re, y_im = _mf_cheb(ops, u_re, u_im, ops.coefs_re, -ops.coefs_im)
     return _mf_cheb(ops, y_re, y_im, ops.coefs_re, ops.coefs_im)
+
+
+def kpm_mf_asym_plain(ops: KPMMFOperands, u_re, u_im):
+    """K7's function in plain PyTorch ops: conj(c), then c."""
+    _require_real(ops, "kpm_mf_asym (K7)")
+    KPM_MF_ASYM.plain_calls += 1
+    return _two_passes(ops, u_re, u_im)
+
+
+def kpm_mf_cplx_plain(ops: KPMMFOperands, u_re, u_im):
+    """K8's function in plain PyTorch ops: (u_re, u_im) is the channel pair of
+    complex hoppings; one pass with real coefficients (symmetric) or
+    conj(c), then c (asymmetric)."""
+    if not ops.complex_pair:
+        raise ValueError("kpm_mf_cplx (K8): complex hoppings only")
+    KPM_MF_CPLX.plain_calls += 1
+    if ops.symmetric:
+        return _mf_cheb(ops, u_re, u_im, ops.coefs_re, None)
+    return _two_passes(ops, u_re, u_im)
 
 
 # ----------------------------------------------------------------------
@@ -151,14 +193,17 @@ def kpm_mf_asym_plain(ops: KPMMFOperands, u_re, u_im):
 # ----------------------------------------------------------------------
 
 
-def max_sites(symmetric: bool) -> int:
+def max_sites(symmetric: bool, complex_pair: bool = False) -> int:
     """The largest N a kernel takes (register tiles and shared memory)."""
-    return int(_build.load_library().smoqy_kpm_mf_max_sites(int(symmetric)))
+    lib = _build.load_library()
+    if complex_pair:
+        return int(lib.smoqy_kpm_mf_cplx_max_sites())
+    return int(lib.smoqy_kpm_mf_max_sites(int(symmetric)))
 
 
-def kpm_mf_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):
-    """Launch K6 (symmetric) or K7 (asymmetric) on CUDA tensors u_re, u_im
-    (..., F, N) float32."""
+def _launch_operands(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor, tag: str):
+    """Check u_re, u_im (..., F, N) float32 CUDA tensors against the operands;
+    returns them as contiguous (B, F, N) planes, the outputs and the stream."""
     F, N = ops.coefs_re.shape[0], ops.n_sites
     if u_re.dtype != torch.float32 or u_im.dtype != torch.float32:
         raise TypeError(f"kpm_mf kernel: u is {u_re.dtype} / {u_im.dtype}, expected float32")
@@ -167,16 +212,24 @@ def kpm_mf_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):
                          f"expected (..., {F}, {N})")
     if not (u_re.device == u_im.device == ops.expVih.device):
         raise ValueError("kpm_mf kernel: operands on different devices")
-    limit = max_sites(ops.symmetric)
+    limit = max_sites(ops.symmetric, ops.complex_pair)
     if N > limit:
         raise ValueError(f"kpm_mf kernel: N = {N} sites exceeds the kernel's {limit} "
-                         f"({'K6' if ops.symmetric else 'K7'} shared-memory rows and register tiles)")
+                         f"({tag} shared-memory rows and register tiles)")
     ure = u_re.reshape(-1, F, N).contiguous()
     uim = u_im.reshape(-1, F, N).contiguous()
-    yre, yim = torch.empty_like(ure), torch.empty_like(uim)
+    return ure, uim, torch.empty_like(ure), torch.empty_like(uim), torch.cuda.current_stream(u_re.device).cuda_stream
+
+
+def kpm_mf_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):
+    """Launch K6 (symmetric) or K7 (asymmetric) on CUDA tensors u_re, u_im
+    (..., F, N) float32; real hoppings only."""
+    tag = "K6" if ops.symmetric else "K7"
+    _require_real(ops, f"kpm_mf kernel ({tag})")
+    ure, uim, yre, yim, stream = _launch_operands(ops, u_re, u_im, tag)
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(u_re.device).cuda_stream
     cb = ops.bbar.cb
+    F, N = ure.shape[1:]
     common = (cb.C.data_ptr(), cb.S.data_ptr(), ops.partner.data_ptr(), ops.expVih.data_ptr(),
               ops.coefs_re.data_ptr())
     if ops.symmetric:
@@ -194,11 +247,31 @@ def kpm_mf_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):
     return yre.reshape(u_re.shape), yim.reshape(u_im.shape)
 
 
+def kpm_mf_cplx_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):
+    """Launch K8 on the channel pair (u_re, u_im), CUDA tensors (..., F, N)
+    float32, of complex hoppings (both factorizations)."""
+    if not ops.complex_pair:
+        raise ValueError("kpm_mf_cplx kernel (K8): complex hoppings only")
+    ure, uim, yre, yim, stream = _launch_operands(ops, u_re, u_im, "K8")
+    cb = ops.bbar.cb
+    F, N = ure.shape[1:]
+    rc = _build.load_library().smoqy_kpm_mf_cplx(
+        ure.data_ptr(), uim.data_ptr(), yre.data_ptr(), yim.data_ptr(), cb.C.data_ptr(), cb.S.data_ptr(),
+        ops.S_im.data_ptr(), ops.partner.data_ptr(), ops.expVih.data_ptr(), ops.coefs_re.data_ptr(),
+        ops.coefs_im.data_ptr(), ops.orders.data_ptr(), ops.perm.data_ptr(), ops.cih, int(ops.symmetric),
+        ure.shape[0], F, N, cb.n_colors, ops.coefs_re.shape[1], stream)
+    _build.check(rc, "kpm_mf_cplx kernel launch")
+    KPM_MF_CPLX.launches += 1
+    return yre.reshape(u_re.shape), yim.reshape(u_im.shape)
+
+
 def kpm_mf_apply(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):
-    """K6 / K7 dispatcher: plain versions for CPU tensors, the kernels for CUDA
-    tensors. Returns (y_re, y_im)."""
+    """K6 / K7 / K8 dispatcher: plain versions for CPU tensors, the kernels for
+    CUDA tensors. Returns (y_re, y_im)."""
     if u_re.device.type == "cpu":
+        if ops.complex_pair:
+            return kpm_mf_cplx_plain(ops, u_re, u_im)
         return (kpm_mf_plain if ops.symmetric else kpm_mf_asym_plain)(ops, u_re, u_im)
     if u_re.device.type == "cuda":
-        return kpm_mf_cuda(ops, u_re, u_im)
+        return (kpm_mf_cplx_cuda if ops.complex_pair else kpm_mf_cuda)(ops, u_re, u_im)
     raise RuntimeError(f"kpm_mf_apply: no kernel for device {u_re.device}")

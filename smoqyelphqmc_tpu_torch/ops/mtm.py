@@ -3,8 +3,10 @@
 `mul_MtM(fdm, v)` is the dispatcher: a CPU tensor takes the plain version
 (`mtm_plain`, the composition of FermionDetMatrix.mul_M and mul_Mt); a CUDA
 tensor launches `csrc/mtm.cu` (f32 or f64, the dtype of the fermion matrix) or
-raises. The kernel replaces `_mtm_kernel_roll`
-(smoqyelphqmc_tpu/ops/pallas_fused.py:121); its design note is in the source.
+raises. K1 takes real hoppings only: a complex fermion matrix raises here
+(its M^dag M is FermionDetMatrix.mul_MtM's plain path). The kernel replaces
+`_mtm_kernel_roll` (smoqyelphqmc_tpu/ops/pallas_fused.py:121); its design
+note is in the source.
 """
 
 from __future__ import annotations
@@ -31,6 +33,13 @@ class KernelCounter:
 MTM = {torch.float32: KernelCounter("mtm_f32"), torch.float64: KernelCounter("mtm_f64")}
 
 
+def require_real(fdm, what: str) -> None:
+    """Raise for a complex fermion matrix: the real-hopping kernels K1-K4 (and
+    their plain versions) would drop its S_im planes."""
+    if fdm.complex_hops:
+        raise ValueError(f"{what}: real hoppings only, the fermion matrix has complex hoppings")
+
+
 def mtm_tables(fdm):
     """Kernel operands of one fermion matrix, cached on it: C, S
     (n_colors, rows, N) with rows = 1 for tau-independent hoppings, the int32
@@ -52,12 +61,14 @@ def mtm_tables(fdm):
 
 def mtm_plain(fdm, v: torch.Tensor) -> torch.Tensor:
     """M^T M v in plain PyTorch ops (the function K1 computes)."""
+    require_real(fdm, "mtm (K1)")
     MTM[v.dtype].plain_calls += 1
     return fdm.mul_Mt(fdm.mul_M(v))
 
 
 def mtm_cuda(fdm, v: torch.Tensor) -> torch.Tensor:
     """Launch K1 on v (..., Ltau, N), a CUDA tensor of the fermion matrix's dtype."""
+    require_real(fdm, "mtm kernel (K1)")
     if v.dtype != fdm.dtype or v.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"mtm kernel: v is {v.dtype}, the fermion matrix {fdm.dtype}")
     if v.device != fdm.device:

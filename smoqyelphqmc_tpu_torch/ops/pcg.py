@@ -19,7 +19,7 @@ import torch
 
 from .. import _build
 from .cg import CGStats
-from .mtm import KernelCounter, mtm_plain, mtm_tables, mul_MtM
+from .mtm import KernelCounter, mtm_plain, mtm_tables, mul_MtM, require_real
 
 PCG = KernelCounter("pcg")
 
@@ -42,6 +42,7 @@ def precond_plain(pre, r: torch.Tensor) -> torch.Tensor:
 def pcg_plain(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int):
     """Solve [M^T M] x = b for unit-norm systems b (B, Ltau, N) f32 with an
     absolute stopping test: the function K2 computes. Returns (x, eps, iters)."""
+    require_real(fdm32, "pcg (K2)")
     PCG.plain_calls += 1
     zero = torch.zeros((), dtype=torch.float32, device=b.device)
     one = torch.ones((), dtype=torch.float32, device=b.device)
@@ -80,6 +81,7 @@ def pcg_plain(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int):
 
 def pcg_cuda(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int):
     """Launch K2 on unit-norm systems b (B, Ltau, N), a contiguous f32 CUDA tensor."""
+    require_real(fdm32, "pcg kernel (K2)")
     if b.dtype != torch.float32 or fdm32.dtype != torch.float32:
         raise TypeError("pcg kernel: b and the fermion matrix must be float32")
     if b.device != fdm32.device or pre.Q.device != b.device:
@@ -127,6 +129,7 @@ class SpectralPCG:
     """Whole-solve f32 spectral PCG for one (fermion matrix, preconditioner) pair."""
 
     def __init__(self, fdm, pre):
+        require_real(fdm, "SpectralPCG (K2)")
         if pre.n_sites != fdm.n_sites or pre.Ltau != fdm.Ltau:
             raise ValueError("preconditioner and fermion matrix sizes differ")
         self.fdm32 = fdm if fdm.dtype == torch.float32 else fdm.astype(torch.float32)

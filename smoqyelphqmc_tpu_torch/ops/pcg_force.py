@@ -25,7 +25,7 @@ import torch
 from .. import _build
 from .cg import CGStats
 from .force import check_operands, planes
-from .mtm import KernelCounter, mtm_tables
+from .mtm import KernelCounter, mtm_tables, require_real
 from .pcg import precond_plain
 
 PCG_FORCE = KernelCounter("pcg_force")
@@ -37,6 +37,7 @@ def pcg_force_plain(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Te
                     maxiter: int, want_p2: bool):
     """The function K3 computes, on b, x0 (W, 2, Ltau, N) and Lam (W, Ltau, N)
     float32. Returns (x, P1, P2, eps (2W,), iters (W,) int32)."""
+    require_real(fdm32, "pcg_force (K3)")
     PCG_FORCE.plain_calls += 1
     W, _, L, N = b.shape
     zero = torch.zeros((), dtype=torch.float32, device=b.device)

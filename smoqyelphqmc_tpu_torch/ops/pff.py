@@ -102,11 +102,12 @@ def fermionic_action_and_force(
     trajectory force path; Metropolis exactness rests on the f64 endpoint
     actions).
 
-    For an f32, symmetric evaluation, fused_step=True runs the solve and the
-    force planes as kernel K3 (spectral preconditioner; Phi, x and the fermion
-    matrix may then carry a leading walker axis, and the stats are per walker)
-    and fused_force=True runs the K2 solve and then kernel K4 for the planes
-    (smoqyelphqmc_tpu/ops/pff.py:157-227)."""
+    For an f32, symmetric, real-hopping evaluation, fused_step=True runs the
+    solve and the force planes as kernel K3 (spectral preconditioner; Phi, x
+    and the fermion matrix may then carry a leading walker axis, and the
+    stats are per walker) and fused_force=True runs the K2 solve and then
+    kernel K4 for the planes (smoqyelphqmc_tpu/ops/pff.py:157-227). Complex
+    hoppings take the plain chain on channel pairs."""
     if solve_dtype != "float64":
         dt = {"float32": torch.float32}[solve_dtype]
         elph = elph.to_dtype(dt)
@@ -116,7 +117,9 @@ def fermionic_action_and_force(
         if warm_start is not None:
             warm_start = warm_start.to(dt)
     mixed = mixed and Phi.dtype == torch.float64
-    planes_apply = Phi.dtype == torch.float32 and fdm.symmetric
+    # the planes of K3 / K4 need f32, the symmetric factorization and real
+    # hoppings (the JAX package gates K4 so, pallas_fused.py:1031)
+    planes_apply = Phi.dtype == torch.float32 and fdm.symmetric and not fdm.complex_hops
     want_p2 = bool(np.any(elph.hol_ph_sym))
     if fused_step and planes_apply and isinstance(precond, SpectralPreconditioner):
         Lam = build_lambda(elph, x, fdm.n_sites)

@@ -2,7 +2,8 @@
 smoqyelphqmc_tpu/ops/preconditioner.py).
 
 The KPM preconditioner's Lanczos iteration starts from a vector the caller
-draws (`v0`, shape (N,)); the spectral preconditioner ignores it."""
+draws (`v0`, shape (N,), or (2N,) for complex hoppings); the spectral
+preconditioner ignores it."""
 
 from __future__ import annotations
 

@@ -3,11 +3,15 @@
     python -m smoqyelphqmc_tpu_torch.profile_sweeps [--walkers 8] [--sweeps 3] [--warmup 2]
     python -m smoqyelphqmc_tpu_torch.profile_sweeps --walkers 1 --L 48 --alpha 1.5 --preconditioner auto \
         --sweeps 2 --warmup 1 --compare-preconditioners
+    python -m smoqyelphqmc_tpu_torch.profile_sweeps --walkers 1 --model complex_chain --preconditioner kpm \
+        --sweeps 2 --warmup 1
 
 Runs the headline model (Holstein honeycomb L=12, beta=12, dtau=0.05,
 alpha=0.6, Omega=1, mu=0, Nt=24, tol 1e-10, mixed precision, f32 forces,
 spectral preconditioner, seed 1; `--L`, `--beta`, `--alpha` and
-`--preconditioner` change it): first
+`--preconditioner` change it), or with `--model
+complex_chain` the complex chain t e^{0.7 i} of `--L` sites (1152 by
+default; mu=0.1, alpha=0.5, the rest as above): first
 `--warmup` sweeps without the profiler (they also pay the kernels' build and
 first-use costs), then a second `run_updates` call whose `--sweeps` sweeps run
 under torch.profiler. It prints both calls' seconds per sweep, the device time
@@ -18,6 +22,13 @@ is the union of the driver's "sweep" ranges (initialization excluded), the
 busy time the union of the device's activity inside that window. The
 profiler slows the host, so the profiled sweeps run slower and idle more
 than unprofiled ones.
+
+For the complex chain it then times one call of the plain complex M^dag M
+in f32 and in f64 at the initial field (CUDA events, the mean of 20 after
+one warm-up; eager launches included, as in a sweep) and multiplies by the
+calls per sweep that `ops.fermion_det.CPLX_MTM` counted in the unprofiled
+sweeps: that operator's share of an unprofiled sweep (the median of the
+unprofiled sweeps after the first).
 
 `--compare-preconditioners` then times, at the model's initial field, the
 refresh (build) of the spectral and the KPM preconditioner and one f32 solve
@@ -51,8 +62,8 @@ def _clip(intervals, windows):
 
 # kernel families of the trace, by kernel-name substring; the first match wins
 FAMILIES = (("K3 pcg_force", "pcg_force_kernel"), ("K2 pcg", "pcg_kernel"), ("K4 force", "force_kernel"),
-            ("K1 mtm", "mtm_kernel"), ("K7 kpm_mf_asym", "kpm_mf_asym_kernel"), ("K6 kpm_mf", "kpm_mf_kernel"),
-            ("cuFFT", "fft"))
+            ("K1 mtm", "mtm_kernel"), ("K7 kpm_mf_asym", "kpm_mf_asym_kernel"),
+            ("K8 kpm_mf_cplx", "kpm_mf_cplx_kernel"), ("K6 kpm_mf", "kpm_mf_kernel"), ("cuFFT", "fft"))
 
 
 def family(name: str) -> str:
@@ -62,27 +73,34 @@ def family(name: str) -> str:
     return "other"
 
 
-def preconditioner_times(tbm, em, cfg, device, reps: int = 3) -> dict:
-    """Refresh and one f32 solve with the spectral and the KPM preconditioner
-    at the model's initial field (see the module docstring)."""
-    import time
-
+def initial_fdm(tbm, em, cfg, device):
+    """The model's fermion matrix (f64) at its initial field, expanded from cfg.seed."""
     import numpy as np
-    import torch
 
     from .models.electron_phonon import ElectronPhononParameters
     from .models.tight_binding import TightBindingParameters
-    from .ops.fermion_det import solve_MtM
-    from .ops.preconditioner import build_preconditioner
     from .updates.context import initialize_qmc, make_fdm
 
     rng = np.random.default_rng(cfg.seed)
     tbp = TightBindingParameters.from_model(tbm, rng, device=device)
     elph = ElectronPhononParameters.from_model(cfg.beta, cfg.dtau, em, tbp, rng, device=device)
-    ctx, state = initialize_qmc(tbp, elph, use_preconditioner=False)
-    fdm = make_fdm(ctx, state.x)
+    ctx, state = initialize_qmc(tbp, elph, symmetric=cfg.symmetric, use_preconditioner=False)
+    return make_fdm(ctx, state.x)
+
+
+def preconditioner_times(tbm, em, cfg, device, reps: int = 3) -> dict:
+    """Refresh and one f32 solve with the spectral and the KPM preconditioner
+    at the model's initial field (see the module docstring)."""
+    import time
+
+    import torch
+
+    from .ops.fermion_det import solve_MtM
+    from .ops.preconditioner import build_preconditioner
+
+    fdm = initial_fdm(tbm, em, cfg, device)
     gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
-    v0 = torch.randn(fdm.n_sites, generator=gen, dtype=torch.float64)
+    v0 = torch.randn(2 * fdm.n_sites if fdm.complex_hops else fdm.n_sites, generator=gen, dtype=torch.float64)
     b = torch.randn((2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to(device)
 
     def sync():
@@ -109,31 +127,68 @@ def preconditioner_times(tbm, em, cfg, device, reps: int = 3) -> dict:
     return out
 
 
+def complex_mtm_share(tbm, em, cfg, device, calls_per_sweep: dict, sweep_s: float, reps: int = 20) -> dict:
+    """ms per call of the plain complex M^dag M in f32 and f64 at the initial
+    field, and its share of an unprofiled sweep of sweep_s seconds."""
+    import torch
+
+    fdm = initial_fdm(tbm, em, cfg, device)
+    v = torch.randn((2, fdm.Ltau, fdm.n_sites), generator=torch.Generator().manual_seed(3), dtype=torch.float64)
+    out, total_ms = {}, 0.0
+    for dtype in (torch.float32, torch.float64):
+        f, vd = fdm.astype(dtype), v.to(device, dtype)
+        f.mul_MtM(vd)
+        torch.cuda.synchronize(device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            f.mul_MtM(vd)
+        end.record()
+        torch.cuda.synchronize(device)
+        ms = start.elapsed_time(end) / reps
+        total_ms += ms * calls_per_sweep[dtype]
+        out[str(dtype)] = dict(ms_per_call=ms, calls_per_sweep=calls_per_sweep[dtype])
+    out["share_of_unprofiled_sweep"] = total_ms / (sweep_s * 1e3)
+    print(f"plain complex M^dag M: {out}")
+    return out
+
+
 def main(argv=None) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from .driver import SimulationConfig, run_updates
-    from .models.library import holstein_honeycomb_model
+    from .models.library import complex_chain_model, holstein_honeycomb_model
+    from .ops.fermion_det import CPLX_MTM
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--walkers", type=int, default=8)
     ap.add_argument("--sweeps", type=int, default=3)
     ap.add_argument("--warmup", type=int, default=2)
-    ap.add_argument("--L", type=int, default=12)
+    ap.add_argument("--model", default="honeycomb", choices=("honeycomb", "complex_chain"))
+    ap.add_argument("--L", type=int, default=None, help="12 (honeycomb) or 1152 (complex chain) by default")
     ap.add_argument("--beta", type=float, default=12.0)
-    ap.add_argument("--alpha", type=float, default=0.6)
+    ap.add_argument("--alpha", type=float, default=None, help="0.6 (honeycomb) or 0.5 (complex chain) by default")
     ap.add_argument("--preconditioner", default="spectral", choices=("spectral", "kpm", "auto"))
     ap.add_argument("--compare-preconditioners", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--top", type=int, default=12, help="kernels listed")
     args = ap.parse_args(argv)
 
-    _, tbm, em = holstein_honeycomb_model(args.L, 1.0, args.alpha, 0.0)
+    cplx = args.model == "complex_chain"
+    args.L = args.L or (1152 if cplx else 12)
+    args.alpha = args.alpha if args.alpha is not None else (0.5 if cplx else 0.6)
+    if cplx:
+        _, tbm, em = complex_chain_model(args.L, 1.0, 0.7, 0.1, 1.0, args.alpha)
+    else:
+        _, tbm, em = holstein_honeycomb_model(args.L, 1.0, args.alpha, 0.0)
     cfg = SimulationConfig(beta=args.beta, dtau=0.05, Nt=24, tol=1e-10, seed=1, mixed_precision=True,
                            force_dtype="float32", preconditioner=args.preconditioner, n_walkers=args.walkers)
+    for c in CPLX_MTM.values():
+        c.reset()
     warm = run_updates(tbm, em, cfg, args.warmup, device=args.device)
+    cplx_calls = {dt: c.plain_calls / max(args.warmup, 1) for dt, c in CPLX_MTM.items()}
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if args.device.startswith("cuda") else [])
     with profile(activities=activities) as prof:
         md = run_updates(tbm, em, cfg, args.sweeps, device=args.device)
@@ -149,7 +204,7 @@ def main(argv=None) -> dict:
             per_kernel[e.name][0] += t - s
             per_kernel[e.name][1] += 1
     n = max(len(windows), 1)
-    print(f"W={args.walkers} L={args.L} beta={args.beta} alpha={args.alpha} {args.preconditioner}: "
+    print(f"{args.model} W={args.walkers} L={args.L} beta={args.beta} alpha={args.alpha} {args.preconditioner}: "
           f"unprofiled s/sweep {warm['sweep_s']}; "
           f"profiled s/sweep {md['sweep_s']}; iters/solve hmc {md['hmc_iters']:.3f} "
           f"refl {md['reflection_iters']:.3f} swap {md['swap_iters']:.3f}; kpm_active {md.get('kpm_active')}")
@@ -172,6 +227,11 @@ def main(argv=None) -> dict:
                    unprofiled_sweep_s=warm["sweep_s"], profiled_sweep_s=md["sweep_s"],
                    kernels_ms_per_sweep={k: v[0] / n / 1e3 for k, v in rows[:args.top]},
                    families_ms_per_sweep={k: v[0] / n / 1e3 for k, v in families.items()})
+    if cplx and args.device.startswith("cuda"):
+        # the first unprofiled sweep also pays the kernels' build and first use
+        steady = sorted(warm["sweep_s"][1:] or warm["sweep_s"])
+        summary["complex_mtm"] = complex_mtm_share(tbm, em, cfg, torch.device(args.device), cplx_calls,
+                                                   float(steady[len(steady) // 2]))
     if args.compare_preconditioners:
         summary["preconditioners"] = preconditioner_times(tbm, em, cfg, torch.device(args.device))
     print(json.dumps(summary))

@@ -52,6 +52,15 @@ class QMCContext:
     def device(self) -> torch.device:
         return self.elph.device
 
+    @property
+    def complex_hops(self) -> bool:
+        return self.tbp.t0_im is not None
+
+    @property
+    def lanczos_dim(self) -> int:
+        """Length of a KPM Lanczos start vector: N, or 2N for complex hoppings."""
+        return 2 * self.n_sites if self.complex_hops else self.n_sites
+
 
 @dataclasses.dataclass
 class QMCState:
@@ -66,7 +75,9 @@ def make_fdm(ctx: QMCContext, x: torch.Tensor, dtype: Optional[str] = None) -> F
     For a walker batch x (W, n_phonon, Ltau) the fermion matrix carries exp_nV
     as (W, 1, Ltau, N): its products broadcast over the channel axis of
     (W, 2, Ltau, N) fields, and kernels K3 / K4 read the planes with a walker
-    stride. The hopping tables are shared (no SSH couplings)."""
+    stride. The hopping tables are shared (no SSH couplings). Complex hoppings
+    carry their imaginary parts through the path integral (t_im) into the
+    fermion matrix (sinh_hop_im, cb.S_im)."""
     fpi = build_path_integral(ctx.tbp, ctx.elph, x)
     if dtype is not None and _DTYPES[dtype] != fpi.V.dtype:
         fpi = fpi.to_dtype(_DTYPES[dtype])
@@ -93,8 +104,8 @@ def initialize_qmc(
 ) -> tuple[QMCContext, QMCState]:
     """Context and initial state on the device of `elph` (preconditioner:
     'auto' by default, 'spectral', 'kpm', or None). A KPM preconditioner's
-    Lanczos iteration starts from `lanczos_v0` (N,), which the JAX package
-    draws from split(PRNGKey(seed))[1]."""
+    Lanczos iteration starts from `lanczos_v0` (N,), or (2N,) for complex
+    hoppings, which the JAX package draws from split(PRNGKey(seed))[1]."""
     structure = build_checkerboard_structure(np.asarray(tbp.neighbor_table), tbp.n_sites)
     ctx = QMCContext(
         tbp=tbp,

@@ -58,8 +58,9 @@ class HMCDraws:
     """The trajectory's random numbers: timestep jitter u_dt ~ U(0,1),
     pseudofermion noise R (2, Ltau, N) ~ N(0, 1/2), momentum noise xi
     (n_phonon, Ltau) ~ N(0, 1), acceptance u_acc ~ U(0,1), and the Lanczos
-    start vector v_pre0 (N,) ~ N(0, 1) of the trajectory-start refresh of a
-    KPM preconditioner (the JAX package's k_pre0; None for other chains)."""
+    start vector v_pre0 (N,) ~ N(0, 1), (2N,) for complex hoppings, of the
+    trajectory-start refresh of a KPM preconditioner (the JAX package's
+    k_pre0; None for other chains)."""
 
     u_dt: float
     R: torch.Tensor
@@ -79,7 +80,7 @@ def draw_hmc(gen: torch.Generator, ctx: QMCContext, precond=None) -> HMCDraws:
     u_acc = float(torch.rand((), generator=gen, dtype=f64))
     v_pre0 = None
     if isinstance(precond, KPMPreconditioner):
-        v_pre0 = torch.randn((ctx.n_sites,), generator=gen, dtype=f64).to(dev)
+        v_pre0 = torch.randn((ctx.lanczos_dim,), generator=gen, dtype=f64).to(dev)
     return HMCDraws(u_dt=u_dt, R=R.to(dev), xi=xi.to(dev), u_acc=u_acc, v_pre0=v_pre0)
 
 
@@ -159,9 +160,10 @@ def _warm_start(hist, n_prev: int) -> torch.Tensor:
 
 
 def k3_trajectory_applies(ctx: QMCContext, precond) -> bool:
-    """Whether kernel K3 can run the trajectory force solves: f32 forces and
-    the spectral preconditioner (which needs the symmetric factorization)."""
-    return ctx.force_dtype == "float32" and ctx.symmetric and isinstance(precond, SpectralPreconditioner)
+    """Whether kernel K3 can run the trajectory force solves: f32 forces, the
+    symmetric factorization, real hoppings and the spectral preconditioner."""
+    return (ctx.force_dtype == "float32" and ctx.symmetric and not ctx.complex_hops
+            and isinstance(precond, SpectralPreconditioner))
 
 
 def _stack_forces(results: Sequence[ForceResult]) -> ForceResult:

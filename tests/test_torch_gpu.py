@@ -280,3 +280,74 @@ def test_run_updates_kpm_launches_k6_k7(cuda_device, symmetric):
     assert kpm.launches > 0 and mtm.MTM[torch.float32].launches > 0 and mtm.MTM[torch.float64].launches > 0
     for c in counters:
         assert c.plain_calls == 0, c.name
+
+
+def _cplx_fdm(device, symmetric=True, L=8, beta=1.0, phase=0.7):
+    """The complex chain t e^{i phase} (an O(1) imaginary part)."""
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
+
+    geo, tbm, em = complex_chain_model(L, phase=phase)
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=device)
+    elph = ElectronPhononParameters.from_model(beta, 0.1, em, tbp, rng, device=device)
+    structure = build_checkerboard_structure(tbp.neighbor_table, tbp.n_sites)
+    return FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph), structure, symmetric=symmetric)
+
+
+@pytest.mark.parametrize("L", [8, 1152, 3000, 8190], ids=["N-8", "N-1152", "N-3000", "N-8190"])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_cplx_kernel_matches_plain(cuda_device, symmetric, L):
+    """K8 against kpm_mf_cplx_plain on a complex chain's matrix-free
+    preconditioner, two complex vectors of (Ltau, N) frequency planes; the
+    sizes take each of its register tiles (4, 8 and 16 sites per thread,
+    N <= 2048, 4096 and 8192), the last two with a partly filled tile."""
+    fdm = _cplx_fdm(cuda_device, symmetric, L=L)
+    gen = torch.Generator().manual_seed(8)
+    pre = KPMPreconditioner.build(fdm, torch.randn(2 * fdm.n_sites, generator=gen, dtype=torch.float64),
+                                  matrix_free=True)
+    assert pre.complex_pair and pre.active and pre.orders.max() > 1
+    ops = pre.mf_operands()
+    ure, uim = torch.randn((2, 2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to(cuda_device)
+    launches = kpm_mf.KPM_MF_CPLX.launches
+    got = kpm_mf.kpm_mf_apply(ops, ure, uim)
+    assert kpm_mf.KPM_MF_CPLX.launches == launches + 1
+    ref = kpm_mf.kpm_mf_cplx_plain(ops, ure, uim)
+    scale = max(float(r.abs().max()) for r in ref)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    assert err <= (2e-4 if symmetric else 5e-4) * scale
+
+
+def test_kpm_mf_cplx_kernel_refuses_large_n(cuda_device):
+    """K8 takes at most 8192 sites and says so."""
+    fdm = _cplx_fdm(cuda_device, True, L=8200, beta=0.2)
+    gen = torch.Generator().manual_seed(9)
+    pre = KPMPreconditioner.build(fdm, torch.randn(2 * fdm.n_sites, generator=gen, dtype=torch.float64),
+                                  matrix_free=True)
+    u = torch.zeros((fdm.Ltau, fdm.n_sites), dtype=torch.float32, device=cuda_device)
+    with pytest.raises(ValueError, match="N = 8200 sites exceeds the kernel's 8192"):
+        kpm_mf.kpm_mf_apply(pre.mf_operands(), u, u)
+
+
+@pytest.mark.parametrize("symmetric", SYM)
+def test_run_updates_complex_kpm_launches_k8(cuda_device, symmetric):
+    """The complex chain at N = 1152 with preconditioner='kpm': K8 is the only
+    kernel launched; the complex M^dag M is plain PyTorch by design, and no
+    real-hopping kernel or plain version runs."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
+    from smoqyelphqmc_tpu_torch.ops.fermion_det import CPLX_MTM
+
+    geo, tbm, em = complex_chain_model(1152)
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE, force.FORCE,
+                kpm_mf.KPM_MF, kpm_mf.KPM_MF_ASYM, kpm_mf.KPM_MF_CPLX)
+    for c in counters:
+        c.reset()
+    for c in CPLX_MTM.values():
+        c.reset()
+    cfg = SimulationConfig(beta=1.0, dtau=0.1, Nt=4, seed=2, symmetric=symmetric, preconditioner="kpm")
+    md = run_updates(tbm, em, cfg, 1, device=cuda_device)
+    assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all() and md["kpm_active"]
+    assert kpm_mf.KPM_MF_CPLX.launches > 0 and all(c.plain_calls > 0 for c in CPLX_MTM.values())
+    for c in counters:
+        assert c.plain_calls == 0, c.name
+        assert c.launches == 0 or c is kpm_mf.KPM_MF_CPLX, c.name
