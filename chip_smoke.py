@@ -30,7 +30,9 @@ Phases, one line each:
  13. K6 (matrix-free KPM apply, symmetric) against its plain version on the
      large model's tables (Holstein honeycomb L=48, N=4608, alpha=1.5,
      beta=12, Ltau=240) with live Lanczos bounds, u (2 vectors, re and im
-     planes of (2, 240, 4608));
+     planes of (2, 240, 4608)); with a line on how it launched (stages per
+     order step, us per order step of the longest frequency, cluster size,
+     order threshold, frequencies in the cluster form);
  14. K7 (the asymmetric two-pass apply) the same on the asymmetric tables;
  15. the large-N path: `run_updates` on the large model with
      preconditioner='auto', which resolves to the matrix-free KPM
@@ -683,6 +685,17 @@ def phase_kpm_kernel(results, symmetric):
     bound_ms, bound_by = bound(nbytes, {"f32": ops_f32})
     name = "kpm_mf" if symmetric else "kpm_mf_asym"
     tag = "K6" if symmetric else "K7"
+    # how the kernel launched: the stages of an order step, the time of one
+    # order step of the longest frequency (which the kernel's time is), and
+    # the plan's cluster part
+    plan = kpm_mf.cluster_plan(ops, n_vec)
+    steps = (1 if symmetric else 2) * (int(orders.max()) - 1)
+    say(f"{tag} launch: {plan['stages']} stages per order step; {1e3 * ms / steps:.3f} us per order step of the "
+        f"longest frequency ({ms:.4f} ms / {steps} steps); cluster size {plan['cluster_size']}, order threshold "
+        f"{plan['order_threshold']}, {plan['sites_per_thread']} site(s) a thread; {plan['n_cluster']} of {Ltau} "
+        f"frequencies took the cluster form")
+    if plan["sites_per_thread"] == 0:
+        fail(f"{tag}: the cluster form does not fit the large-N path's shape")
     say(f"{tag} u 2 x (2, {Ltau}, {N}), coefficients ({Ltau}, {C_pad}): bounds [{pre.lo:.4f}, {pre.hi:.4f}]; "
         f"live orders max {orders.max()} sum {orders.sum()}; max abs err {err:.3e} at max|y| {scale:.4g} "
         f"(rel {err / scale:.3e}, tol {tol:g}); kernel {ms:.4f} ms plain {plain_ms:.4f} ms; "

@@ -41,8 +41,8 @@ _SIGNATURES = {
                         _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "smoqy_force": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "smoqy_kpm_mf_max_sites": [_I],
-    "smoqy_kpm_mf": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P],
-    "smoqy_kpm_mf_asym": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _P],
+    "smoqy_kpm_mf_cluster_fits": [_I, _I, _I, _I, _I, _I],
+    "smoqy_kpm_mf": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _P],
     "smoqy_kpm_mf_cplx_max_sites": [],
     "smoqy_kpm_mf_cplx": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _P],
 }

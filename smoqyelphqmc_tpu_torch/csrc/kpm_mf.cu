@@ -14,26 +14,70 @@
 // What bounds them on the H100: the sequential depth, not bytes or
 // operations. Device memory sees u once and y once (about 35 MB per apply at
 // the L=48 slice, ~11 us at 3.35 TB/s), and the arithmetic is a few hundred
-// MFLOP; but a frequency's recurrence is order-many steps, each a full
-// Bbar application: 3 (asymmetric) or 6 (symmetric) checkerboard colors,
-// each a gather over the whole row, separated by __syncthreads().
+// MFLOP; but a frequency's recurrence is order-many steps, each a full Bbar
+// application: a chain of gathers over the whole row of N sites, each of
+// which needs the one before it complete. The kernel's time is the time of
+// the frequency with the most live orders (77 of a sum of 594 over 240
+// frequencies at L=48), so what counts is the number of barrier-separated
+// stages per order step and the time of one stage.
 //
 // What the design does about it:
-// - one CTA per (row, frequency) for K6 and per (vector, frequency) for K7,
-//   each running to its OWN live order (the TPU kernel bounded a block of
-//   frequencies by the block's largest order);
-// - CTAs are numbered in descending order of the frequency's order (through
-//   the plan's sort permutation), so the long low-frequency recurrences start
-//   first and the short ones fill in behind them;
-// - t_cur lives in shared memory as a ping-pong pair (the gather needs the
-//   whole row); t_prev, t_cur's own sites and y live in the registers of the
-//   thread that owns the site, so a step touches device memory only for the
-//   tables (L1/L2-resident) and one coefficient;
-// - K7 keeps one complex vector in the CTA and runs both passes in-kernel:
-//   pass 1's output is pass 2's input without a trip to device memory.
-// The checkerboard is row_ops.cuh's `apply_B` on single-row tables
-// (tau_stride 0), with expV / half as the diagonal; center / half is
-// subtracted in the recurrence step, as the TPU kernels fold the affine map.
+// - Stage tables. The host (ops/kpm_mf.py:build_stage_tables) folds Bbar / half
+//   into n_stages gathers  x <- A_s x + B_s x[P_s]  and nothing else: for the
+//   asymmetric form the colors in order with the diagonal multiplied into the
+//   last one (n_colors stages where the sweep and the diagonal were
+//   n_colors + 1 passes for each of the two rows); for the symmetric form the
+//   reversed colors, then the middle color, the diagonal and the middle color
+//   again as ONE 2x2 block per pair, then the colors forward
+//   (2 n_colors - 1 stages for 2 n_colors + 1). The recurrence step and the
+//   y += c_k t_k update touch only the thread's own sites, so the last stage
+//   does them: an order step is 5 stages (K6) or 3 (K7) at 3 colors, where it
+//   was 8 or 9 barrier-separated passes. Partners are 16-bit (N <= 65535).
+// - All rows of a frequency together. A CTA carries G = 4 (or 2) rows (K6:
+//   any rows; K7: re and im of G / 2 vectors) interleaved site by site, so
+//   one table entry and one 16-byte transfer serve them all.
+// - The cluster form: the N sites of one frequency are split over the CTAs of
+//   a thread-block cluster, each owning a contiguous slice. Its slice of the
+//   stage tables and the coefficients stay in its shared memory for the whole
+//   recurrence, and the state (t_prev, t_cur, y, and the value moving
+//   through the stages) in the registers of the thread that owns the site.
+//   Stages are not separated by barriers at all: a stage's input is pushed.
+//   P pairs the sites, so the thread that has x[n] stores it into the slot of
+//   its partner P[n], in whichever CTA owns that (st.async through
+//   distributed shared memory, the slot's shared::cluster address from mapa
+//   computed once per table entry), and the store completes bytes on an
+//   mbarrier beside the slot, one for every 32 sites; a warp waits only for
+//   the 32 slots of its own sites. Partners may lie anywhere.
+// - The one-CTA form, for shapes whose slices do not fit the cluster form
+//   (chosen by shape alone) and for the plan's tail where the order threshold
+//   cuts it: one CTA per (frequency, row group) with the same stages, the
+//   tables read through the read-only cache, one row (K6) or one vector (K7)
+//   per CTA, __syncthreads() between stages; N up to 16384 (K6), 8192 (K7).
+// - CTAs are numbered in descending order of the frequency's live order
+//   (the plan's sort); the first n_cluster frequencies take the cluster
+//   form, the rest the one-CTA form in a second launch. The cut
+//   (ops/kpm_mf.py:ORDER_THRESHOLD) and the cluster size are constants
+//   chosen from measurements on the card, written there; a thread takes 1
+//   site of its CTA's slice, 2 where the slice has more than 1024.
+// - K7 runs both passes in-kernel: pass 1's output is pass 2's input without
+//   a trip to device memory.
+// center / half is subtracted in the recurrence step, as the TPU kernels fold
+// the affine map.
+//
+// Measured on an NVIDIA H100 80GB HBM3 (700 W limit) with
+// smoqyelphqmc_tpu_torch/time_kpm_mf.py at the L=48 shape, u 2 x (2, 240,
+// 4608), ms per apply (PERF.md section 6 has the runs): K6 0.92 -> 0.23, K7
+// 1.75 -> 0.14. A stage of the longest recurrence costs ~0.6 us (K6: 3.0 us
+// per order step of 5 stages; K7: 1.9 us of 3), where a barrier-separated
+// pass cost 1.5 us (K6) and 2.6 us (K7). On the way: the stages alone, in the
+// one-CTA form, 0.57 (K6) and 0.46 (K7); the cluster form gathering through
+// distributed shared memory behind a cluster barrier 0.32 and 0.19, of which
+// the barrier's release fence (barrier.cluster.arrive.release) was 0.5 us of
+// every 0.9 us stage; pushing with one mbarrier per buffer 0.26 and 0.15; one
+// per 32 sites 0.23 and 0.14. The time of a stage grows with the sites a CTA
+// owns (cluster size 4: K7 0.24; the non-portable 16: K6 0.20, K7 0.12), and
+// every frequency as a cluster in one launch beats any cut of the plan (the
+// second launch waits for the first).
 //
 // K8 (`kpm_mf_cplx_kernel`) replaces `_kpm_mf_cplx_kernel` (:1307, its
 // pallas_call at :1403): complex hopping amplitudes. Bbar is then complex and
@@ -44,9 +88,10 @@
 // reversed, the diagonal, the colors forward) is Hermitian: real
 // coefficients, one pass. The asymmetric Bbar = expV CB (the colors forward,
 // then the diagonal) takes K7's two conjugate passes with the i-rotation of
-// the same row pair. Its design is K7's: one CTA per (vector,
+// the same row pair. Its design is the earlier one of K7: one CTA per (vector,
 // frequency), both rows ping-ponged in shared memory (each gather reads the
-// partner site of BOTH rows), t_prev, t_cur and y of both rows in registers.
+// partner site of BOTH rows), t_prev, t_cur and y of both rows in registers,
+// every color, the diagonal and the recurrence step a pass of its own.
 // Per site that is six floats per order step, so K8 takes 4, 8 or 16 sites
 // per thread (512 threads at most) to keep the register tiles small at
 // N = 1152 (288 threads of 4 sites) and refuses N above 16 x 512 = 8192.
@@ -55,165 +100,485 @@
 // symmetric recurrence runs ~60 orders of 6 barrier-separated stages (two
 // color sweeps, the diagonal, the recurrence step).
 //
-// C interface (bound with ctypes from ops/kpm_mf.py): returns cudaGetLastError().
+// C interface (bound with ctypes from ops/kpm_mf.py): returns a cudaError_t.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "row_ops.cuh"
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kK6MaxThreads = 1024;
-constexpr int kK7MaxThreads = 512;
-constexpr int kK6MaxSites = 16 * kK6MaxThreads;  // PER = 16
-constexpr int kK7MaxSites = 16 * kK7MaxThreads;  // PER = 16
+constexpr int kMaxThreads = 1024;
+constexpr int kK6MaxSites = 16 * 1024;  // the one-CTA form: 16 sites a thread, one row
+constexpr int kK7MaxSites = 16 * 512;   // the one-CTA form: 16 sites a thread, one vector
+constexpr int kMaxClusterSize = 8;      // the portable limit; 16 is taken with the non-portable attribute
+constexpr size_t kMaxSmem = 227 * 1024;
 constexpr int kK8MaxThreads = 512;
 constexpr int kK8MaxSites = 16 * kK8MaxThreads;  // PER = 16
 
 __device__ __forceinline__ int site(int i) { return threadIdx.x + i * blockDim.x; }
 
-// K6: one CTA per (row, frequency). Rows 0..B-1 are u_re's, B..2B-1 u_im's;
-// blockIdx.x = rank * 2B + row, rank in the descending-order sort.
-template <int PER>
-__global__ void __launch_bounds__(kK6MaxThreads)
-kpm_mf_kernel(const float* __restrict__ ure, const float* __restrict__ uim, float* __restrict__ yre,
-              float* __restrict__ yim, smoqy::CbTables<float> tb, const float* __restrict__ coefs,
-              const int* __restrict__ orders, const int* __restrict__ perm, float cih, int B, int F,
-              int C_pad) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* X = reinterpret_cast<float*>(smem_raw);
-  float* Y = X + tb.N;
-  const int N = tb.N;
-  const int R = 2 * B;
-  const int f = perm[blockIdx.x / R];
-  const int row = blockIdx.x % R;
-  const size_t off = ((size_t)(row % B) * F + f) * N;
-  const float* u = (row < B ? ure : uim) + off;
-  float* out = (row < B ? yre : yim) + off;
-  const float* c = coefs + (size_t)f * C_pad;
-  const int n_ord = orders[f];
+// Bbar / half as gathers x <- A_t x + B_t x[P_t]: stage s takes table s, or,
+// mirrored (the symmetric form), table |s - (n_tables - 1)|: the colors
+// n_tables-1 .. 1, the folded middle block (table 0), the colors 1 .. n_tables-1.
+struct StageTables {
+  const float* A;           // (n_tables, N)
+  const float* Bc;          // (n_tables, N)
+  const unsigned short* P;  // (n_tables, N) partner sites
+  int N;
+  int n_tables;
+  int n_stages;
+  int mirror;
+};
 
-  float tc[PER], tp[PER], y[PER];
-  const float c0 = c[0];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int n = site(i);
-    tc[i] = (n < N) ? u[n] : 0.f;
-    tp[i] = 0.f;
-    y[i] = c0 * tc[i];
-    if (n < N) X[n] = tc[i];
-  }
-  __syncthreads();
-  float* cur = X;
-  for (int k = 1; k < n_ord; ++k) {
-    // t_k = a Bbar' t_{k-1} - b t_{k-2}: (a, b) = (1, 0) at k = 1, else (2, 1)
-    float* r = smoqy::apply_B(tb, 0, cur, smoqy::other_buf(cur, X, Y));
-    const float a = (k == 1) ? 1.f : 2.f;
-    const float b = (k == 1) ? 0.f : 1.f;
-    const float ck = c[k];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int n = site(i);
-      if (n < N) {
-        const float tn = a * (r[n] - cih * tc[i]) - b * tp[i];
-        tp[i] = tc[i];
-        tc[i] = tn;
-        r[n] = tn;
-        y[i] += ck * tn;
-      }
+struct MfArgs {
+  const float* ure;  // (B, F, N)
+  const float* uim;
+  float* yre;
+  float* yim;
+  StageTables tb;
+  const float* cre;  // (F, C_pad)
+  const float* cim;  // (F, C_pad), K7 only
+  const int* orders;  // (F,) live orders
+  const int* perm;    // (F,) the plan: frequencies in descending order
+  float cih;          // center / half
+  int B, F, C_pad;
+};
+
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t shared_addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(shared_addr), "r"(rank));
+  return out;
+}
+
+// mbarrier (shared::cta address) with a transaction count: remote st.async
+// stores complete bytes on it; one local arrival arms each phase.
+__device__ __forceinline__ void mbar_init(uint32_t mbar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(mbar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arm(uint32_t mbar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mbar), "r"(bytes) : "memory");
+}
+
+// Wait for the phase of this parity; the stores that completed it are
+// visible afterwards (acquire at cluster scope). A phase that does not
+// complete within seconds is a fault of the launch: trap, not hang.
+__device__ __forceinline__ void mbar_wait(uint32_t mbar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  for (unsigned spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(mbar), "r"(parity)
+        : "memory");
+    if (!done && (spins & 1023u) == 1023u) {
+      if (t0 == 0) t0 = clock64();
+      if (clock64() - t0 > 4000000000ll) __trap();
     }
-    __syncthreads();
-    cur = r;
-  }
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int n = site(i);
-    if (n < N) out[n] = y[i];
   }
 }
 
-// K7: one CTA per (vector, frequency); blockIdx.x = rank * B + vector.
-template <int PER>
-__global__ void __launch_bounds__(kK7MaxThreads)
-kpm_mf_asym_kernel(const float* __restrict__ ure, const float* __restrict__ uim, float* __restrict__ yre,
-                   float* __restrict__ yim, smoqy::CbTables<float> tb, const float* __restrict__ cre_tab,
-                   const float* __restrict__ cim_tab, const int* __restrict__ orders,
-                   const int* __restrict__ perm, float cih, int B, int F, int C_pad) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Xr = reinterpret_cast<float*>(smem_raw);
-  float* Yr = Xr + tb.N;
-  float* Xi = Yr + tb.N;
-  float* Yi = Xi + tb.N;
-  const int N = tb.N;
-  const int f = perm[blockIdx.x / B];
-  const size_t off = ((size_t)(blockIdx.x % B) * F + f) * N;
-  const float* cr = cre_tab + (size_t)f * C_pad;
-  const float* ci = cim_tab + (size_t)f * C_pad;
-  const int n_ord = orders[f];
-
-  float tcr[PER], tci[PER], tpr[PER], tpi[PER], yr[PER], yi[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int n = site(i);
-    yr[i] = (n < N) ? ure[off + n] : 0.f;
-    yi[i] = (n < N) ? uim[off + n] : 0.f;
+// G floats to a shared::cluster address (any CTA of the cluster), completing
+// 4 G bytes on the mbarrier beside it (an address in the same CTA).
+template <int G>
+__device__ __forceinline__ void st_async(uint32_t addr, const float (&x)[G], uint32_t mbar) {
+  static_assert(G == 2 || G == 4, "row groups of 2 or 4");
+  if constexpr (G == 4) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];" ::"r"(addr),
+                 "r"(__float_as_uint(x[0])), "r"(__float_as_uint(x[1])), "r"(__float_as_uint(x[2])),
+                 "r"(__float_as_uint(x[3])), "r"(mbar)
+                 : "memory");
+  } else {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];" ::"r"(addr),
+                 "r"(__float_as_uint(x[0])), "r"(__float_as_uint(x[1])), "r"(mbar)
+                 : "memory");
   }
-  for (int pass = 0; pass < 2; ++pass) {
-    // pass 0 applies conj(c), pass 1 applies c to pass 0's output (in y)
-    const float s = pass == 0 ? -1.f : 1.f;
-    const float c0r = cr[0], c0i = s * ci[0];
+}
+
+template <int G>
+__device__ __forceinline__ void ld_row(const float* p, float (&x)[G]) {
+  if constexpr (G == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+  } else if constexpr (G == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x, x[1] = v.y;
+  } else {
+    x[0] = p[0];
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void st_row(float* p, const float (&x)[G]) {
+  if constexpr (G == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (G == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  } else {
+    p[0] = x[0];
+  }
+}
+
+// Row g of row group `group` of frequency f: its offset in the (B, F, N)
+// planes, and whether it lies in the im plane. K6's rows 0..B-1 are u_re's
+// vectors and B..2B-1 u_im's; K7's rows 2j, 2j+1 are re and im of vector j.
+template <int G, bool kAsym>
+__device__ __forceinline__ size_t row_offset(int group, int g, int f, int B, int F, int N, bool& im) {
+  if constexpr (kAsym) {
+    im = g & 1;
+    return ((size_t)(group * (G / 2) + g / 2) * F + f) * N;
+  } else {
+    const int r = group * G + g;
+    im = r >= B;
+    return ((size_t)(r % B) * F + f) * N;
+  }
+}
+
+// The sites [lo, lo + len) of this CTA's rows of frequency f, site(i) of
+// thread threadIdx.x, between registers and the (B, F, N) planes.
+template <int G, int PER, bool kAsym>
+__device__ __forceinline__ void load_rows(const MfArgs& a, int f, int lo, int len, float (&t)[PER][G]) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    bool im;
+    const size_t off = row_offset<G, kAsym>(blockIdx.y, g, f, a.B, a.F, a.tb.N, im);
+    const float* __restrict__ src = (im ? a.uim : a.ure) + off + lo;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) t[i][g] = site(i) < len ? src[site(i)] : 0.f;
+  }
+}
+
+template <int G, int PER, bool kAsym>
+__device__ __forceinline__ void store_rows(const MfArgs& a, int f, int lo, int len, const float (&y)[PER][G]) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    bool im;
+    const size_t off = row_offset<G, kAsym>(blockIdx.y, g, f, a.B, a.F, a.tb.N, im);
+    float* __restrict__ dst = (im ? a.yim : a.yre) + off + lo;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      const int n = site(i);
-      tcr[i] = yr[i];
-      tci[i] = yi[i];
-      tpr[i] = 0.f;
-      tpi[i] = 0.f;
-      // y = c t + s c_im i t, i t = (-t_im, t_re)
-      yr[i] = c0r * tcr[i] - c0i * tci[i];
-      yi[i] = c0r * tci[i] + c0i * tcr[i];
-      if (n < N) {
-        Xr[n] = tcr[i];
-        Xi[n] = tci[i];
-      }
-    }
-    __syncthreads();
-    float* cur_r = Xr;
-    float* cur_i = Xi;
-    for (int k = 1; k < n_ord; ++k) {
-      float* rr = smoqy::apply_B(tb, 0, cur_r, smoqy::other_buf(cur_r, Xr, Yr));
-      float* ri = smoqy::apply_B(tb, 0, cur_i, smoqy::other_buf(cur_i, Xi, Yi));
-      const float a = (k == 1) ? 1.f : 2.f;
-      const float b = (k == 1) ? 0.f : 1.f;
-      const float ckr = cr[k], cki = s * ci[k];
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int n = site(i);
-        if (n < N) {
-          const float nr = a * (rr[n] - cih * tcr[i]) - b * tpr[i];
-          const float ni = a * (ri[n] - cih * tci[i]) - b * tpi[i];
-          tpr[i] = tcr[i];
-          tpi[i] = tci[i];
-          tcr[i] = nr;
-          tci[i] = ni;
-          rr[n] = nr;
-          ri[n] = ni;
-          yr[i] += ckr * nr - cki * ni;
-          yi[i] += ckr * ni + cki * nr;
-        }
-      }
-      __syncthreads();
-      cur_r = rr;
-      cur_i = ri;
+      if (site(i) < len) dst[site(i)] = y[i][g];
     }
   }
+}
+
+// A pass's start on one site's rows: t_prev = 0, y = c_0 t_cur; the complex
+// coefficient acts as c t + c_im i t with i t = (-t_im, t_re) on (re, im) rows.
+template <int G, bool kAsym>
+__device__ __forceinline__ void first_term(const float (&tc)[G], float (&tp)[G], float (&y)[G], float c0r, float c0i) {
 #pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int n = site(i);
-    if (n < N) {
-      yre[off + n] = yr[i];
-      yim[off + n] = yi[i];
+  for (int g = 0; g < G; ++g) tp[g] = 0.f;
+  if constexpr (kAsym) {
+#pragma unroll
+    for (int g = 0; g < G; g += 2) {
+      y[g] = c0r * tc[g] - c0i * tc[g + 1];
+      y[g + 1] = c0r * tc[g + 1] + c0i * tc[g];
     }
+  } else {
+#pragma unroll
+    for (int g = 0; g < G; ++g) y[g] = c0r * tc[g];
+  }
+}
+
+// w = (Bbar / half) t_cur on entry; t_k = alpha (w - cih t_cur) - beta t_prev
+// (alpha, beta = 1, 0 at k = 1, else 2, 1), y += c_k t_k; w = t_k on return.
+template <int G, bool kAsym>
+__device__ __forceinline__ void recurrence_step(float (&w)[G], float (&tc)[G], float (&tp)[G], float (&y)[G],
+                                                float alpha, float beta, float cih, float ckr, float cki) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float tn = alpha * (w[g] - cih * tc[g]) - beta * tp[g];
+    tp[g] = tc[g];
+    tc[g] = tn;
+    w[g] = tn;
+  }
+  if constexpr (kAsym) {
+#pragma unroll
+    for (int g = 0; g < G; g += 2) {
+      y[g] += ckr * w[g] - cki * w[g + 1];
+      y[g + 1] += ckr * w[g + 1] + cki * w[g];
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < G; ++g) y[g] += ckr * w[g];
+  }
+}
+
+__device__ __forceinline__ int stage_table(const StageTables& tb, int s) {
+  return tb.mirror ? abs(s - (tb.n_tables - 1)) : s;
+}
+
+// The cluster form. blockIdx.x / cluster size is the frequency's rank in the
+// plan, blockIdx.y the row group; the CTA of cluster rank r owns the sites
+// [r slice, (r + 1) slice). No stage ends in a barrier: a stage's input is
+// PUSHED. Stage q gathers x[P[n]]; P pairs the sites, so the thread that owns
+// site n, when it has x[n], stores it into the slot of its partner P[n] in
+// the CTA that owns the partner (st.async through distributed shared memory,
+// which completes bytes on an mbarrier there, one for every 32 slots), and
+// before it computes a stage it waits until the 32 slots of its warp's sites
+// are filled: point to point, where a cluster barrier's release fence alone
+// cost 0.5 us a stage. A slot buffer and its mbarriers serve the stages
+// q mod 2 n_stages, which all take the same table: the slot of site d is
+// always written by the same partner a, and a cannot push for stage
+// q + 2 n_stages before it has passed stage q + n_stages, for which it
+// waited on d's push, made after d read the slot at stage q. The own value
+// moves through the stages in registers.
+// Shared memory: mbarriers [2 n_stages][slice / 32] | slots
+// [2 n_stages][slice][G] | coefficients [2][C_pad] | A, B [T][slice] | slot
+// and mbarrier addresses (shared::cluster) [T][slice] each.
+template <int G, int PER, bool kAsym>
+__device__ __forceinline__ void kpm_mf_cluster_body(const MfArgs& a) {
+  static_assert(G % 2 == 0, "whole vectors (re and im rows), or row pairs");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int k = (int)cl.num_blocks();
+  const int crank = (int)cl.block_rank();
+  const StageTables& tb = a.tb;
+  const int N = tb.N, T = tb.n_tables, C_pad = a.C_pad;
+  const int slice = (N + k - 1) / k;
+  const int lo = crank * slice;
+  const int len = min(slice, max(N - lo, 0));
+  const int f = a.perm[(int)blockIdx.x / k];
+  const int n_ord = a.orders[f];
+  const float* __restrict__ cr = a.cre + (size_t)f * C_pad;
+  const float* __restrict__ ci = kAsym ? a.cim + (size_t)f * C_pad : nullptr;
+  const float cih = a.cih;
+
+  const int n_buf = 2 * tb.n_stages;
+  const int n_blk = (slice + 31) / 32;  // an mbarrier for every 32 sites of every buffer
+  const uint32_t mbar0 = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  float* slots = reinterpret_cast<float*>(smem_raw + 16 * ((n_buf * n_blk + 1) / 2));
+  float* coef = slots + (size_t)n_buf * slice * G;
+  float* sA = coef + 2 * C_pad;
+  float* sB = sA + (size_t)T * slice;
+  uint32_t* sSlot = reinterpret_cast<uint32_t*>(sB + (size_t)T * slice);
+  uint32_t* sMbar = sSlot + (size_t)T * slice;
+  const uint32_t buf_bytes = (uint32_t)slice * G * sizeof(float);
+  const uint32_t mbar_buf_bytes = 8u * n_blk;
+  auto block_bytes = [&](int blk) { return (uint32_t)min(32, len - 32 * blk) * G * (uint32_t)sizeof(float); };
+
+  float tc[PER][G], tp[PER][G], y[PER][G];
+  load_rows<G, PER, kAsym>(a, f, lo, len, tc);
+  if (n_ord > 1) {
+    // every CTA of the cluster takes this branch: they share the frequency
+    for (int j = threadIdx.x; j < n_ord; j += blockDim.x) {
+      coef[j] = cr[j];
+      if (kAsym) coef[C_pad + j] = ci[j];
+    }
+    const uint32_t slots_addr = (uint32_t)__cvta_generic_to_shared(slots);
+    for (int t = 0; t < T; ++t) {
+      for (int n = threadIdx.x; n < len; n += blockDim.x) {
+        sA[t * slice + n] = tb.A[(size_t)t * N + lo + n];
+        sB[t * slice + n] = tb.Bc[(size_t)t * N + lo + n];
+        const int p = tb.P[(size_t)t * N + lo + n];
+        const int owner = p / slice;
+        sSlot[t * slice + n] = map_to_rank(slots_addr + (uint32_t)(p - owner * slice) * G * sizeof(float), owner);
+        sMbar[t * slice + n] = map_to_rank(mbar0 + 8u * ((p - owner * slice) / 32), owner);
+      }
+    }
+    for (int m = threadIdx.x; m < n_buf * n_blk; m += blockDim.x) {
+      if (32 * (m % n_blk) < len) {
+        mbar_init(mbar0 + 8 * m);
+        mbar_arm(mbar0 + 8 * m, block_bytes(m % n_blk));
+      }
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    cl.sync();
+  }
+
+  // The coming stage's table entries, read ahead of the wait before it: its
+  // coefficients, and where its input goes (the partner's slot and mbarrier).
+  float ca[PER], cb[PER];
+  uint32_t slot[PER], mbar[PER];
+  auto fetch = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      if (site(i) < len) {
+        ca[i] = sA[t * slice + site(i)];
+        cb[i] = sB[t * slice + site(i)];
+        slot[i] = sSlot[t * slice + site(i)];
+        mbar[i] = sMbar[t * slice + site(i)];
+      }
+    }
+  };
+  // stage q's input pushed to the partners
+  auto push = [&](int q, const float(&w)[PER][G]) {
+    const int b = q % n_buf;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      if (site(i) < len) st_async<G>(slot[i] + b * buf_bytes, w[i], mbar[i] + b * mbar_buf_bytes);
+    }
+  };
+
+  // symmetric: one pass with real coefficients; asymmetric: conj(c), then c
+  // applied to the first pass's output (in y)
+  int q = 0;  // stages so far
+  for (int pass = 0; pass < (kAsym ? 2 : 1); ++pass) {
+    const float sgn = pass == 0 ? -1.f : 1.f;
+    const float c0r = cr[0];
+    const float c0i = kAsym ? sgn * ci[0] : 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      if (pass == 1) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) tc[i][g] = y[i][g];
+      }
+      first_term<G, kAsym>(tc[i], tp[i], y[i], c0r, c0i);
+    }
+    if (n_ord <= 1) continue;
+    float w[PER][G];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) w[i][g] = tc[i][g];
+    }
+    fetch(stage_table(tb, 0));
+    push(q, w);
+    for (int kk = 1; kk < n_ord; ++kk) {
+      const float alpha = (kk == 1) ? 1.f : 2.f;
+      const float beta = (kk == 1) ? 0.f : 1.f;
+      for (int s = 0; s < tb.n_stages; ++s) {
+        const bool last = s == tb.n_stages - 1;
+        const bool more = !(last && kk == n_ord - 1);
+        const int b = q % n_buf;
+        const float* in = slots + (size_t)b * slice * G;
+        const float ckr = coef[kk];
+        const float cki = kAsym ? sgn * coef[C_pad + kk] : 0.f;
+        float pa[PER], pb[PER];
+#pragma unroll
+        for (int i = 0; i < PER; ++i) pa[i] = ca[i], pb[i] = cb[i];
+        if (more) fetch(stage_table(tb, last ? 0 : s + 1));
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          if (site(i) < len) {
+            // the 32 slots of this warp's sites are filled
+            mbar_wait(mbar0 + b * mbar_buf_bytes + 8 * (site(i) / 32), (q / n_buf) & 1);
+            float x[G];
+            ld_row<G>(in + (size_t)site(i) * G, x);
+#pragma unroll
+            for (int g = 0; g < G; ++g) w[i][g] = pa[i] * w[i][g] + pb[i] * x[g];
+            if (last) recurrence_step<G, kAsym>(w[i], tc[i], tp[i], y[i], alpha, beta, cih, ckr, cki);
+          }
+        }
+        ++q;
+        if (more) push(q, w);
+        // the buffer's next use, two Bbar applications on
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          if (site(i) < len && site(i) % 32 == 0) {
+            mbar_arm(mbar0 + b * mbar_buf_bytes + 8 * (site(i) / 32), block_bytes(site(i) / 32));
+          }
+        }
+      }
+    }
+  }
+  store_rows<G, PER, kAsym>(a, f, lo, len, y);
+  // no CTA leaves while a store to or from it may be in flight
+  if (n_ord > 1) cl.sync();
+}
+
+// The one-CTA form: the frequency of plan rank rank0 + blockIdx.x, row group
+// blockIdx.y; the whole rows ping-pong in shared memory, the tables come
+// through the read-only cache, a stage ends in __syncthreads().
+// Shared memory: rows [2][N][G] | coefficients [2][C_pad].
+template <int G, int PER, bool kAsym>
+__device__ __forceinline__ void kpm_mf_single_body(const MfArgs& a, int rank0) {
+  static_assert(!kAsym || G % 2 == 0, "K7 carries whole vectors (re and im rows)");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const StageTables& tb = a.tb;
+  const int N = tb.N, C_pad = a.C_pad;
+  const int f = a.perm[rank0 + (int)blockIdx.x];
+  const int n_ord = a.orders[f];
+  const float* __restrict__ cr = a.cre + (size_t)f * C_pad;
+  const float* __restrict__ ci = kAsym ? a.cim + (size_t)f * C_pad : nullptr;
+  const float cih = a.cih;
+  float* rows = reinterpret_cast<float*>(smem_raw);
+  float* coef = rows + 2 * (size_t)N * G;
+
+  float tc[PER][G], tp[PER][G], y[PER][G];
+  load_rows<G, PER, kAsym>(a, f, 0, N, tc);
+  for (int j = threadIdx.x; j < n_ord && n_ord > 1; j += blockDim.x) {
+    coef[j] = cr[j];
+    if (kAsym) coef[C_pad + j] = ci[j];
+  }
+  int cur = 0;
+  for (int pass = 0; pass < (kAsym ? 2 : 1); ++pass) {
+    const float sgn = pass == 0 ? -1.f : 1.f;
+    const float c0r = cr[0];
+    const float c0i = kAsym ? sgn * ci[0] : 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      if (pass == 1) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) tc[i][g] = y[i][g];
+      }
+      first_term<G, kAsym>(tc[i], tp[i], y[i], c0r, c0i);
+    }
+    if (n_ord <= 1) continue;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      if (site(i) < N) st_row<G>(rows + ((size_t)cur * N + site(i)) * G, tc[i]);
+    }
+    __syncthreads();
+    for (int kk = 1; kk < n_ord; ++kk) {
+      const float alpha = (kk == 1) ? 1.f : 2.f;
+      const float beta = (kk == 1) ? 0.f : 1.f;
+      const float ckr = coef[kk];
+      const float cki = kAsym ? sgn * coef[C_pad + kk] : 0.f;
+      for (int s = 0; s < tb.n_stages; ++s) {
+        const size_t t_off = (size_t)stage_table(tb, s) * N;
+        const bool last = s == tb.n_stages - 1;
+        const float* in = rows + (size_t)cur * N * G;
+        float* out = rows + (size_t)(cur ^ 1) * N * G;
+#pragma unroll
+        for (int i = 0; i < PER; ++i) {
+          const int n = site(i);
+          if (n < N) {
+            float w[G], x[G];
+            const float ca = __ldg(tb.A + t_off + n);
+            const float cb = __ldg(tb.Bc + t_off + n);
+            ld_row<G>(in + (size_t)__ldg(tb.P + t_off + n) * G, x);
+            ld_row<G>(in + (size_t)n * G, w);
+#pragma unroll
+            for (int g = 0; g < G; ++g) w[g] = ca * w[g] + cb * x[g];
+            if (last) recurrence_step<G, kAsym>(w, tc[i], tp[i], y[i], alpha, beta, cih, ckr, cki);
+            st_row<G>(out + (size_t)n * G, w);
+          }
+        }
+        __syncthreads();
+        cur ^= 1;
+      }
+    }
+  }
+  store_rows<G, PER, kAsym>(a, f, 0, N, y);
+}
+
+// K6: G rows of one frequency per cluster (kCluster) or per CTA.
+template <int G, int PER, bool kCluster>
+__global__ void __launch_bounds__(kMaxThreads) kpm_mf_kernel(const MfArgs a, int rank0) {
+  if constexpr (kCluster) {
+    kpm_mf_cluster_body<G, PER, false>(a);
+  } else {
+    kpm_mf_single_body<G, PER, false>(a, rank0);
+  }
+}
+
+// K7: G / 2 complex vectors of one frequency per cluster (kCluster) or per CTA.
+template <int G, int PER, bool kCluster>
+__global__ void __launch_bounds__(kCluster ? kMaxThreads : 512) kpm_mf_asym_kernel(const MfArgs a, int rank0) {
+  if constexpr (kCluster) {
+    kpm_mf_cluster_body<G, PER, true>(a);
+  } else {
+    kpm_mf_single_body<G, PER, true>(a, rank0);
   }
 }
 
@@ -356,22 +721,6 @@ kpm_mf_cplx_kernel(const float* __restrict__ ure, const float* __restrict__ uim,
   }
 }
 
-smoqy::CbTables<float> single_row_tables(const float* C, const float* S, const int* partner,
-                                         const float* expVih, int N, int n_colors, int symmetric) {
-  smoqy::CbTables<float> tb;
-  tb.C = C;
-  tb.S = S;
-  tb.partner = partner;
-  tb.expV = expVih;
-  tb.N = N;
-  tb.Ltau = 1;
-  tb.n_colors = n_colors;
-  tb.tau_stride = 0;
-  tb.color_stride = N;
-  tb.symmetric = symmetric;
-  return tb;
-}
-
 int threads_for(int N, int per) {
   const int t = (N + per - 1) / per;
   return ((t + 31) / 32) * 32;
@@ -383,16 +732,107 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int PER>
-int launch_k6(const float* ure, const float* uim, float* yre, float* yim, smoqy::CbTables<float> tb,
-              const float* coefs, const int* orders, const int* perm, float cih, int B, int F, int C_pad,
-              cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)tb.N * sizeof(float);
-  cudaError_t e = allow_smem(kpm_mf_kernel<PER>, smem);
-  if (e != cudaSuccess) return (int)e;
-  kpm_mf_kernel<PER><<<F * 2 * B, threads_for(tb.N, PER), smem, stream>>>(ure, uim, yre, yim, tb, coefs, orders,
-                                                                           perm, cih, B, F, C_pad);
-  return (int)cudaGetLastError();
+// Rows a cluster-form CTA carries: 4 where the 2B rows divide, else 2.
+int cluster_rows(int B) { return (2 * B) % 4 == 0 ? 4 : 2; }
+
+size_t cluster_smem(int N, int n_tables, int n_stages, int C_pad, int G, int k) {
+  const size_t slice = (N + k - 1) / k;
+  const size_t n_buf = 2 * (size_t)n_stages;
+  const size_t n_blk = (slice + 31) / 32;
+  return 16 * ((n_buf * n_blk + 1) / 2) + n_buf * slice * G * sizeof(float) + 2 * (size_t)C_pad * sizeof(float) +
+         (size_t)n_tables * slice * 16;
+}
+
+// Sites a thread of the cluster form takes at cluster size k: 1 up to 1024
+// sites a CTA (the faster), 2 up to 2048; 0 where the form does not take the
+// shape: a cluster size the card does not schedule, a slice its threads do
+// not cover, or shared memory that does not fit.
+int cluster_sites_per_thread(int B, int N, int n_tables, int n_stages, int C_pad, int k) {
+  if (k != 1 && k != 2 && k != 4 && k != kMaxClusterSize && k != 16) return 0;
+  const int slice = (N + k - 1) / k;
+  if (N > 65535 || slice > 2 * kMaxThreads) return 0;
+  if (cluster_smem(N, n_tables, n_stages, C_pad, cluster_rows(B), k) > kMaxSmem) return 0;
+  return slice <= kMaxThreads ? 1 : 2;
+}
+
+// n_freq frequencies from rank0 of the plan, cluster > 0: as clusters of that
+// many CTAs (cudaLaunchKernelEx); else one CTA each.
+template <typename Kernel>
+cudaError_t launch_mf(Kernel kernel, const MfArgs& a, int rank0, int n_freq, int n_groups, int threads, size_t smem,
+                      int cluster, cudaStream_t stream) {
+  if (n_freq <= 0) return cudaSuccess;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  if (cluster > kMaxClusterSize) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(n_freq * (cluster > 0 ? cluster : 1)), (unsigned)n_groups, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)(cluster > 0 ? cluster : 1);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 0 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kernel, a, rank0);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <bool kAsym, int G, int PER, bool kCluster>
+auto mf_kernel() {
+  if constexpr (kAsym) {
+    return kpm_mf_asym_kernel<G, PER, kCluster>;
+  } else {
+    return kpm_mf_kernel<G, PER, kCluster>;
+  }
+}
+
+template <bool kAsym, int G, int PER>
+cudaError_t launch_cluster_form(const MfArgs& a, int n_cluster, int k, cudaStream_t st) {
+  const int slice = (a.tb.N + k - 1) / k;
+  return launch_mf(mf_kernel<kAsym, G, PER, true>(), a, 0, n_cluster, 2 * a.B / G, threads_for(slice, PER),
+                   cluster_smem(a.tb.N, a.tb.n_tables, a.tb.n_stages, a.C_pad, G, k), k, st);
+}
+
+template <bool kAsym, int G, int PER>
+cudaError_t launch_single_form(const MfArgs& a, int rank0, cudaStream_t st) {
+  const size_t smem = (2 * (size_t)a.tb.N * G + 2 * (size_t)a.C_pad) * sizeof(float);
+  return launch_mf(mf_kernel<kAsym, G, PER, false>(), a, rank0, a.F - rank0, 2 * a.B / G, threads_for(a.tb.N, PER),
+                   smem, 0, st);
+}
+
+// The first n_cluster frequencies of the plan in the cluster form (none where
+// the shape does not fit it), the others in the one-CTA form.
+template <bool kAsym>
+int run_mf(const MfArgs& a, int n_cluster, int k, cudaStream_t st) {
+  const int N = a.tb.N;
+  if (N > (kAsym ? kK7MaxSites : kK6MaxSites) || a.B < 1 || a.F < 1) return (int)cudaErrorInvalidValue;
+  const int per = cluster_sites_per_thread(a.B, N, a.tb.n_tables, a.tb.n_stages, a.C_pad, k);
+  if (per == 0) n_cluster = 0;
+  n_cluster = n_cluster < 0 ? 0 : (n_cluster > a.F ? a.F : n_cluster);
+  cudaError_t e = cudaSuccess;
+  if (n_cluster > 0) {
+    const int G = cluster_rows(a.B);
+    if (G == 4 && per == 2) e = launch_cluster_form<kAsym, 4, 2>(a, n_cluster, k, st);
+    if (G == 4 && per == 1) e = launch_cluster_form<kAsym, 4, 1>(a, n_cluster, k, st);
+    if (G == 2 && per == 2) e = launch_cluster_form<kAsym, 2, 2>(a, n_cluster, k, st);
+    if (G == 2 && per == 1) e = launch_cluster_form<kAsym, 2, 1>(a, n_cluster, k, st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (n_cluster == a.F) return (int)cudaSuccess;
+  if constexpr (kAsym) {
+    if (N <= 4 * 512) return (int)launch_single_form<true, 2, 4>(a, n_cluster, st);
+    return (int)launch_single_form<true, 2, 16>(a, n_cluster, st);
+  } else {
+    if (N <= 2 * kMaxThreads) return (int)launch_single_form<false, 1, 2>(a, n_cluster, st);
+    if (N <= 8 * kMaxThreads) return (int)launch_single_form<false, 1, 8>(a, n_cluster, st);
+    return (int)launch_single_form<false, 1, 16>(a, n_cluster, st);
+  }
 }
 
 template <int PER, bool kSym>
@@ -424,29 +864,29 @@ int dispatch_k8(const float* ure, const float* uim, float* yre, float* yim, cons
 
 extern "C" int smoqy_kpm_mf_max_sites(int symmetric) { return symmetric ? kK6MaxSites : kK7MaxSites; }
 
-extern "C" int smoqy_kpm_mf(const float* ure, const float* uim, float* yre, float* yim, const float* C,
-                            const float* S, const int* partner, const float* expVih, const float* coefs,
-                            const int* orders, const int* perm, float cih, int B, int F, int N, int n_colors,
-                            int C_pad, void* stream) {
-  const smoqy::CbTables<float> tb = single_row_tables(C, S, partner, expVih, N, n_colors, 1);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 8 * kK6MaxThreads) return launch_k6<8>(ure, uim, yre, yim, tb, coefs, orders, perm, cih, B, F, C_pad, st);
-  if (N <= kK6MaxSites) return launch_k6<16>(ure, uim, yre, yim, tb, coefs, orders, perm, cih, B, F, C_pad, st);
-  return (int)cudaErrorInvalidValue;
+// The sites a thread takes where the cluster form takes B vectors of N sites
+// with these tables at cluster size k, else 0 (every frequency then takes the
+// one-CTA form, whatever n_cluster says).
+extern "C" int smoqy_kpm_mf_cluster_fits(int symmetric, int B, int N, int n_tables, int C_pad, int k) {
+  return cluster_sites_per_thread(B, N, n_tables, symmetric ? 2 * n_tables - 1 : n_tables, C_pad, k);
 }
 
-extern "C" int smoqy_kpm_mf_asym(const float* ure, const float* uim, float* yre, float* yim, const float* C,
-                                 const float* S, const int* partner, const float* expVih, const float* cre,
-                                 const float* cim, const int* orders, const int* perm, float cih, int B, int F,
-                                 int N, int n_colors, int C_pad, void* stream) {
-  if (N > kK7MaxSites) return (int)cudaErrorInvalidValue;
-  const smoqy::CbTables<float> tb = single_row_tables(C, S, partner, expVih, N, n_colors, 0);
-  const size_t smem = 4 * (size_t)N * sizeof(float);
-  cudaError_t e = allow_smem(kpm_mf_asym_kernel<16>, smem);
-  if (e != cudaSuccess) return (int)e;
-  kpm_mf_asym_kernel<16><<<F * B, threads_for(N, 16), smem, static_cast<cudaStream_t>(stream)>>>(
-      ure, uim, yre, yim, tb, cre, cim, orders, perm, cih, B, F, C_pad);
-  return (int)cudaGetLastError();
+// K6 (cim null, mirrored stages) or K7 (cim given, stages in order): the
+// first n_cluster frequencies of the plan as clusters of `cluster_size` CTAs,
+// the others one CTA each.
+extern "C" int smoqy_kpm_mf(const float* ure, const float* uim, float* yre, float* yim, const float* A,
+                            const float* Bc, const unsigned short* P, const float* cre, const float* cim,
+                            const int* orders, const int* perm, float cih, int B, int F, int N, int n_tables,
+                            int C_pad, int n_cluster, int cluster_size, void* stream) {
+  const bool asym = cim != nullptr;
+  if (n_tables < 1) return (int)cudaErrorInvalidValue;
+  MfArgs a;
+  a.ure = ure, a.uim = uim, a.yre = yre, a.yim = yim;
+  a.tb = StageTables{A, Bc, P, N, n_tables, asym ? n_tables : 2 * n_tables - 1, asym ? 0 : 1};
+  a.cre = cre, a.cim = cim, a.orders = orders, a.perm = perm;
+  a.cih = cih, a.B = B, a.F = F, a.C_pad = C_pad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return asym ? run_mf<true>(a, n_cluster, cluster_size, st) : run_mf<false>(a, n_cluster, cluster_size, st);
 }
 
 extern "C" int smoqy_kpm_mf_cplx_max_sites() { return kK8MaxSites; }

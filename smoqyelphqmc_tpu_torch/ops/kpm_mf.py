@@ -28,6 +28,14 @@ its `_mf_cheb_pair` at :659-700), a CUDA tensor launches the kernel or
 raises. The static plan is the frequency order sorted by
 descending order (`build_kpm_mf_plan`): the kernels start the longest
 recurrences first.
+
+K6 and K7 apply Bbar / half as stage tables (`build_stage_tables`): a few
+gathers x <- A x + B x[P] with the diagonal, the map's 1 / half and, for the
+symmetric form, the middle color on both sides of the diagonal folded into
+the coefficients. The plan's head, the frequencies with more than
+ORDER_THRESHOLD live orders, runs as thread-block clusters of CLUSTER_SIZE
+CTAs (fewer on small lattices, `cluster_size_for`) that split the sites
+(`split_plan`), the others one CTA each.
 """
 
 from __future__ import annotations
@@ -45,6 +53,23 @@ from .mtm import KernelCounter
 KPM_MF = KernelCounter("kpm_mf")
 KPM_MF_ASYM = KernelCounter("kpm_mf_asym")
 KPM_MF_CPLX = KernelCounter("kpm_mf_cplx")
+
+# K6 / K7's launch constants, chosen on an NVIDIA H100 80GB HBM3 (700 W) at
+# the L=48 shape (u 2 x (2, 240, 4608)) with time_kpm_mf.py --grid; the
+# measurements are in PERF.md. Frequencies with more live orders than
+# ORDER_THRESHOLD take the cluster form, CLUSTER_SIZE CTAs each owning
+# N / CLUSTER_SIZE sites; the others the one-CTA form in a second launch.
+# Threshold 0 (every frequency a cluster, one launch) measured fastest: K6
+# 0.225 ms against 0.26 and 0.35 at thresholds 4 and 16, K7 0.14 against 0.20
+# and 0.30; cluster size 8 beat 4 (K7 0.14 against 0.26; at 4 a slice takes 2
+# sites a thread); the non-portable 16 came 11-15% faster and is not taken
+# (a card may refuse it). A stage costs least at ~300-600 sites a CTA: at
+# N=1152 (same Ltau) a cluster of 4 beat 8 (K6 0.187 against 0.240 ms, K7
+# 0.110 against 0.142), so the cluster halves while a slice would fall below
+# MIN_SLICE_SITES.
+ORDER_THRESHOLD = 0
+CLUSTER_SIZE = 8
+MIN_SLICE_SITES = 256
 
 
 def build_kpm_mf_plan(phi: np.ndarray) -> np.ndarray:
@@ -69,7 +94,11 @@ class KPMMFOperands:
     TPU kernels fold it; coefs_re / coefs_im (F, C_pad); orders (F,) int32
     live orders (host copy `orders_host`); perm (F,) int32 the plan's sort;
     S_im (n_colors, N) the kernels' copy of Bbar's S_im for complex hoppings
-    (complex_pair; None otherwise)."""
+    (complex_pair; None otherwise); stage_A, stage_B (n_tables, N) float32 and
+    stage_P (n_tables, N) 16-bit partners, K6 / K7's stage tables of
+    Bbar / half (`build_stage_tables`; None for complex hoppings);
+    perm_host the plan's host copy; launch_plans the `cluster_plan`s made so
+    far (an apply runs thousands of times per refresh)."""
 
     bbar: AveragedPropagator
     partner: torch.Tensor
@@ -84,6 +113,11 @@ class KPMMFOperands:
     perm: torch.Tensor
     symmetric: bool
     S_im: Optional[torch.Tensor] = None
+    stage_A: Optional[torch.Tensor] = None
+    stage_B: Optional[torch.Tensor] = None
+    stage_P: Optional[torch.Tensor] = None
+    perm_host: Optional[np.ndarray] = None
+    launch_plans: dict = dataclasses.field(default_factory=dict)
 
     @property
     def n_sites(self) -> int:
@@ -94,6 +128,80 @@ class KPMMFOperands:
         return self.S_im is not None
 
 
+def pack_partner16(partner: torch.Tensor) -> torch.Tensor:
+    """Site indices 0..65535 as 16-bit words (an int16 tensor holding the
+    unsigned values' bits: torch has no arithmetic on uint16); refuses more
+    than 65535 sites."""
+    if partner.shape[-1] > 65535:
+        raise ValueError(f"16-bit partners take at most 65535 sites, got {partner.shape[-1]}")
+    p = partner.to(torch.int32)
+    return torch.where(p >= 32768, p - 65536, p).to(torch.int16).contiguous()
+
+
+def unpack_partner16(packed: torch.Tensor) -> torch.Tensor:
+    """The site indices of `pack_partner16`, int64."""
+    return packed.to(torch.int64) & 0xFFFF
+
+
+def build_stage_tables(bbar: AveragedPropagator, inv_half: float):
+    """Bbar / half (real hoppings) as gathers x <- A_t x + B_t x[P_t]:
+    (A, B, P, stages) with A, B (n_tables, N) in Bbar's dtype, P (n_tables, N)
+    int64 and `stages` the order in which an application takes the tables.
+
+    Asymmetric (Bbar = expV CB): the colors in order, expV / half multiplied
+    into the last. Symmetric (Bbar = CB expV CB^T, the transpose being the
+    colors reversed with the same C and S): table 0 is the middle block
+    K_0 (expV / half) K_0 of color 0, whose pairs (n, p) close on themselves,
+
+        a[n] = C0[n]^2 e[n] + S0[n] S0[p] e[p],
+        b[n] = C0[n] S0[n] e[n] + S0[n] C0[p] e[p],
+
+    and an application takes the colors n-1 .. 1, table 0, the colors
+    1 .. n-1: 2 n - 1 gathers. Every table must pair the sites (P[P[n]] = n):
+    the fold and the kernels' exchange of sites between CTAs rest on it."""
+    cb = bbar.cb
+    e = bbar.expV * inv_half
+    sites = torch.arange(e.shape[0], device=e.device)
+    if cb.n_colors == 0:
+        return e[None].clone(), torch.zeros_like(e)[None], sites[None], [0]
+    A, B, P = cb.C.clone(), cb.S.clone(), cb.partner.clone()
+    if not torch.equal(P.gather(1, P), sites.expand_as(P)):
+        raise ValueError("a checkerboard color's partner table does not pair the sites")
+    if not bbar.symmetric:
+        A[-1] *= e
+        B[-1] *= e
+        return A, B, P, list(range(cb.n_colors))
+    C0, S0, p0 = cb.C[0], cb.S[0], cb.partner[0]
+    A[0] = C0 * C0 * e + S0 * S0[p0] * e[p0]
+    B[0] = C0 * S0 * e + S0 * C0[p0] * e[p0]
+    return A, B, P, [abs(s - (cb.n_colors - 1)) for s in range(2 * cb.n_colors - 1)]
+
+
+def apply_stage_tables(A, B, P, stages, u: torch.Tensor) -> torch.Tensor:
+    """The stage tables applied to u (..., N) in plain PyTorch ops: what one
+    Bbar / half application of K6 / K7 computes."""
+    for t in stages:
+        u = A[t] * u + B[t] * u.index_select(-1, P[t])
+    return u
+
+
+def split_plan(perm: np.ndarray, orders: np.ndarray, threshold: int):
+    """The plan cut in two: (cluster part, one-CTA part), a prefix and the
+    rest of `perm`. The prefix ends at the last frequency with more than
+    `threshold` live orders, so every such frequency is in it."""
+    above = np.flatnonzero(np.asarray(orders)[perm] > threshold)
+    n = int(above[-1]) + 1 if above.size else 0
+    return perm[:n], perm[n:]
+
+
+def cluster_size_for(n_sites: int) -> int:
+    """CLUSTER_SIZE, halved while a CTA's slice would fall below MIN_SLICE_SITES."""
+    k = CLUSTER_SIZE
+    while k > 1 and n_sites < k * MIN_SLICE_SITES:
+        k //= 2
+    return k
+
+
 def build_operands(pre) -> KPMMFOperands:
     """The operands of a matrix-free KPMPreconditioner's current refresh."""
     f32 = torch.float32
@@ -101,6 +209,11 @@ def build_operands(pre) -> KPMMFOperands:
     center = float(np.float32(pre.center))
     inv_half = float(np.float32(1.0 / max(pre.half, 1e-12)))
     bbar = pre.bbar.to_dtype(f32)
+    stage = dict(stage_A=None, stage_B=None, stage_P=None)
+    if bbar.cb.S_im is None and bbar.expV.shape[0] <= 65535:
+        A, B, P, _ = build_stage_tables(bbar, inv_half)
+        stage = dict(stage_A=A.contiguous(), stage_B=B.contiguous(), stage_P=pack_partner16(P))
+    perm = build_kpm_mf_plan(pre.phi)
     return KPMMFOperands(
         bbar=bbar,
         partner=bbar.cb.partner.to(torch.int32).contiguous(),
@@ -112,9 +225,11 @@ def build_operands(pre) -> KPMMFOperands:
         coefs_im=pre.coefs_im.to(f32).contiguous(),
         orders=torch.as_tensor(pre.orders, dtype=torch.int32, device=dev),
         orders_host=np.asarray(pre.orders, dtype=np.int32),
-        perm=torch.as_tensor(build_kpm_mf_plan(pre.phi), device=dev),
+        perm=torch.as_tensor(perm, device=dev),
         symmetric=pre.symmetric,
         S_im=None if bbar.cb.S_im is None else bbar.cb.S_im.contiguous(),
+        perm_host=perm,
+        **stage,
     )
 
 
@@ -221,29 +336,45 @@ def _launch_operands(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor,
     return ure, uim, torch.empty_like(ure), torch.empty_like(uim), torch.cuda.current_stream(u_re.device).cuda_stream
 
 
-def kpm_mf_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):
+def cluster_plan(ops: KPMMFOperands, n_vectors: int, order_threshold: Optional[int] = None,
+                 cluster_size: Optional[int] = None) -> dict:
+    """How K6 / K7 launch on these operands with `n_vectors` complex vectors:
+    {"cluster_size", "order_threshold", "sites_per_thread" (of the cluster
+    form: 1 or 2 by the slice's size, 0 where the shape does not fit it),
+    "n_cluster" (the frequencies that take the cluster form), "stages" (per
+    order step)}. The library decides the fit, by shape alone."""
+    threshold = ORDER_THRESHOLD if order_threshold is None else int(order_threshold)
+    k = cluster_size_for(ops.n_sites) if cluster_size is None else int(cluster_size)
+    key = (n_vectors, threshold, k)
+    if key not in ops.launch_plans:
+        n_tables = ops.stage_A.shape[0]
+        per = _build.load_library().smoqy_kpm_mf_cluster_fits(int(ops.symmetric), n_vectors, ops.n_sites, n_tables,
+                                                              ops.coefs_re.shape[1], k)
+        head, _ = split_plan(ops.perm_host, ops.orders_host, threshold)
+        ops.launch_plans[key] = dict(cluster_size=k, order_threshold=threshold, sites_per_thread=per,
+                                     n_cluster=len(head) if per else 0,
+                                     stages=2 * n_tables - 1 if ops.symmetric else n_tables)
+    return ops.launch_plans[key]
+
+
+def kpm_mf_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor, order_threshold: Optional[int] = None,
+                cluster_size: Optional[int] = None):
     """Launch K6 (symmetric) or K7 (asymmetric) on CUDA tensors u_re, u_im
-    (..., F, N) float32; real hoppings only."""
+    (..., F, N) float32; real hoppings only. `order_threshold` and
+    `cluster_size` override the module's constants (tests and measurements)."""
     tag = "K6" if ops.symmetric else "K7"
     _require_real(ops, f"kpm_mf kernel ({tag})")
     ure, uim, yre, yim, stream = _launch_operands(ops, u_re, u_im, tag)
     lib = _build.load_library()
-    cb = ops.bbar.cb
-    F, N = ure.shape[1:]
-    common = (cb.C.data_ptr(), cb.S.data_ptr(), ops.partner.data_ptr(), ops.expVih.data_ptr(),
-              ops.coefs_re.data_ptr())
-    if ops.symmetric:
-        rc = lib.smoqy_kpm_mf(ure.data_ptr(), uim.data_ptr(), yre.data_ptr(), yim.data_ptr(), *common,
-                              ops.orders.data_ptr(), ops.perm.data_ptr(), ops.cih, ure.shape[0], F, N,
-                              cb.n_colors, ops.coefs_re.shape[1], stream)
-        _build.check(rc, "kpm_mf kernel launch")
-        KPM_MF.launches += 1
-    else:
-        rc = lib.smoqy_kpm_mf_asym(ure.data_ptr(), uim.data_ptr(), yre.data_ptr(), yim.data_ptr(), *common,
-                                   ops.coefs_im.data_ptr(), ops.orders.data_ptr(), ops.perm.data_ptr(), ops.cih,
-                                   ure.shape[0], F, N, cb.n_colors, ops.coefs_re.shape[1], stream)
-        _build.check(rc, "kpm_mf_asym kernel launch")
-        KPM_MF_ASYM.launches += 1
+    B, F, N = ure.shape
+    plan = cluster_plan(ops, B, order_threshold, cluster_size)
+    rc = lib.smoqy_kpm_mf(ure.data_ptr(), uim.data_ptr(), yre.data_ptr(), yim.data_ptr(), ops.stage_A.data_ptr(),
+                          ops.stage_B.data_ptr(), ops.stage_P.data_ptr(), ops.coefs_re.data_ptr(),
+                          None if ops.symmetric else ops.coefs_im.data_ptr(), ops.orders.data_ptr(),
+                          ops.perm.data_ptr(), ops.cih, B, F, N, ops.stage_A.shape[0], ops.coefs_re.shape[1],
+                          plan["n_cluster"], plan["cluster_size"], stream)
+    _build.check(rc, f"kpm_mf kernel launch ({tag})")
+    (KPM_MF if ops.symmetric else KPM_MF_ASYM).launches += 1
     return yre.reshape(u_re.shape), yim.reshape(u_im.shape)
 
 

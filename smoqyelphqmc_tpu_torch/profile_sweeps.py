@@ -8,8 +8,8 @@
 
 Runs the headline model (Holstein honeycomb L=12, beta=12, dtau=0.05,
 alpha=0.6, Omega=1, mu=0, Nt=24, tol 1e-10, mixed precision, f32 forces,
-spectral preconditioner, seed 1; `--L`, `--beta`, `--alpha` and
-`--preconditioner` change it), or with `--model
+spectral preconditioner, seed 1; `--L`, `--beta`, `--alpha`,
+`--preconditioner` and `--asymmetric` change it), or with `--model
 complex_chain` the complex chain t e^{0.7 i} of `--L` sites (1152 by
 default; mu=0.1, alpha=0.5, the rest as above): first
 `--warmup` sweeps without the profiler (they also pay the kernels' build and
@@ -171,6 +171,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--beta", type=float, default=12.0)
     ap.add_argument("--alpha", type=float, default=None, help="0.6 (honeycomb) or 0.5 (complex chain) by default")
     ap.add_argument("--preconditioner", default="spectral", choices=("spectral", "kpm", "auto"))
+    ap.add_argument("--asymmetric", action="store_true", help="the asymmetric factorization (K7 on the KPM path)")
     ap.add_argument("--compare-preconditioners", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--top", type=int, default=12, help="kernels listed")
@@ -184,7 +185,8 @@ def main(argv=None) -> dict:
     else:
         _, tbm, em = holstein_honeycomb_model(args.L, 1.0, args.alpha, 0.0)
     cfg = SimulationConfig(beta=args.beta, dtau=0.05, Nt=24, tol=1e-10, seed=1, mixed_precision=True,
-                           force_dtype="float32", preconditioner=args.preconditioner, n_walkers=args.walkers)
+                           force_dtype="float32", preconditioner=args.preconditioner, n_walkers=args.walkers,
+                           symmetric=not args.asymmetric)
     for c in CPLX_MTM.values():
         c.reset()
     warm = run_updates(tbm, em, cfg, args.warmup, device=args.device)
@@ -204,7 +206,8 @@ def main(argv=None) -> dict:
             per_kernel[e.name][0] += t - s
             per_kernel[e.name][1] += 1
     n = max(len(windows), 1)
-    print(f"{args.model} W={args.walkers} L={args.L} beta={args.beta} alpha={args.alpha} {args.preconditioner}: "
+    print(f"{args.model} W={args.walkers} L={args.L} beta={args.beta} alpha={args.alpha} {args.preconditioner} "
+          f"{'asymmetric' if args.asymmetric else 'symmetric'}: "
           f"unprofiled s/sweep {warm['sweep_s']}; "
           f"profiled s/sweep {md['sweep_s']}; iters/solve hmc {md['hmc_iters']:.3f} "
           f"refl {md['reflection_iters']:.3f} swap {md['swap_iters']:.3f}; kpm_active {md.get('kpm_active')}")

@@ -219,30 +219,131 @@ def test_run_updates_fused_force_launches_k4(cuda_device):
     assert force.FORCE.launches == 2 * 8 and force.FORCE.plain_calls == 0 and pcg_force.PCG_FORCE.launches == 0
 
 
-@pytest.mark.parametrize("L", [3, 24], ids=["N-18", "N-1152"])
+def _real_fdm(device, symmetric, model, L, beta=1.0, perm_seed=None):
+    """A real-hopping fermion matrix: the Holstein honeycomb (N = 2 L^2) or
+    the periodic chain (N = L, any L), optionally with the hopping graph's
+    site labels permuted (partners anywhere on the lattice)."""
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
+
+    if model == "honeycomb":
+        geo, tbm, em = holstein_honeycomb_model(L, 1.0, 0.4, 0.0)
+    else:
+        geo, tbm, em = complex_chain_model(L, phase=0.0)
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=device)
+    assert tbp.t0_im is None
+    elph = ElectronPhononParameters.from_model(beta, 0.1, em, tbp, rng, device=device)
+    nt = np.asarray(tbp.neighbor_table)
+    if perm_seed is not None:
+        nt = np.random.default_rng(perm_seed).permutation(tbp.n_sites)[nt].astype(np.int32)
+    structure = build_checkerboard_structure(nt, tbp.n_sites)
+    return FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph), structure, symmetric=symmetric)
+
+
+def _mf_operands(fdm, seed=6):
+    gen = torch.Generator().manual_seed(seed)
+    pre = KPMPreconditioner.build(fdm, torch.randn(fdm.n_sites, generator=gen, dtype=torch.float64), matrix_free=True)
+    assert pre.active and pre.orders.max() > 1
+    return pre.mf_operands()
+
+
+def _check_kpm_mf(ops, device, n_vectors=2, seed=6, **launch):
+    """K6 / K7 on `n_vectors` complex vectors of (Ltau, N) frequency planes
+    against the plain version: one launch counted, 2e-4 (K6) or 5e-4 (K7) of
+    max|y|."""
+    F, N = ops.coefs_re.shape[0], ops.n_sites
+    gen = torch.Generator().manual_seed(seed)
+    ure, uim = torch.randn((2, n_vectors, F, N), generator=gen, dtype=torch.float32).to(device)
+    counter = kpm_mf.KPM_MF if ops.symmetric else kpm_mf.KPM_MF_ASYM
+    launches = counter.launches
+    got = kpm_mf.kpm_mf_cuda(ops, ure, uim, **launch) if launch else kpm_mf.kpm_mf_apply(ops, ure, uim)
+    torch.cuda.synchronize()
+    assert counter.launches == launches + 1
+    ref = (kpm_mf.kpm_mf_plain if ops.symmetric else kpm_mf.kpm_mf_asym_plain)(ops, ure, uim)
+    scale = max(float(r.abs().max()) for r in ref)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    assert err <= (2e-4 if ops.symmetric else 5e-4) * scale
+
+
+@pytest.mark.parametrize("L", [3, 24, 48], ids=["N-18", "N-1152", "N-4608"])
 @pytest.mark.parametrize("symmetric", SYM)
 def test_kpm_mf_kernel_matches_plain(cuda_device, symmetric, L):
     """K6 / K7 against their plain versions on a matrix-free preconditioner's
     operands, two complex vectors of (Ltau, N) frequency planes."""
-    fdm = _fdm(cuda_device, symmetric, L=L)
-    gen = torch.Generator().manual_seed(6)
-    v0 = torch.randn(fdm.n_sites, generator=gen, dtype=torch.float64)
-    pre = KPMPreconditioner.build(fdm, v0, matrix_free=True)
-    assert pre.active and pre.orders.max() > 1
-    ops = pre.mf_operands()
-    ure, uim = torch.randn((2, 2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to(cuda_device)
-    counter = kpm_mf.KPM_MF if symmetric else kpm_mf.KPM_MF_ASYM
-    launches = counter.launches
-    got = kpm_mf.kpm_mf_apply(ops, ure, uim)
-    assert counter.launches == launches + 1
-    ref = (kpm_mf.kpm_mf_plain if symmetric else kpm_mf.kpm_mf_asym_plain)(ops, ure, uim)
-    scale = max(float(r.abs().max()) for r in ref)
-    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-    assert err <= (2e-4 if symmetric else 5e-4) * scale
+    _check_kpm_mf(_mf_operands(_fdm(cuda_device, symmetric, L=L)), cuda_device)
+
+
+@pytest.mark.parametrize("n_vectors", [1, 2, 3, 4])
+@pytest.mark.parametrize("form", ["constants", "all-cluster", "no-cluster"])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_kernel_forms_and_vectors(cuda_device, symmetric, form, n_vectors):
+    """Both forms alone and the constants' mix, with 1 to 4 vectors (row
+    groups of 2 and 4): the order threshold forced to 0 sends every frequency
+    through the cluster form, a huge one sends none."""
+    ops = _mf_operands(_real_fdm(cuda_device, symmetric, "honeycomb", 24))
+    launch = {"constants": {}, "all-cluster": dict(order_threshold=0), "no-cluster": dict(order_threshold=10**6)}[form]
+    F = ops.coefs_re.shape[0]
+    if launch:
+        want = F if form == "all-cluster" else 0
+        assert kpm_mf.cluster_plan(ops, n_vectors, **launch)["n_cluster"] == want
+    _check_kpm_mf(ops, cuda_device, n_vectors=n_vectors, **launch)
+
+
+def _cluster_form_fits(ops, n_vectors, k):
+    """The cluster form's limits (csrc/kpm_mf.cu): 2048 sites a CTA, and in
+    227 KB of shared memory the mbarriers, 2 n_stages slot buffers of G rows,
+    the coefficients and 16 bytes of tables per site and color."""
+    n_tables, C_pad = ops.stage_A.shape[0], ops.coefs_re.shape[1]
+    n_buf = 2 * (2 * n_tables - 1 if ops.symmetric else n_tables)
+    G = 4 if n_vectors % 2 == 0 else 2
+    slice_ = -(-ops.n_sites // k)
+    smem = 16 * ((n_buf * -(-slice_ // 32) + 1) // 2) + n_buf * slice_ * G * 4 + 2 * C_pad * 4 + n_tables * slice_ * 16
+    return slice_ <= 2048 and smem <= 227 * 1024
+
+
+@pytest.mark.parametrize("cluster_size", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("N", [3000, 8190])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_kernel_ragged_slices(cuda_device, symmetric, N, cluster_size):
+    """Chains of N = 3000 and 8190 sites: N is no multiple of the cluster
+    size or of 32, so the last CTA's slice and the last warp are partly
+    filled; every frequency in the cluster form where the shape fits it (1 or
+    2 sites a thread), else all in the one-CTA form, by shape alone."""
+    ops = _mf_operands(_real_fdm(cuda_device, symmetric, "chain", N))
+    plan = kpm_mf.cluster_plan(ops, 2, order_threshold=0, cluster_size=cluster_size)
+    fits = _cluster_form_fits(ops, 2, cluster_size)
+    assert plan["n_cluster"] == (ops.coefs_re.shape[0] if fits else 0)
+    assert plan["sites_per_thread"] == ((1 if -(-N // cluster_size) <= 1024 else 2) if fits else 0)
+    _check_kpm_mf(ops, cuda_device, order_threshold=0, cluster_size=cluster_size)
+
+
+@pytest.mark.parametrize("form", ["constants", "all-cluster", "no-cluster"])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_kernel_permuted_lattice(cuda_device, symmetric, form):
+    """The honeycomb L = 24 with its site labels permuted: partners in every
+    other CTA's slice, read through distributed shared memory."""
+    ops = _mf_operands(_real_fdm(cuda_device, symmetric, "honeycomb", 24, perm_seed=11))
+    owner = kpm_mf.unpack_partner16(ops.stage_P) // (ops.n_sites // 8)
+    assert len(torch.unique(owner[:, : ops.n_sites // 8])) == 8
+    launch = {"constants": {}, "all-cluster": dict(order_threshold=0, cluster_size=8),
+              "no-cluster": dict(order_threshold=10**6)}[form]
+    _check_kpm_mf(ops, cuda_device, **launch)
+
+
+@pytest.mark.parametrize("form", ["all-cluster", "no-cluster"])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_kernel_orders_all_one(cuda_device, symmetric, form):
+    """Operands whose live orders are all 1: y = c_0 u (K7: |c_0|^2 u), no
+    order step and no barrier in either form."""
+    ops = _mf_operands(_real_fdm(cuda_device, symmetric, "honeycomb", 24))
+    ones = np.ones_like(ops.orders_host)
+    ops = dataclasses.replace(ops, orders=torch.ones_like(ops.orders), orders_host=ones, launch_plans={})
+    _check_kpm_mf(ops, cuda_device, order_threshold=0 if form == "all-cluster" else 10**6)
 
 
 def test_kpm_mf_kernel_largest_tiles(cuda_device):
-    """Honeycomb L = 66 (N = 8712): K6's 16-site register tiles, which take
+    """Honeycomb L = 66 (N = 8712): K6 in the cluster form (slices of 1089
+    sites, 2 a thread), and in its one-CTA form's 16-site register tiles, which take
     8192 < N <= 16384, against the plain version; K7's limit is 8192 sites,
     so it refuses this N with the size."""
     gen = torch.Generator().manual_seed(7)
@@ -251,16 +352,14 @@ def test_kpm_mf_kernel_largest_tiles(cuda_device):
     pre = KPMPreconditioner.build(fdm, v0, matrix_free=True)
     assert fdm.n_sites == 8712 and pre.active and pre.orders.max() > 1
     ops = pre.mf_operands()
-    ure, uim = torch.randn((2, 1, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to(cuda_device)
-    launches = kpm_mf.KPM_MF.launches
-    got = kpm_mf.kpm_mf_apply(ops, ure, uim)
-    assert kpm_mf.KPM_MF.launches == launches + 1
-    ref = kpm_mf.kpm_mf_plain(ops, ure, uim)
-    scale = max(float(r.abs().max()) for r in ref)
-    assert max(float((g - r).abs().max()) for g, r in zip(got, ref)) <= 2e-4 * scale
+    assert kpm_mf.cluster_plan(ops, 1)["sites_per_thread"] == 2
+    _check_kpm_mf(ops, cuda_device, n_vectors=1)
+    _check_kpm_mf(ops, cuda_device, n_vectors=1, order_threshold=0)
+    _check_kpm_mf(ops, cuda_device, n_vectors=1, order_threshold=10**6)
     asym = KPMPreconditioner.build(_fdm(cuda_device, False, L=66, beta=0.5), v0, matrix_free=True)
+    u = torch.zeros((1, fdm.Ltau, fdm.n_sites), dtype=torch.float32, device=cuda_device)
     with pytest.raises(ValueError, match="N = 8712 sites exceeds the kernel's 8192"):
-        kpm_mf.kpm_mf_apply(asym.mf_operands(), ure, uim)
+        kpm_mf.kpm_mf_apply(asym.mf_operands(), u, u)
 
 
 @pytest.mark.parametrize("symmetric", SYM)
