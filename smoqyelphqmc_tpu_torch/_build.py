@@ -34,8 +34,9 @@ _SIGNATURES = {
     "smoqy_pcg_grid": [_I],
     "smoqy_pcg_max_grid": [],
     "smoqy_pcg_max_systems": [],
+    "smoqy_pcg_stamps_per_iteration": [],
     "smoqy_pcg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                  _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+                  _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P],
     "smoqy_pcg_force_grid": [_I],
     "smoqy_pcg_force": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
@@ -117,6 +118,8 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.smoqy_pcg_phases.argtypes = []
+    lib.smoqy_pcg_phases.restype = ctypes.c_char_p
     return lib
 
 

@@ -71,8 +71,17 @@ struct PcgArgs {
   int N;
   float tol;
   int maxiter;
+  unsigned long long* stamps;  // timed instantiation: (kStampHead + maxiter kStamps) clocks
 };
 
+// The phases of one iteration, in the order of the timed instantiation's
+// stamps (smoqy_pcg_phases).
+constexpr int kStamps = 18;
+constexpr const char* kPhases =
+    "mtm,sync_pAp,reduce_pAp,x_r,sync_rr,reduce_rr,U,sync_U,Am,sync_Am,Bm,sync_Bm,z,sync_z,"
+    "reduce_rz,p,sync_p";
+
+template <bool kTimed>
 __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -88,6 +97,7 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
   const size_t plane = (size_t)L * N;
   const int rows = B * L;
   const int tid = threadIdx.x;
+  stamp_clock_pair<kTimed>(a.stamps, 0);
 
   // x = 0, r = b, |r|^2
   zero_part(sh, B);
@@ -110,7 +120,7 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
     sh.active[s] = sh.eps[s] >= a.tol;
   }
   __syncthreads();
-  precond(a, grid, sh, sA, sB);
+  precond(a, grid, sh, sA, sB, [](int) {});
   for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)reduce_part(a, kPartRZ, s);
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const size_t off = (size_t)row * N;
@@ -124,6 +134,8 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
     int any = 0;
     for (int s = 0; s < B; ++s) any |= sh.active[s];
     if (!any || it >= a.maxiter) break;
+    unsigned long long* ts = a.stamps + kStampHead + (size_t)it * kStamps;
+    stamp<kTimed>(ts, 0);
 
     // Ap = M^T M p and dot(p, Ap), rows of active systems only
     zero_part(sh, B);
@@ -137,12 +149,15 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
       if (tid == 0) sh.part[s] += t;
     }
     flush_part(a, sh, kPartPAp);
+    stamp<kTimed>(ts, 1);
     grid.sync();
+    stamp<kTimed>(ts, 2);
     for (int s = tid; s < B; s += blockDim.x) {
       const float pAp = (float)reduce_part(a, kPartPAp, s);
       sh.alpha[s] = sh.active[s] ? sh.rdotz[s] / (pAp != 0.f ? pAp : 1.f) : 0.f;
     }
     zero_part(sh, B);  // its __syncthreads also publishes alpha
+    stamp<kTimed>(ts, 3);
 
     // x += alpha p, r -= alpha Ap, |r|^2
     for (int row = blockIdx.x; row < rows; row += gridDim.x) {
@@ -161,20 +176,24 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
       if (tid == 0) sh.part[s] += t;
     }
     flush_part(a, sh, kPartRR);
+    stamp<kTimed>(ts, 4);
     grid.sync();
+    stamp<kTimed>(ts, 5);
     for (int s = tid; s < B; s += blockDim.x) {
       if (sh.active[s]) sh.eps[s] = (float)sqrt(reduce_part(a, kPartRR, s));
       sh.on[s] = sh.active[s] && sh.eps[s] >= a.tol;
     }
     __syncthreads();
+    stamp<kTimed>(ts, 6);
 
-    precond(a, grid, sh, sA, sB);
+    precond(a, grid, sh, sA, sB, [&](int k) { stamp<kTimed>(ts, 7 + k); });
     for (int s = tid; s < B; s += blockDim.x) {
       const float nrz = (float)reduce_part(a, kPartRZ, s);
       sh.beta[s] = sh.on[s] ? nrz / (sh.rdotz[s] != 0.f ? sh.rdotz[s] : 1.f) : 0.f;
       if (sh.on[s]) sh.rdotz[s] = nrz;
     }
     __syncthreads();
+    stamp<kTimed>(ts, 15);
     for (int row = blockIdx.x; row < rows; row += gridDim.x) {
       const int s = row / L;
       if (!sh.on[s]) continue;
@@ -185,13 +204,16 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
     __syncthreads();
     for (int s = tid; s < B; s += blockDim.x) sh.active[s] = sh.on[s];
     ++it;
+    stamp<kTimed>(ts, 16);
     grid.sync();
+    stamp<kTimed>(ts, 17);
   }
 
   if (blockIdx.x == 0) {
     for (int s = tid; s < B; s += blockDim.x) a.eps_out[s] = sh.eps[s];
     if (tid == 0) *a.iters_out = it;
   }
+  stamp_clock_pair<kTimed>(a.stamps, 2);
 }
 
 size_t pcg_smem_bytes(int N) {
@@ -201,7 +223,7 @@ size_t pcg_smem_bytes(int N) {
 }
 
 int pcg_grid(int N, int* grid_out) {
-  return cooperative_grid(pcg_kernel, pcg_smem_bytes(N), grid_out);
+  return cooperative_grid(pcg_kernel<false>, pcg_smem_bytes(N), grid_out);
 }
 
 }  // namespace
@@ -218,11 +240,16 @@ extern "C" int smoqy_pcg_max_grid() { return kMaxGrid; }
 
 extern "C" int smoqy_pcg_max_systems() { return kMaxSystems; }
 
+// The timed instantiation's phase names (comma-separated) and stamps per iteration.
+extern "C" const char* smoqy_pcg_phases() { return kPhases; }
+
+extern "C" int smoqy_pcg_stamps_per_iteration() { return kStamps; }
+
 extern "C" int smoqy_pcg(const float* b, float* x, float* eps, int* iters, const float* C,
                          const float* S, const int* partner, const float* expV, const void* W,
                          const void* Q, const float* filt, float* work, double* part, int B,
                          int Ltau, int Lh, int N, int n_colors, int tab_rows, int symmetric,
-                         float tol, int maxiter, void* stream) {
+                         float tol, int maxiter, void* stamps, void* stream) {
   if (B < 1 || B > kMaxSystems) return (int)cudaErrorInvalidValue;
   int g = 0;
   int e = pcg_grid(N, &g);
@@ -261,8 +288,17 @@ extern "C" int smoqy_pcg(const float* b, float* x, float* eps, int* iters, const
   a.N = N;
   a.tol = tol;
   a.maxiter = maxiter;
+  a.stamps = static_cast<unsigned long long*>(stamps);
+  // the timed instantiation when stamps are given: the same grid (its
+  // occupancy is the untimed one's or the launch is refused)
+  const void* fn = stamps ? (const void*)pcg_kernel<true> : (const void*)pcg_kernel<false>;
+  if (stamps && pcg_smem_bytes(N) > 48 * 1024) {
+    e = (int)cudaFuncSetAttribute(pcg_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)pcg_smem_bytes(N));
+    if (e) return e;
+  }
   void* args[] = {&a};
-  cudaError_t ce = cudaLaunchCooperativeKernel((const void*)pcg_kernel, dim3(g),
+  cudaError_t ce = cudaLaunchCooperativeKernel(fn, dim3(g),
                                                dim3(smoqy::kThreads), args, pcg_smem_bytes(N),
                                                static_cast<cudaStream_t>(stream));
   if (ce != cudaSuccess) return (int)ce;

@@ -26,6 +26,33 @@ constexpr int kMaxGrid = 1024;
 constexpr int kCtasPerSm = 2;
 enum { kPartPAp = 0, kPartRR = 1, kPartRZ = 2 };
 
+// Phase stamps of a timed instantiation (kTimed): once its CTA is done, CTA
+// 0's thread 0 records clock64() in slot i; the path's kernels take none.
+// Slots 0-3 hold globaltimer and clock64 at the kernel's start and end, so
+// the host converts cycles to nanoseconds.
+constexpr int kStampHead = 4;
+
+template <bool kTimed>
+__device__ __forceinline__ void stamp(unsigned long long* t, int i) {
+  if constexpr (kTimed) {
+    __syncthreads();
+    if (blockIdx.x == 0 && threadIdx.x == 0) t[i] = clock64();
+  }
+}
+
+template <bool kTimed>
+__device__ __forceinline__ void stamp_clock_pair(unsigned long long* t, int i) {
+  if constexpr (kTimed) {
+    __syncthreads();
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      unsigned long long g;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+      t[i] = g;
+      t[i + 1] = clock64();
+    }
+  }
+}
+
 __device__ __forceinline__ float to_bf16_value(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
@@ -118,8 +145,10 @@ __device__ void gemm_bf16(Shared& sh, float* sA, float* sB, int nb, int M, int N
 //   Am = (U Q) * filt          (B 2Lh x N)(N x N)
 //   Bm = Am Q^T
 //   z  = [Wre^T Wim^T] Bm      (Ltau x 2Lh)(2Lh x N) per system
-template <typename Args>
-__device__ void precond(const Args& a, cg::grid_group& grid, Shared& sh, float* sA, float* sB) {
+// st(k) marks the end of the k-th of its eight phases (product, sync, ...).
+template <typename Args, typename Stamp>
+__device__ void precond(const Args& a, cg::grid_group& grid, Shared& sh, float* sA, float* sB,
+                        Stamp st) {
   const int B = a.B, L = a.Ltau, Lh = a.Lh, N = a.N, M2 = 2 * a.Lh;
   const size_t plane = (size_t)L * N;
   float* U = a.U;
@@ -134,19 +163,25 @@ __device__ void precond(const Args& a, cg::grid_group& grid, Shared& sh, float* 
                      U[((size_t)bt * M2 + m) * N + n] = v;
                      return 0.f;
                    });
+  st(0);
   grid.sync();
+  st(1);
   gemm_bf16<false>(sh, sA, sB, 1, B * M2, N, N, U, 0, N, 1, a.Q, 0, N, 1,
                    [=](int, int m, int n, float v) {
                      Am[(size_t)m * N + n] = v * filt[(size_t)(m % Lh) * N + n];
                      return 0.f;
                    });
+  st(2);
   grid.sync();
+  st(3);
   gemm_bf16<false>(sh, sA, sB, 1, B * M2, N, N, Am, 0, N, 1, a.Q, 0, 1, N,
                    [=](int, int m, int n, float v) {
                      Bm[(size_t)m * N + n] = v;
                      return 0.f;
                    });
+  st(4);
   grid.sync();
+  st(5);
   zero_part(sh, B);
   gemm_bf16<true>(sh, sA, sB, B, L, N, M2, a.W, 0, 1, L, Bm, (size_t)M2 * N, N, 1,
                   [=](int bt, int m, int n, float v) {
@@ -155,7 +190,9 @@ __device__ void precond(const Args& a, cg::grid_group& grid, Shared& sh, float* 
                     return v * r[i];
                   });
   flush_part(a, sh, kPartRZ);
+  st(6);
   grid.sync();
+  st(7);
 }
 
 // CTAs of a cooperative launch of `kernel` (at most kCtasPerSm per SM, at most

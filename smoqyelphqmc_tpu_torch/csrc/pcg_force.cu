@@ -137,7 +137,7 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
   }
   for (int w = tid; w < nw; w += blockDim.x) wit[w] = 0;
   __syncthreads();
-  precond(a, grid, sh, sA, sB);
+  precond(a, grid, sh, sA, sB, [](int) {});
   for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)reduce_part(a, kPartRZ, s);
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const size_t off = (size_t)row * N;
@@ -196,7 +196,7 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
     }
     __syncthreads();
 
-    precond(a, grid, sh, sA, sB);
+    precond(a, grid, sh, sA, sB, [](int) {});
     for (int s = tid; s < B; s += blockDim.x) {
       const float nrz = (float)reduce_part(a, kPartRZ, s);
       sh.beta[s] = sh.on[s] ? nrz / (sh.rdotz[s] != 0.f ? sh.rdotz[s] : 1.f) : 0.f;

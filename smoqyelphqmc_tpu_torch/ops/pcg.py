@@ -79,8 +79,12 @@ def pcg_plain(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int):
     return x, eps, torch.tensor(it, dtype=torch.int32)
 
 
-def pcg_cuda(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int):
-    """Launch K2 on unit-norm systems b (B, Ltau, N), a contiguous f32 CUDA tensor."""
+def pcg_cuda(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int, stamps=None):
+    """Launch K2 on unit-norm systems b (B, Ltau, N), a contiguous f32 CUDA tensor.
+
+    `stamps`, an int64 CUDA tensor of `stamp_slots(maxiter)` entries, selects
+    the timed instantiation, which records per-phase clocks there
+    (`phase_times`); the path never passes it."""
     require_real(fdm32, "pcg kernel (K2)")
     if b.dtype != torch.float32 or fdm32.dtype != torch.float32:
         raise TypeError("pcg kernel: b and the fermion matrix must be float32")
@@ -108,11 +112,35 @@ def pcg_cuda(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int):
         C.data_ptr(), S.data_ptr(), partner.data_ptr(), expV.data_ptr(),
         W.data_ptr(), Qb.data_ptr(), filt.data_ptr(), work.data_ptr(), part.data_ptr(),
         B, Ltau, Lh, N, C.shape[0], C.shape[1], int(fdm32.symmetric),
-        float(tol), int(maxiter), torch.cuda.current_stream(dev).cuda_stream,
+        float(tol), int(maxiter), None if stamps is None else stamps.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "pcg kernel launch")
     PCG.launches += 1
     return x, eps, iters[0]
+
+
+STAMP_HEAD = 4  # globaltimer and clock64 at the kernel's start and end
+
+
+def stamp_slots(maxiter: int) -> int:
+    return STAMP_HEAD + maxiter * _build.load_library().smoqy_pcg_stamps_per_iteration()
+
+
+def phase_times(stamps: torch.Tensor, iters: int) -> dict:
+    """Mean microseconds per iteration of each phase of the timed
+    instantiation's run, from its stamps (clock64 of CTA 0, converted with the
+    globaltimer / clock64 pairs at the kernel's start and end)."""
+    lib = _build.load_library()
+    names = lib.smoqy_pcg_phases().decode().split(",")
+    k = lib.smoqy_pcg_stamps_per_iteration()
+    t = stamps.cpu().tolist()
+    us_per_cycle = (t[2] - t[0]) / (t[3] - t[1]) / 1e3
+    rows = [t[STAMP_HEAD + i * k:STAMP_HEAD + (i + 1) * k] for i in range(iters)]
+    out = {name: us_per_cycle * sum(r[j + 1] - r[j] for r in rows) / iters for j, name in enumerate(names)}
+    out["iteration"] = us_per_cycle * sum(r[-1] - r[0] for r in rows) / iters
+    out["kernel"] = (t[2] - t[0]) / 1e3
+    return out
 
 
 def pcg_unit(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int):
