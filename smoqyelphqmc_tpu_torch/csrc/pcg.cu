@@ -64,7 +64,7 @@ struct PcgArgs {
   float* U;   // (B, 2 Lh, N)
   float* Am;  // (B, 2 Lh, N)
   float* Bm;  // (B, 2 Lh, N)
-  double* part;  // (3, kMaxGrid, B)
+  double* part;  // (3, B, kMaxGrid)
   int B;
   int Ltau;
   int Lh;
@@ -115,13 +115,15 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
   }
   flush_part(a, sh, kPartRR);
   grid.sync();
+  reduce_parts(a, sh, kPartRR);
   for (int s = tid; s < B; s += blockDim.x) {
-    sh.eps[s] = (float)sqrt(reduce_part(a, kPartRR, s));
+    sh.eps[s] = (float)sqrt(sh.sum[s]);
     sh.active[s] = sh.eps[s] >= a.tol;
   }
   __syncthreads();
   precond(a, grid, sh, sA, sB, [](int) {});
-  for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)reduce_part(a, kPartRZ, s);
+  reduce_parts(a, sh, kPartRZ);
+  for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)sh.sum[s];
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const size_t off = (size_t)row * N;
     for (int n = tid; n < N; n += blockDim.x) a.p[off + n] = a.z[off + n];
@@ -152,8 +154,9 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
     stamp<kTimed>(ts, 1);
     grid.sync();
     stamp<kTimed>(ts, 2);
+    reduce_parts(a, sh, kPartPAp);
     for (int s = tid; s < B; s += blockDim.x) {
-      const float pAp = (float)reduce_part(a, kPartPAp, s);
+      const float pAp = (float)sh.sum[s];
       sh.alpha[s] = sh.active[s] ? sh.rdotz[s] / (pAp != 0.f ? pAp : 1.f) : 0.f;
     }
     zero_part(sh, B);  // its __syncthreads also publishes alpha
@@ -179,16 +182,18 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
     stamp<kTimed>(ts, 4);
     grid.sync();
     stamp<kTimed>(ts, 5);
+    reduce_parts(a, sh, kPartRR);
     for (int s = tid; s < B; s += blockDim.x) {
-      if (sh.active[s]) sh.eps[s] = (float)sqrt(reduce_part(a, kPartRR, s));
+      if (sh.active[s]) sh.eps[s] = (float)sqrt(sh.sum[s]);
       sh.on[s] = sh.active[s] && sh.eps[s] >= a.tol;
     }
     __syncthreads();
     stamp<kTimed>(ts, 6);
 
     precond(a, grid, sh, sA, sB, [&](int k) { stamp<kTimed>(ts, 7 + k); });
+    reduce_parts(a, sh, kPartRZ);
     for (int s = tid; s < B; s += blockDim.x) {
-      const float nrz = (float)reduce_part(a, kPartRZ, s);
+      const float nrz = (float)sh.sum[s];
       sh.beta[s] = sh.on[s] ? nrz / (sh.rdotz[s] != 0.f ? sh.rdotz[s] : 1.f) : 0.f;
       if (sh.on[s]) sh.rdotz[s] = nrz;
     }

@@ -1,5 +1,6 @@
 // The cooperative whole-solve machinery shared by kernels K2 (pcg.cu) and K3
-// (pcg_force.cu): per-system dot partials reduced in a fixed order, the bf16
+// (pcg_force.cu): per-system dot partials reduced in a fixed order, a warp
+// per system, the bf16
 // preconditioner products on a 32 x 32 shared-memory tiling, and the
 // cooperative grid size.
 //
@@ -61,6 +62,7 @@ __device__ __forceinline__ float to_bf16_value(__nv_bfloat16 v) { return __bfloa
 struct Shared {
   double red[kThreads / 32];
   double part[kMaxSystems];
+  double sum[kMaxSystems];  // reduce_parts' result
   float rdotz[kMaxSystems];
   float eps[kMaxSystems];
   float alpha[kMaxSystems];
@@ -78,15 +80,25 @@ template <typename Args>
 __device__ void flush_part(const Args& a, Shared& sh, int which) {
   __syncthreads();
   for (int s = threadIdx.x; s < a.B; s += blockDim.x)
-    a.part[((size_t)which * kMaxGrid + blockIdx.x) * a.B + s] = sh.part[s];
+    a.part[((size_t)which * a.B + s) * kMaxGrid + blockIdx.x] = sh.part[s];
 }
 
-// Fixed-order sum of one system's CTA partials: identical in every CTA.
+// sh.sum[s] = the sum of system s's CTA partials, for every system, in a
+// fixed order, so every CTA holds the same bits: one warp per system (the
+// CTA's warps take systems in turn), its lanes read the system's contiguous
+// (grid,) partials lane-strided past L1 and sum them in a fixed butterfly.
 template <typename Args>
-__device__ double reduce_part(const Args& a, int which, int s) {
-  double acc = 0.0;
-  for (unsigned g = 0; g < gridDim.x; ++g) acc += a.part[((size_t)which * kMaxGrid + g) * a.B + s];
-  return acc;
+__device__ void reduce_parts(const Args& a, Shared& sh, int which) {
+  __syncthreads();  // sh.sum may still be read
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int s = warp; s < a.B; s += kThreads / 32) {
+    const double* p = a.part + ((size_t)which * a.B + s) * kMaxGrid;
+    double acc = 0.0;
+    for (unsigned g = lane; g < gridDim.x; g += 32) acc += __ldcg(p + g);
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) sh.sum[s] = acc;
+  }
+  __syncthreads();
 }
 
 // C[bt](m, n) = sum_k A[bt](m, k) Bq[bt](k, n) for every batch entry bt, over

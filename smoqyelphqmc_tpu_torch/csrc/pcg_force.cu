@@ -129,16 +129,21 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
   }
   flush_part(a, sh, kPartRR);
   grid.sync();
+  reduce_parts(a, sh, kPartPAp);
   for (int s = tid; s < B; s += blockDim.x) {
-    normb[s] = (float)sqrt(reduce_part(a, kPartPAp, s));
+    normb[s] = (float)sqrt(sh.sum[s]);
     tolc[s] = a.tol * fmaxf(normb[s], kTiny);
-    sh.eps[s] = (float)sqrt(reduce_part(a, kPartRR, s));
+  }
+  reduce_parts(a, sh, kPartRR);
+  for (int s = tid; s < B; s += blockDim.x) {
+    sh.eps[s] = (float)sqrt(sh.sum[s]);
     sh.active[s] = sh.eps[s] >= tolc[s];
   }
   for (int w = tid; w < nw; w += blockDim.x) wit[w] = 0;
   __syncthreads();
   precond(a, grid, sh, sA, sB, [](int) {});
-  for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)reduce_part(a, kPartRZ, s);
+  reduce_parts(a, sh, kPartRZ);
+  for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)sh.sum[s];
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const size_t off = (size_t)row * N;
     for (int n = tid; n < N; n += blockDim.x) a.p[off + n] = a.z[off + n];
@@ -166,8 +171,9 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
     }
     flush_part(a, sh, kPartPAp);
     grid.sync();
+    reduce_parts(a, sh, kPartPAp);
     for (int s = tid; s < B; s += blockDim.x) {
-      const float pAp = (float)reduce_part(a, kPartPAp, s);
+      const float pAp = (float)sh.sum[s];
       sh.alpha[s] = sh.active[s] ? sh.rdotz[s] / (pAp != 0.f ? pAp : 1.f) : 0.f;
     }
     zero_part(sh, B);  // its __syncthreads also publishes alpha
@@ -190,15 +196,17 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
     }
     flush_part(a, sh, kPartRR);
     grid.sync();
+    reduce_parts(a, sh, kPartRR);
     for (int s = tid; s < B; s += blockDim.x) {
-      if (sh.active[s]) sh.eps[s] = (float)sqrt(reduce_part(a, kPartRR, s));
+      if (sh.active[s]) sh.eps[s] = (float)sqrt(sh.sum[s]);
       sh.on[s] = sh.active[s] && sh.eps[s] >= tolc[s];
     }
     __syncthreads();
 
     precond(a, grid, sh, sA, sB, [](int) {});
+    reduce_parts(a, sh, kPartRZ);
     for (int s = tid; s < B; s += blockDim.x) {
-      const float nrz = (float)reduce_part(a, kPartRZ, s);
+      const float nrz = (float)sh.sum[s];
       sh.beta[s] = sh.on[s] ? nrz / (sh.rdotz[s] != 0.f ? sh.rdotz[s] : 1.f) : 0.f;
       if (sh.on[s]) sh.rdotz[s] = nrz;
     }
