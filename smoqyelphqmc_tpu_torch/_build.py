@@ -35,10 +35,10 @@ _SIGNATURES = {
     "smoqy_pcg_max_grid": [],
     "smoqy_pcg_max_systems": [],
     "smoqy_pcg_stamps_per_iteration": [],
-    "smoqy_pcg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "smoqy_pcg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P],
     "smoqy_pcg_force_grid": [_I],
-    "smoqy_pcg_force": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "smoqy_pcg_force": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     "smoqy_force": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "smoqy_kpm_mf_max_sites": [_I],

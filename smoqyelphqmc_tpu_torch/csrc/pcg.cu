@@ -55,15 +55,17 @@ struct PcgArgs {
   int* iters_out;
   CbTables<float> tb;
   const __nv_bfloat16* W;  // (2 Lh, Ltau): antiperiodic DFT rows, real then imaginary
-  const __nv_bfloat16* Q;  // (N, N) eigenvectors of Bbar
-  const float* filt;       // (Lh, N), pair factor folded in
+  const __nv_bfloat16* Wt;  // (Ltau, 2 Lh): W transposed
+  const __nv_bfloat16* Q;   // (N, N) eigenvectors of Bbar
+  const __nv_bfloat16* Qt;  // (N, N): Q transposed
+  const float* filt;        // (Lh, N), pair factor folded in
   float* r;
   float* p;
   float* z;
   float* Ap;
-  float* U;   // (B, 2 Lh, N)
-  float* Am;  // (B, 2 Lh, N)
-  float* Bm;  // (B, 2 Lh, N)
+  __nv_bfloat16* U;   // (B, 2 Lh, N)
+  __nv_bfloat16* Am;  // (B, 2 Lh, N)
+  __nv_bfloat16* Bm;  // (B, 2 Lh, N)
   double* part;  // (3, B, kMaxGrid)
   int B;
   int Ltau;
@@ -86,9 +88,8 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Shared sh;
-  // the GEMM tiles and the matvec row buffers alias: no phase uses both
-  float* sA = reinterpret_cast<float*>(smem_raw);
-  float* sB = sA + kTile * kLd;
+  // the GEMM stages and the matvec row buffers alias: no phase uses both
+  __nv_bfloat16* sg = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   float* rowA = reinterpret_cast<float*>(smem_raw);
   float* rowX = rowA + a.N;
   float* rowY = rowX + a.N;
@@ -121,7 +122,8 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
     sh.active[s] = sh.eps[s] >= a.tol;
   }
   __syncthreads();
-  precond(a, grid, sh, sA, sB, [](int) {});
+  const F32Src rsrc{a.r, plane, N};
+  precond(a, grid, sh, sg, rsrc, [] {}, [](int) {});
   reduce_parts(a, sh, kPartRZ);
   for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)sh.sum[s];
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
@@ -190,7 +192,7 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
     __syncthreads();
     stamp<kTimed>(ts, 6);
 
-    precond(a, grid, sh, sA, sB, [&](int k) { stamp<kTimed>(ts, 7 + k); });
+    precond(a, grid, sh, sg, rsrc, [] {}, [&](int k) { stamp<kTimed>(ts, 7 + k); });
     reduce_parts(a, sh, kPartRZ);
     for (int s = tid; s < B; s += blockDim.x) {
       const float nrz = (float)sh.sum[s];
@@ -222,9 +224,8 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
 }
 
 size_t pcg_smem_bytes(int N) {
-  const size_t gemm = 2 * kTile * kLd * sizeof(float);
   const size_t row = 3 * (size_t)N * sizeof(float);
-  return gemm > row ? gemm : row;
+  return kGemmSmem > row ? kGemmSmem : row;
 }
 
 int pcg_grid(int N, int* grid_out) {
@@ -252,7 +253,7 @@ extern "C" int smoqy_pcg_stamps_per_iteration() { return kStamps; }
 
 extern "C" int smoqy_pcg(const float* b, float* x, float* eps, int* iters, const float* C,
                          const float* S, const int* partner, const float* expV, const void* W,
-                         const void* Q, const float* filt, float* work, double* part, int B,
+                         const void* Wt, const void* Q, const void* Qt, const float* filt, float* work, double* part, int B,
                          int Ltau, int Lh, int N, int n_colors, int tab_rows, int symmetric,
                          float tol, int maxiter, void* stamps, void* stream) {
   if (B < 1 || B > kMaxSystems) return (int)cudaErrorInvalidValue;
@@ -275,15 +276,17 @@ extern "C" int smoqy_pcg(const float* b, float* x, float* eps, int* iters, const
   a.tb.color_stride = tab_rows * N;
   a.tb.symmetric = symmetric;
   a.W = static_cast<const __nv_bfloat16*>(W);
+  a.Wt = static_cast<const __nv_bfloat16*>(Wt);
   a.Q = static_cast<const __nv_bfloat16*>(Q);
+  a.Qt = static_cast<const __nv_bfloat16*>(Qt);
   a.filt = filt;
   const size_t plane = (size_t)B * Ltau * N;
-  const size_t half = (size_t)B * 2 * Lh * N;
+  const size_t half = (size_t)B * 2 * Lh * N;  // bf16 elements
   a.r = work;
   a.p = work + plane;
   a.z = work + 2 * plane;
   a.Ap = work + 3 * plane;
-  a.U = work + 4 * plane;
+  a.U = reinterpret_cast<__nv_bfloat16*>(work + 4 * plane);
   a.Am = a.U + half;
   a.Bm = a.Am + half;
   a.part = part;

@@ -1,13 +1,12 @@
 // The cooperative whole-solve machinery shared by kernels K2 (pcg.cu) and K3
 // (pcg_force.cu): per-system dot partials reduced in a fixed order, a warp
-// per system, the bf16
-// preconditioner products on a 32 x 32 shared-memory tiling, and the
-// cooperative grid size.
+// per system; the preconditioner's four bf16 products on the tensor cores
+// (mma.sync); the cooperative grid size; the timed instantiation's stamps.
 //
 // Both kernels' argument structs carry the fields these functions read (the
-// Krylov planes r, z, the preconditioner operands W, Q, filt, its scratch U,
-// Am, Bm, the partial array and the sizes B, Ltau, Lh, N), so the functions
-// are templates on the argument type.
+// Krylov planes r, z, the preconditioner operands W, Wt, Q, Qt, filt, its
+// bf16 scratch U, Am, Bm, the partial array and the sizes B, Ltau, Lh, N),
+// so the functions are templates on the argument type.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -20,8 +19,6 @@ namespace smoqy {
 
 namespace cg = cooperative_groups;
 
-constexpr int kTile = 32;
-constexpr int kLd = kTile + 1;
 constexpr int kMaxSystems = 256;
 constexpr int kMaxGrid = 1024;
 constexpr int kCtasPerSm = 2;
@@ -53,11 +50,6 @@ __device__ __forceinline__ void stamp_clock_pair(unsigned long long* t, int i) {
     }
   }
 }
-
-__device__ __forceinline__ float to_bf16_value(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ float to_bf16_value(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 struct Shared {
   double red[kThreads / 32];
@@ -101,49 +93,167 @@ __device__ void reduce_parts(const Args& a, Shared& sh, int which) {
   __syncthreads();
 }
 
-// C[bt](m, n) = sum_k A[bt](m, k) Bq[bt](k, n) for every batch entry bt, over
-// 32 x 32 output tiles spread across the grid; operands are rounded to bf16
-// on load and summed in f32. epi(bt, m, n, value) stores the value and
-// returns this element's share of a per-system dot (summed when kDot).
-template <bool kDot, typename TA, typename TB, typename Epi>
-__device__ void gemm_bf16(Shared& sh, float* sA, float* sB, int nb, int M, int Nc, int K,
-                          const TA* A, size_t a_b, size_t a_m, size_t a_k, const TB* Bq,
-                          size_t b_b, size_t b_k, size_t b_n, Epi epi) {
-  const int tm = (M + kTile - 1) / kTile;
-  const int tn = (Nc + kTile - 1) / kTile;
+// ---- bf16 tensor-core products (mma.sync m16n8k16, f32 sums) ----------
+//
+// An output tile is kMmaM x kMmaN: each of the CTA's 8 warps owns one n8
+// column slice of it over the whole depth K. The depth is staged kMmaK at a
+// time through two shared-memory buffers (cp.async, 16 bytes a thread,
+// where the rows allow it), and each warp reads its fragments with
+// ldmatrix (A row-major, B row-major through .trans). Rows are padded by 8
+// bf16 (16 bytes) so ldmatrix's eight row addresses fall in distinct banks.
+constexpr int kMmaM = 16;
+constexpr int kMmaN = 8 * (kThreads / 32);  // 64
+constexpr int kMmaK = 64;
+constexpr int kLdA = kMmaK + 8;
+constexpr int kLdB = kMmaN + 8;
+constexpr int kStageElems = kMmaM * kLdA + kMmaK * kLdB;
+constexpr size_t kGemmSmem = 2 * kStageElems * sizeof(__nv_bfloat16);
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; src_bytes = 0 fills zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Operand sources: load(dst, ldd, bt, r0, c0, rows, cols, R, C, lead) stages
+// the (rows x cols) block at (r0, c0) of batch entry bt into dst (row stride
+// ldd), zeros outside the operand's R x C, and returns this thread's share
+// of a per-system dot (lead: the tile is its system's first row block).
+//
+// A bf16 operand (nb, R, C), row-major with row stride ld and batch stride
+// bs: cp.async in 16-byte chunks where rows and batches are 8-aligned.
+struct Bf16Src {
+  static constexpr bool kDot = false;
+  const __nv_bfloat16* p;
+  size_t bs;
+  int ld;
+  bool vec;
+  __device__ Bf16Src(const __nv_bfloat16* p_, size_t bs_, int ld_, int C)
+      : p(p_), bs(bs_), ld(ld_),
+        vec(ld_ % 8 == 0 && C % 8 == 0 && bs_ % 8 == 0 && (reinterpret_cast<size_t>(p_) & 15) == 0) {}
+  __device__ double load(__nv_bfloat16* dst, int ldd, int bt, int r0, int c0, int rows, int cols,
+                         int R, int C, bool) const {
+    const __nv_bfloat16* base = p + bt * bs;
+    if (vec) {
+      const int cpr = cols / 8;
+      for (int e = threadIdx.x; e < rows * cpr; e += kThreads) {
+        const int i = e / cpr, j = (e % cpr) * 8;
+        const int r = r0 + i, c = c0 + j;
+        const bool ok = r < R && c < C;  // C % 8 == 0: a chunk is whole or outside
+        cp_async16(dst + i * ldd + j, ok ? base + (size_t)r * ld + c : base, ok ? 16 : 0);
+      }
+    } else {
+      for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+        const int i = e / cols, j = e % cols;
+        const int r = r0 + i, c = c0 + j;
+        dst[i * ldd + j] = (r < R && c < C) ? base[(size_t)r * ld + c] : __float2bfloat16_rn(0.f);
+      }
+    }
+    return 0.0;
+  }
+};
+
+// An f32 operand rounded to bf16 as it is staged.
+struct F32Src {
+  static constexpr bool kDot = false;
+  const float* p;
+  size_t bs;
+  int ld;
+  __device__ double load(__nv_bfloat16* dst, int ldd, int bt, int r0, int c0, int rows, int cols,
+                         int R, int C, bool) const {
+    const float* base = p + bt * bs;
+    for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+      const int i = e / cols, j = e % cols;
+      const int r = r0 + i, c = c0 + j;
+      dst[i * ldd + j] = __float2bfloat16_rn((r < R && c < C) ? base[(size_t)r * ld + c] : 0.f);
+    }
+    return 0.0;
+  }
+};
+
+// C[bt](m, n) = sum_k A[bt](m, k) B[bt](k, n) for every batch entry bt
+// (M x K times K x Nc), over kMmaM x kMmaN output tiles spread across the
+// grid. epi(bt, m, n, value) stores the value and returns this element's
+// share of a per-system dot; with kDot the CTA adds the tile's dot (the
+// epilogue's and the sources') to sh.part[bt].
+template <bool kDot, typename SrcA, typename SrcB, typename Epi>
+__device__ void gemm_mma(Shared& sh, __nv_bfloat16* smem, int nb, int M, int Nc, int K,
+                         const SrcA& A, const SrcB& Bs, Epi epi) {
+  const int tm = (M + kMmaM - 1) / kMmaM;
+  const int tn = (Nc + kMmaN - 1) / kMmaN;
   const int n_tiles = nb * tm * tn;
-  const int tx = threadIdx.x % kTile;
-  const int ty = threadIdx.x / kTile;  // 0..7
+  const int nk = (K + kMmaK - 1) / kMmaK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int bt = tile / (tm * tn);
     const int rem = tile % (tm * tn);
-    const int m0 = (rem / tn) * kTile;
-    const int n0 = (rem % tn) * kTile;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k0 = 0; k0 < K; k0 += kTile) {
-      for (int e = threadIdx.x; e < kTile * kTile; e += blockDim.x) {
-        const int i = e / kTile, j = e % kTile;
-        const int m = m0 + i, k = k0 + j;
-        sA[i * kLd + j] =
-            (m < M && k < K) ? to_bf16_value(A[bt * a_b + m * a_m + k * a_k]) : 0.f;
-        const int kk = k0 + i, n = n0 + j;
-        sB[i * kLd + j] =
-            (kk < K && n < Nc) ? to_bf16_value(Bq[bt * b_b + kk * b_k + n * b_n]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kTile; ++kk) {
-        const float bv = sB[kk * kLd + tx];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[q] = fmaf(sA[(ty + 8 * q) * kLd + kk], bv, acc[q]);
-      }
-      __syncthreads();
-    }
+    const int m0 = (rem / tn) * kMmaM;
+    const int n0 = (rem % tn) * kMmaN;
+    const bool lead = m0 == 0;
     double local = 0.0;
+    auto stage = [&](int kc) {
+      __nv_bfloat16* sA = smem + (kc & 1) * kStageElems;
+      __nv_bfloat16* sB = sA + kMmaM * kLdA;
+      const int k0 = kc * kMmaK;
+      local += A.load(sA, kLdA, bt, m0, k0, kMmaM, kMmaK, M, K, lead);
+      local += Bs.load(sB, kLdB, bt, k0, n0, kMmaK, kMmaN, K, Nc, lead);
+      cp_async_commit();
+    };
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    stage(0);
+    for (int kc = 0; kc < nk; ++kc) {
+      if (kc + 1 < nk) {
+        stage(kc + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const __nv_bfloat16* sA = smem + (kc & 1) * kStageElems;
+      const __nv_bfloat16* sB = sA + kMmaM * kLdA;
+#pragma unroll
+      for (int kk = 0; kk < kMmaK; kk += 16) {
+        unsigned fa[4], fb[2];
+        ldmatrix_x4(fa, sA + (lane % 16) * kLdA + kk + (lane / 16) * 8);
+        ldmatrix_x2_trans(fb, sB + (kk + lane % 16) * kLdB + warp * 8);
+        mma_bf16(acc, fa, fb);
+      }
+      __syncthreads();  // the buffer is staged again two chunks on
+    }
+    // accumulator layout: rows lane/4 (+8), columns 2 (lane % 4) (+1)
+    const int n = n0 + warp * 8 + 2 * (lane % 4);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int m = m0 + ty + 8 * q, n = n0 + tx;
-      if (m < M && n < Nc) local += (double)epi(bt, m, n, acc[q]);
+      const int m = m0 + lane / 4 + 8 * (q / 2), nq = n + (q % 2);
+      if (m < M && nq < Nc) local += (double)epi(bt, m, nq, acc[q]);
     }
     if (kDot) {
       const double t = block_sum(local, sh.red);
@@ -155,52 +265,58 @@ __device__ void gemm_bf16(Shared& sh, float* sA, float* sB, int nb, int M, int N
 // z = P^{-1} r for every system, plus the CTA partials of dot(r, z):
 //   U  = [Wre; Wim] r          (2Lh x Ltau)(Ltau x N) per system
 //   Am = (U Q) * filt          (B 2Lh x N)(N x N)
-//   Bm = Am Q^T
-//   z  = [Wre^T Wim^T] Bm      (Ltau x 2Lh)(2Lh x N) per system
-// st(k) marks the end of the k-th of its eight phases (product, sync, ...).
-template <typename Args, typename Stamp>
-__device__ void precond(const Args& a, cg::grid_group& grid, Shared& sh, float* sA, float* sB,
-                        Stamp st) {
+//   Bm = Am Q^T                (Q^T stored row-major: Qt)
+//   z  = [Wre^T Wim^T] Bm      (Ltau x 2Lh)(2Lh x N) per system (Wt)
+// U, Am and Bm are stored in bf16, the precision every reader takes them in.
+// rsrc is the source of U's right operand (r); where it has dots
+// (RSrc::kDot), their per-system sums go to the RR partials. first_done() runs after the first grid sync. st(k)
+// marks the end of the k-th of its eight phases (product, sync, ...).
+template <typename Args, typename RSrc, typename First, typename Stamp>
+__device__ void precond(const Args& a, cg::grid_group& grid, Shared& sh, __nv_bfloat16* smem,
+                        const RSrc& rsrc, First first_done, Stamp st) {
   const int B = a.B, L = a.Ltau, Lh = a.Lh, N = a.N, M2 = 2 * a.Lh;
   const size_t plane = (size_t)L * N;
-  float* U = a.U;
-  float* Am = a.Am;
-  float* Bm = a.Bm;
+  __nv_bfloat16* U = a.U;
+  __nv_bfloat16* Am = a.Am;
+  __nv_bfloat16* Bm = a.Bm;
   float* z = a.z;
   const float* r = a.r;
   const float* filt = a.filt;
 
-  gemm_bf16<false>(sh, sA, sB, B, M2, N, L, a.W, 0, L, 1, r, plane, N, 1,
-                   [=](int bt, int m, int n, float v) {
-                     U[((size_t)bt * M2 + m) * N + n] = v;
-                     return 0.f;
-                   });
+  if (RSrc::kDot) zero_part(sh, B);
+  gemm_mma<RSrc::kDot>(sh, smem, B, M2, N, L, Bf16Src(a.W, 0, L, L), rsrc,
+                       [=](int bt, int m, int n, float v) {
+                         U[((size_t)bt * M2 + m) * N + n] = __float2bfloat16_rn(v);
+                         return 0.f;
+                       });
+  if (RSrc::kDot) flush_part(a, sh, kPartRR);
   st(0);
   grid.sync();
   st(1);
-  gemm_bf16<false>(sh, sA, sB, 1, B * M2, N, N, U, 0, N, 1, a.Q, 0, N, 1,
-                   [=](int, int m, int n, float v) {
-                     Am[(size_t)m * N + n] = v * filt[(size_t)(m % Lh) * N + n];
-                     return 0.f;
-                   });
+  first_done();
+  gemm_mma<false>(sh, smem, 1, B * M2, N, N, Bf16Src(U, 0, N, N), Bf16Src(a.Q, 0, N, N),
+                  [=](int, int m, int n, float v) {
+                    Am[(size_t)m * N + n] = __float2bfloat16_rn(v * filt[(size_t)(m % Lh) * N + n]);
+                    return 0.f;
+                  });
   st(2);
   grid.sync();
   st(3);
-  gemm_bf16<false>(sh, sA, sB, 1, B * M2, N, N, Am, 0, N, 1, a.Q, 0, 1, N,
-                   [=](int, int m, int n, float v) {
-                     Bm[(size_t)m * N + n] = v;
-                     return 0.f;
-                   });
+  gemm_mma<false>(sh, smem, 1, B * M2, N, N, Bf16Src(Am, 0, N, N), Bf16Src(a.Qt, 0, N, N),
+                  [=](int, int m, int n, float v) {
+                    Bm[(size_t)m * N + n] = __float2bfloat16_rn(v);
+                    return 0.f;
+                  });
   st(4);
   grid.sync();
   st(5);
   zero_part(sh, B);
-  gemm_bf16<true>(sh, sA, sB, B, L, N, M2, a.W, 0, 1, L, Bm, (size_t)M2 * N, N, 1,
-                  [=](int bt, int m, int n, float v) {
-                    const size_t i = bt * plane + (size_t)m * N + n;
-                    z[i] = v;
-                    return v * r[i];
-                  });
+  gemm_mma<true>(sh, smem, B, L, N, M2, Bf16Src(a.Wt, 0, M2, M2),
+                 Bf16Src(Bm, (size_t)M2 * N, N, N), [=](int bt, int m, int n, float v) {
+                   const size_t i = bt * plane + (size_t)m * N + n;
+                   z[i] = v;
+                   return v * r[i];
+                 });
   flush_part(a, sh, kPartRZ);
   st(6);
   grid.sync();

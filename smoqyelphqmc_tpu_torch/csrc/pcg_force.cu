@@ -53,15 +53,17 @@ struct PcgForceArgs {
   int* iters_out;   // (W,)
   CbTables<float> tb;  // expV of walker 0; walker w at + w Ltau N
   const __nv_bfloat16* W;
+  const __nv_bfloat16* Wt;
   const __nv_bfloat16* Q;
+  const __nv_bfloat16* Qt;
   const float* filt;
   float* r;
   float* p;
   float* z;
   float* Ap;
-  float* U;
-  float* Am;
-  float* Bm;
+  __nv_bfloat16* U;
+  __nv_bfloat16* Am;
+  __nv_bfloat16* Bm;
   double* part;
   int B;
   int Ltau;
@@ -85,9 +87,8 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
   __shared__ float tolc[kMaxSystems];
   __shared__ float normb[kMaxSystems];
   __shared__ int wit[kMaxSystems / 2];
-  // GEMM tiles, matvec rows and epilogue rows alias: no phase uses two of them
-  float* sA = reinterpret_cast<float*>(smem_raw);
-  float* sB = sA + kTile * kLd;
+  // GEMM stages, matvec rows and epilogue rows alias: no phase uses two of them
+  __nv_bfloat16* sg = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   float* rowA = reinterpret_cast<float*>(smem_raw);
   float* rowX = rowA + a.N;
   float* rowY = rowX + a.N;
@@ -141,7 +142,8 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
   }
   for (int w = tid; w < nw; w += blockDim.x) wit[w] = 0;
   __syncthreads();
-  precond(a, grid, sh, sA, sB, [](int) {});
+  const F32Src rsrc{a.r, plane, N};
+  precond(a, grid, sh, sg, rsrc, [] {}, [](int) {});
   reduce_parts(a, sh, kPartRZ);
   for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)sh.sum[s];
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
@@ -203,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
     }
     __syncthreads();
 
-    precond(a, grid, sh, sA, sB, [](int) {});
+    precond(a, grid, sh, sg, rsrc, [] {}, [](int) {});
     reduce_parts(a, sh, kPartRZ);
     for (int s = tid; s < B; s += blockDim.x) {
       const float nrz = (float)sh.sum[s];
@@ -228,7 +230,7 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
   for (int row = blockIdx.x; row < nw * L; row += gridDim.x) {
     const int w = row / L;
     force_row(walker_tables(a, w), a.x + 2 * w * plane, a.Lam + w * plane, row % L,
-              a.want_p2 != 0, sA, a.P1 + (size_t)row * N, a.P2 + (size_t)row * N);
+              a.want_p2 != 0, rowA, a.P1 + (size_t)row * N, a.P2 + (size_t)row * N);
   }
 
   if (blockIdx.x == 0) {
@@ -238,9 +240,8 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
 }
 
 size_t pcg_force_smem_bytes(int N) {
-  const size_t gemm = 2 * kTile * kLd * sizeof(float);
   const size_t row = (size_t)kForceRows * N * sizeof(float);  // >= the matvec's 3 N
-  return gemm > row ? gemm : row;
+  return kGemmSmem > row ? kGemmSmem : row;
 }
 
 int pcg_force_grid(int N, int* grid_out) {
@@ -260,7 +261,8 @@ extern "C" int smoqy_pcg_force_grid(int N) {
 extern "C" int smoqy_pcg_force(const float* b, const float* x0, const float* Lam, float* x,
                                float* P1, float* P2, float* eps, int* iters, const float* C,
                                const float* S, const int* partner, const float* expV,
-                               const void* W, const void* Q, const float* filt, float* work,
+                               const void* W, const void* Wt, const void* Q, const void* Qt,
+                               const float* filt, float* work,
                                double* part, int n_walkers, int Ltau, int Lh, int N,
                                int n_colors, int tab_rows, float tol, int maxiter, int want_p2,
                                void* stream) {
@@ -289,15 +291,17 @@ extern "C" int smoqy_pcg_force(const float* b, const float* x0, const float* Lam
   a.tb.color_stride = tab_rows * N;
   a.tb.symmetric = 1;
   a.W = static_cast<const __nv_bfloat16*>(W);
+  a.Wt = static_cast<const __nv_bfloat16*>(Wt);
   a.Q = static_cast<const __nv_bfloat16*>(Q);
+  a.Qt = static_cast<const __nv_bfloat16*>(Qt);
   a.filt = filt;
   const size_t plane = (size_t)B * Ltau * N;
-  const size_t half = (size_t)B * 2 * Lh * N;
+  const size_t half = (size_t)B * 2 * Lh * N;  // bf16 elements
   a.r = work;
   a.p = work + plane;
   a.z = work + 2 * plane;
   a.Ap = work + 3 * plane;
-  a.U = work + 4 * plane;
+  a.U = reinterpret_cast<__nv_bfloat16*>(work + 4 * plane);
   a.Am = a.U + half;
   a.Bm = a.Am + half;
   a.part = part;

@@ -30,13 +30,14 @@ def _bf16(t: torch.Tensor) -> torch.Tensor:
 
 def precond_plain(pre, r: torch.Tensor) -> torch.Tensor:
     """The kernel's preconditioner apply in plain ops: the half-spectrum form of
-    `_pcg_ops.precond` (pallas_fused.py:455-478), bf16 operands, f32 sums."""
-    W, Qb, filt, Lh = pre.pcg_operands()
-    Wf, Qf = W.to(torch.float32), Qb.to(torch.float32)
-    U = torch.einsum("ml,bln->bmn", Wf, _bf16(r))  # (B, 2 Lh, N): [Re; Im]
-    A = (_bf16(U) @ Qf) * torch.cat([filt, filt])
-    Bm = _bf16(A) @ Qf.T
-    return torch.einsum("ml,bmn->bln", Wf, _bf16(Bm))
+    `_pcg_ops.precond` (pallas_fused.py:455-478), bf16 operands, f32 sums;
+    the intermediates U, Am, Bm are stored in bf16, as the kernels store them."""
+    ops = pre.pcg_operands()
+    Wf, Qf = ops.W.to(torch.float32), ops.Q.to(torch.float32)
+    U = torch.einsum("ml,bln->bmn", Wf, _bf16(r)).to(torch.bfloat16)  # (B, 2 Lh, N): [Re; Im]
+    Am = ((U.to(torch.float32) @ Qf) * torch.cat([ops.filt, ops.filt])).to(torch.bfloat16)
+    Bm = (Am.to(torch.float32) @ Qf.T).to(torch.bfloat16)
+    return torch.einsum("ml,bmn->bln", Wf, Bm.to(torch.float32))
 
 
 def pcg_plain(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int):
@@ -100,18 +101,19 @@ def pcg_cuda(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int, stamps=None)
         raise ValueError(f"pcg kernel: {B} systems, at most {lib.smoqy_pcg_max_systems()}")
     b = b.contiguous()
     C, S, partner, expV = mtm_tables(fdm32)
-    W, Qb, filt, Lh = pre.pcg_operands()
+    ops = pre.pcg_operands()
     dev = b.device
     x = torch.empty_like(b)
     eps = torch.empty(B, dtype=torch.float32, device=dev)
     iters = torch.empty(1, dtype=torch.int32, device=dev)
-    work = torch.empty(B * N * (4 * Ltau + 6 * Lh), dtype=torch.float32, device=dev)
+    # r, p, z, Ap in f32, then U, Am, Bm (B, 2 Lh, N) in bf16
+    work = torch.empty(B * N * (4 * Ltau + 3 * ops.Lh), dtype=torch.float32, device=dev)
     part = torch.empty(3 * lib.smoqy_pcg_max_grid() * B, dtype=torch.float64, device=dev)
     rc = lib.smoqy_pcg(
         b.data_ptr(), x.data_ptr(), eps.data_ptr(), iters.data_ptr(),
         C.data_ptr(), S.data_ptr(), partner.data_ptr(), expV.data_ptr(),
-        W.data_ptr(), Qb.data_ptr(), filt.data_ptr(), work.data_ptr(), part.data_ptr(),
-        B, Ltau, Lh, N, C.shape[0], C.shape[1], int(fdm32.symmetric),
+        ops.W.data_ptr(), ops.Wt.data_ptr(), ops.Q.data_ptr(), ops.Qt.data_ptr(), ops.filt.data_ptr(),
+        work.data_ptr(), part.data_ptr(), B, Ltau, ops.Lh, N, C.shape[0], C.shape[1], int(fdm32.symmetric),
         float(tol), int(maxiter), None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -100,20 +100,21 @@ def pcg_force_cuda(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Ten
         raise ValueError(f"pcg_force kernel: {W} walkers, at most {lib.smoqy_pcg_max_systems() // 2}")
     b, x0, Lam = b.contiguous(), x0.contiguous(), Lam.contiguous()
     C, S, partner, expV = mtm_tables(fdm32)
-    Wm, Qb, filt, Lh = pre.pcg_operands()
+    ops = pre.pcg_operands()
     dev = b.device
     x = torch.empty_like(b)
     P1 = torch.empty((W, Ltau, N), dtype=torch.float32, device=dev)
     P2 = torch.empty_like(P1)
     eps = torch.empty(2 * W, dtype=torch.float32, device=dev)
     iters = torch.empty(W, dtype=torch.int32, device=dev)
-    work = torch.empty(2 * W * N * (4 * Ltau + 6 * Lh), dtype=torch.float32, device=dev)
+    # r, p, z, Ap in f32, then U, Am, Bm (2W, 2 Lh, N) in bf16
+    work = torch.empty(2 * W * N * (4 * Ltau + 3 * ops.Lh), dtype=torch.float32, device=dev)
     part = torch.empty(3 * lib.smoqy_pcg_max_grid() * 2 * W, dtype=torch.float64, device=dev)
     rc = lib.smoqy_pcg_force(
         b.data_ptr(), x0.data_ptr(), Lam.data_ptr(), x.data_ptr(), P1.data_ptr(), P2.data_ptr(),
         eps.data_ptr(), iters.data_ptr(), C.data_ptr(), S.data_ptr(), partner.data_ptr(),
-        expV.data_ptr(), Wm.data_ptr(), Qb.data_ptr(), filt.data_ptr(), work.data_ptr(),
-        part.data_ptr(), W, Ltau, Lh, N, C.shape[0], C.shape[1], float(tol), int(maxiter),
+        expV.data_ptr(), ops.W.data_ptr(), ops.Wt.data_ptr(), ops.Q.data_ptr(), ops.Qt.data_ptr(),
+        ops.filt.data_ptr(), work.data_ptr(), part.data_ptr(), W, Ltau, ops.Lh, N, C.shape[0], C.shape[1], float(tol), int(maxiter),
         int(want_p2), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "pcg_force kernel launch")

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,6 +29,17 @@ from .fourier import TauFourier
 from .kpm import AveragedPropagator, averaged_propagator
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+class PcgOperands(NamedTuple):
+    """Kernel K2 / K3's preconditioner operands (`pcg_operands`)."""
+
+    W: torch.Tensor  # (2 Lh, Ltau) bf16: [Wre; Wim]
+    Wt: torch.Tensor  # (Ltau, 2 Lh) bf16: W transposed, contiguous
+    Q: torch.Tensor  # (N, N) bf16
+    Qt: torch.Tensor  # (N, N) bf16: Q transposed, contiguous
+    filt: torch.Tensor  # (Lh, N) f32, pair factor folded in
+    Lh: int
 
 
 @dataclasses.dataclass
@@ -56,7 +67,9 @@ class SpectralPreconditioner:
         1136-1148): W = [Wre; Wim] (2 Lh, Ltau) bf16, the first Lh rows of the
         antiperiodic DFT; Q in bf16; filt[:Lh] in f32 with the conjugate-pair
         factor 2 folded in. Lh = Ltau / 2 for even Ltau (half spectrum), else
-        Ltau. Cached on the preconditioner. K2 takes real hoppings only, so
+        Ltau. W and Q also come transposed and contiguous (Wt, Qt), so every
+        product of the kernels reads its operands row by row. Cached on the
+        preconditioner: a `PcgOperands`. K2 takes real hoppings only, so
         the doubled-basis preconditioner has none."""
         if self.complex_pair:
             raise ValueError("the doubled-basis spectral preconditioner (complex hoppings) has no K2 operands")
@@ -72,7 +85,7 @@ class SpectralPreconditioner:
             pair = 2.0 if Lh < Ltau else 1.0
             Qb = self.Q.to(torch.float32).to(torch.bfloat16).contiguous()
             filt = (pair * self.filt[:Lh].to(torch.float32)).contiguous()
-            self._pcg_operands = (W, Qb, filt, Lh)
+            self._pcg_operands = PcgOperands(W=W, Wt=W.T.contiguous(), Q=Qb, Qt=Qb.T.contiguous(), filt=filt, Lh=Lh)
         return self._pcg_operands
 
 
