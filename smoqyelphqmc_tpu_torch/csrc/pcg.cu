@@ -11,32 +11,39 @@
 // Krylov set resident in VMEM; an SM has 228 KB of shared memory, while one
 // (240, 288) f32 plane is 276 KB, so here the Krylov vectors (x, r, p, z, Ap)
 // and the preconditioner's half-spectrum planes stay in device memory, where
-// a system's set (~1.4 MB) stays resident in the 50 MB L2. The grid
+// a system's set (~2 MB) stays resident in the 50 MB L2. The grid
 // (occupancy x SMs, at most two CTAs per SM) walks every phase of an
-// iteration, and cooperative_groups' grid.sync() separates the phases:
+// iteration, and cooperative_groups' grid.sync() separates the phases; five
+// per iteration:
 //
-//   Ap = M^T M p            one CTA per (system, tau) row, row_ops.cuh
-//   x += a p, r -= a Ap     rows
-//   z = P^{-1} r            four tiled products, bf16 operands, f32 sums:
-//     U  = [Wre; Wim] r          (2Lh x Ltau)(Ltau x N) per system
-//     Am = (U Q) * filt          (B 2Lh x N)(N x N)
-//     Bm = Am Q^T
-//     z  = [Wre^T Wim^T] Bm      (Ltau x 2Lh)(2Lh x N) per system
-//   p = z + beta p          rows
+//   p = z + beta p, Ap = M^T M p, dot(p, Ap)
+//                           one CTA per (system, tau) row (row_ops.cuh); the
+//                           row builds its p rows l-1, l, l+1 on the fly from
+//                           z and the previous p and writes row l (p
+//                           ping-pongs between two planes)
+//   r -= alpha Ap, x += alpha p, |r|^2, U = [Wre; Wim] r
+//                           the first product stages r - alpha Ap as its
+//                           right operand; the tiles of each system's first
+//                           row block write r (ping-pong), x and |r|^2
+//   Am = (U Q) * filt       (B 2Lh x N)(N x N)
+//   Bm = Am Q^T             (Q^T row-major: Qt)
+//   z = [Wre^T Wim^T] Bm, dot(r, z)
 //
-// Per-system dots are reduced per CTA (in double) into a (grid, B) partial
-// array and summed in a fixed order by every CTA after the next grid.sync, so
-// every CTA holds the same alpha, beta and active mask without another sync.
-// Six grid-wide syncs per iteration.
+// The four products run on the tensor cores (mma.sync bf16, f32 sums) with
+// U, Am, Bm in bf16 (pcg_common.cuh). Per-system dots are reduced per CTA
+// (in double) into a (B, grid) partial array and summed in a fixed order, a
+// warp per system, by every CTA after the next grid.sync, so every CTA holds
+// the same alpha, beta and active mask without another sync, and a launch
+// repeats its bits.
 //
-// What bounds it on the H100: at the headline size (B = 2, Ltau = 240,
-// N = 288) the preconditioner's products, ~2 x 37 M multiply-adds per
-// iteration, on a plain shared-memory tiling without tensor cores, and the
-// grid-wide syncs; the matvec rows are memory-bound as in K1. Tensor cores
-// (mma.sync / wgmma) for the products are later work.
+// What bounds it on the H100: the chain of dependent phases, each a few us of
+// L2 traffic behind a grid-wide barrier; at the headline size (B = 2,
+// Ltau = 240, N = 288) the products are ~75 M bf16 multiply-adds an
+// iteration, well under a microsecond of tensor-core time, and the matvec
+// rows are memory-bound as in K1.
 //
-// The preconditioner products, the dot partials and the grid sizing live in
-// pcg_common.cuh, shared with K3 (pcg_force.cu).
+// A timed instantiation (kTimed) stamps CTA 0's clock at every phase
+// boundary (time_pcg.py reads them); the path's kernel has none.
 //
 // C interface (bound with ctypes from ops/pcg.py): returns a cudaError_t.
 
@@ -54,19 +61,19 @@ struct PcgArgs {
   float* eps_out;
   int* iters_out;
   CbTables<float> tb;
-  const __nv_bfloat16* W;  // (2 Lh, Ltau): antiperiodic DFT rows, real then imaginary
+  const __nv_bfloat16* W;   // (2 Lh, Ltau): antiperiodic DFT rows, real then imaginary
   const __nv_bfloat16* Wt;  // (Ltau, 2 Lh): W transposed
   const __nv_bfloat16* Q;   // (N, N) eigenvectors of Bbar
   const __nv_bfloat16* Qt;  // (N, N): Q transposed
   const float* filt;        // (Lh, N), pair factor folded in
-  float* r;
-  float* p;
+  float* r;                 // (2, B, Ltau, N): ping-pong
+  float* p;                 // (2, B, Ltau, N): ping-pong
   float* z;
   float* Ap;
   __nv_bfloat16* U;   // (B, 2 Lh, N)
   __nv_bfloat16* Am;  // (B, 2 Lh, N)
   __nv_bfloat16* Bm;  // (B, 2 Lh, N)
-  double* part;  // (3, B, kMaxGrid)
+  double* part;       // (3, B, kMaxGrid)
   int B;
   int Ltau;
   int Lh;
@@ -78,13 +85,115 @@ struct PcgArgs {
 
 // The phases of one iteration, in the order of the timed instantiation's
 // stamps (smoqy_pcg_phases).
-constexpr int kStamps = 18;
+constexpr int kStamps = 14;
 constexpr const char* kPhases =
-    "mtm,sync_pAp,reduce_pAp,x_r,sync_rr,reduce_rr,U,sync_U,Am,sync_Am,Bm,sync_Bm,z,sync_z,"
-    "reduce_rz,p,sync_p";
+    "mtm,sync_pAp,reduce_pAp,x_r_U,sync_U,reduce_rr,Am,sync_Am,Bm,sync_Bm,z,sync_z,reduce_rz";
+
+// p = z + beta p for one element: the one expression every row that builds
+// it evaluates, so the rows l-1, l, l+1 of two CTAs agree to the bit.
+__device__ __forceinline__ float p_next(float z, float beta, float p) { return fmaf(beta, p, z); }
+
+// U's right operand: r - alpha Ap of the system, rounded to bf16 as it is
+// staged. The tile whose output rows are [m0, m0 + kMmaM) also owns those
+// rows (tau) of r: it writes them to the next r plane, updates x += alpha p
+// there and returns its share of |r|^2 (Ltau <= 2 Lh, so every row has an
+// owner, and each (tau, site) one). Inactive systems keep r and x.
+__device__ __forceinline__ float4 residual4(float4 r, float4 ap, bool act, float al) {
+  if (act) {
+    r.x = fmaf(-al, ap.x, r.x);
+    r.y = fmaf(-al, ap.y, r.y);
+    r.z = fmaf(-al, ap.z, r.z);
+    r.w = fmaf(-al, ap.w, r.w);
+  }
+  return r;
+}
+
+struct ResidualSrc {
+  static constexpr bool kDot = true;
+  const float* r;
+  float* r_next;
+  float* x;
+  const float* Ap;
+  const float* p;
+  const float* alpha;
+  const int* active;
+  size_t bs;
+  int ld;
+  bool vec;
+  __device__ ResidualSrc(const float* r_, float* r_next_, float* x_, const float* Ap_,
+                         const float* p_, const float* alpha_, const int* active_, size_t bs_,
+                         int ld_)
+      : r(r_), r_next(r_next_), x(x_), Ap(Ap_), p(p_), alpha(alpha_), active(active_), bs(bs_),
+        ld(ld_), vec(f32_vec_ok(r_, bs_, ld_, ld_) && f32_vec_ok(r_next_, bs_, ld_, ld_) &&
+                     f32_vec_ok(x_, bs_, ld_, ld_) && f32_vec_ok(Ap_, bs_, ld_, ld_) &&
+                     f32_vec_ok(p_, bs_, ld_, ld_)) {}
+
+  __device__ double load(__nv_bfloat16* dst, int ldd, int bt, int r0, int c0, int rows, int cols,
+                         int R, int C, int m0) const {
+    const bool act = active[bt] != 0;
+    const float al = alpha[bt];
+    double acc = 0.0;
+    if (vec) {
+      const int cpr = cols / 4;
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 rv[kVec4PerThread], av[kVec4PerThread];
+#pragma unroll
+      for (int q = 0; q < kVec4PerThread; ++q) {
+        const int e = threadIdx.x + q * kThreads;
+        const int k = r0 + e / cpr, c = c0 + (e % cpr) * 4;
+        const bool ok = k < R && c < C;
+        const size_t o = bt * bs + (size_t)k * ld + c;
+        rv[q] = ok ? *reinterpret_cast<const float4*>(r + o) : zero;
+        av[q] = ok && act ? *reinterpret_cast<const float4*>(Ap + o) : zero;
+      }
+#pragma unroll
+      for (int q = 0; q < kVec4PerThread; ++q) {
+        const int e = threadIdx.x + q * kThreads;
+        store4_bf16(dst + (e / cpr) * ldd + (e % cpr) * 4, residual4(rv[q], av[q], act, al));
+      }
+      // the owned rows, when this block holds them: one float4 a thread
+      static_assert(kMmaM * kMmaN / 4 == kThreads, "owned rows: one float4 a thread");
+      const int k = m0 + threadIdx.x / cpr, c = c0 + (threadIdx.x % cpr) * 4;
+      if (m0 >= r0 && m0 < r0 + rows && k < R && c < C) {
+        const size_t o = bt * bs + (size_t)k * ld + c;
+        const float4 v = residual4(*reinterpret_cast<const float4*>(r + o),
+                                   act ? *reinterpret_cast<const float4*>(Ap + o) : zero, act, al);
+        *reinterpret_cast<float4*>(r_next + o) = v;
+        if (act) {
+          const float4 pv = *reinterpret_cast<const float4*>(p + o);
+          const float4 xv = *reinterpret_cast<const float4*>(x + o);
+          *reinterpret_cast<float4*>(x + o) =
+              make_float4(fmaf(al, pv.x, xv.x), fmaf(al, pv.y, xv.y), fmaf(al, pv.z, xv.z),
+                          fmaf(al, pv.w, xv.w));
+          acc = (double)v.x * v.x + (double)v.y * v.y + (double)v.z * v.z + (double)v.w * v.w;
+        }
+      }
+      return acc;
+    }
+    for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
+      const int i = e / cols, j = e % cols;
+      const int k = r0 + i, c = c0 + j;
+      float v = 0.f;
+      if (k < R && c < C) {
+        const size_t o = bt * bs + (size_t)k * ld + c;
+        v = r[o];
+        if (act) v = fmaf(-al, Ap[o], v);
+        if (k >= m0 && k < m0 + kMmaM) {
+          r_next[o] = v;
+          if (act) {
+            x[o] = fmaf(al, p[o], x[o]);
+            acc += (double)v * v;
+          }
+        }
+      }
+      dst[i * ldd + j] = __float2bfloat16_rn(v);
+    }
+    return acc;
+  }
+};
 
 template <bool kTimed>
-__global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
+__global__ void __launch_bounds__(smoqy::kThreads, smoqy::kCtasPerSm) pcg_kernel(PcgArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Shared sh;
@@ -96,6 +205,7 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
 
   const int B = a.B, L = a.Ltau, N = a.N;
   const size_t plane = (size_t)L * N;
+  const size_t planes = (size_t)B * plane;
   const int rows = B * L;
   const int tid = threadIdx.x;
   stamp_clock_pair<kTimed>(a.stamps, 0);
@@ -122,15 +232,13 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
     sh.active[s] = sh.eps[s] >= a.tol;
   }
   __syncthreads();
-  const F32Src rsrc{a.r, plane, N};
-  precond(a, grid, sh, sg, rsrc, [] {}, [](int) {});
+  // z = P^{-1} r; the first iteration's p is z (beta = 0 over p = z)
+  precond(a, grid, sh, sg, F32Src(a.r, plane, N, N), a.r, [] {}, [](int) {});
   reduce_parts(a, sh, kPartRZ);
-  for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)sh.sum[s];
-  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-    const size_t off = (size_t)row * N;
-    for (int n = tid; n < N; n += blockDim.x) a.p[off + n] = a.z[off + n];
+  for (int s = tid; s < B; s += blockDim.x) {
+    sh.rdotz[s] = (float)sh.sum[s];
+    sh.beta[s] = 0.f;
   }
-  grid.sync();
 
   int it = 0;
   while (true) {
@@ -140,15 +248,27 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
     if (!any || it >= a.maxiter) break;
     unsigned long long* ts = a.stamps + kStampHead + (size_t)it * kStamps;
     stamp<kTimed>(ts, 0);
+    const float* p_prev = it == 0 ? a.z : a.p + (it & 1) * planes;
+    float* p_cur = a.p + ((it + 1) & 1) * planes;
+    const float* r_cur = a.r + (it & 1) * planes;
+    float* r_next = a.r + ((it + 1) & 1) * planes;
 
-    // Ap = M^T M p and dot(p, Ap), rows of active systems only
+    // p = z + beta p, Ap = M^T M p and dot(p, Ap), rows of active systems only
     zero_part(sh, B);
     for (int row = blockIdx.x; row < rows; row += gridDim.x) {
       const int s = row / L;
       if (!sh.active[s]) continue;
-      const float* ps = a.p + s * plane;
-      const float loc = smoqy::mtm_row<float>(a.tb, ps, a.Ap + (size_t)row * N, row % L, rowA,
-                                              rowX, rowY, a.p + (size_t)row * N);
+      const float be = sh.beta[s];
+      const float* zs = a.z + s * plane;
+      const float* ps = p_prev + s * plane;
+      float* prow = p_cur + (size_t)row * N;
+      const int l = row % L;
+      for (int n = tid; n < N; n += blockDim.x)
+        prow[n] = p_next(zs[(size_t)l * N + n], be, ps[(size_t)l * N + n]);
+      const float loc = smoqy::mtm_row_from<float>(
+          a.tb,
+          [=](int j, int n) { return p_next(zs[(size_t)j * N + n], be, ps[(size_t)j * N + n]); },
+          a.Ap + (size_t)row * N, l, rowA, rowX, rowY, prow);
       const double t = smoqy::block_sum((double)loc, sh.red);
       if (tid == 0) sh.part[s] += t;
     }
@@ -161,59 +281,32 @@ __global__ void __launch_bounds__(smoqy::kThreads) pcg_kernel(PcgArgs a) {
       const float pAp = (float)sh.sum[s];
       sh.alpha[s] = sh.active[s] ? sh.rdotz[s] / (pAp != 0.f ? pAp : 1.f) : 0.f;
     }
-    zero_part(sh, B);  // its __syncthreads also publishes alpha
+    __syncthreads();
     stamp<kTimed>(ts, 3);
 
-    // x += alpha p, r -= alpha Ap, |r|^2
-    for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-      const int s = row / L;
-      if (!sh.active[s]) continue;
-      const float al = sh.alpha[s];
-      const size_t off = (size_t)row * N;
-      double loc = 0.0;
-      for (int n = tid; n < N; n += blockDim.x) {
-        a.x[off + n] = a.x[off + n] + al * a.p[off + n];
-        const float rn = a.r[off + n] - al * a.Ap[off + n];
-        a.r[off + n] = rn;
-        loc += (double)rn * rn;
-      }
-      const double t = smoqy::block_sum(loc, sh.red);
-      if (tid == 0) sh.part[s] += t;
-    }
-    flush_part(a, sh, kPartRR);
-    stamp<kTimed>(ts, 4);
-    grid.sync();
-    stamp<kTimed>(ts, 5);
-    reduce_parts(a, sh, kPartRR);
-    for (int s = tid; s < B; s += blockDim.x) {
-      if (sh.active[s]) sh.eps[s] = (float)sqrt(sh.sum[s]);
-      sh.on[s] = sh.active[s] && sh.eps[s] >= a.tol;
-    }
-    __syncthreads();
-    stamp<kTimed>(ts, 6);
-
-    precond(a, grid, sh, sg, rsrc, [] {}, [&](int k) { stamp<kTimed>(ts, 7 + k); });
+    // r -= alpha Ap, x += alpha p, |r|^2 inside the first product; after its
+    // sync, eps and the mask of systems that go on
+    const ResidualSrc rsrc(r_cur, r_next, a.x, a.Ap, p_cur, sh.alpha, sh.active, plane, N);
+    precond(
+        a, grid, sh, sg, rsrc, r_next,
+        [&] {
+          reduce_parts(a, sh, kPartRR);
+          for (int s = tid; s < B; s += blockDim.x) {
+            if (sh.active[s]) sh.eps[s] = (float)sqrt(sh.sum[s]);
+            sh.on[s] = sh.active[s] && sh.eps[s] >= a.tol;
+          }
+          stamp<kTimed>(ts, 6);
+        },
+        [&](int k) { stamp<kTimed>(ts, 4 + k + (k >= 2)); });
     reduce_parts(a, sh, kPartRZ);
     for (int s = tid; s < B; s += blockDim.x) {
       const float nrz = (float)sh.sum[s];
       sh.beta[s] = sh.on[s] ? nrz / (sh.rdotz[s] != 0.f ? sh.rdotz[s] : 1.f) : 0.f;
       if (sh.on[s]) sh.rdotz[s] = nrz;
+      sh.active[s] = sh.on[s];
     }
-    __syncthreads();
-    stamp<kTimed>(ts, 15);
-    for (int row = blockIdx.x; row < rows; row += gridDim.x) {
-      const int s = row / L;
-      if (!sh.on[s]) continue;
-      const float be = sh.beta[s];
-      const size_t off = (size_t)row * N;
-      for (int n = tid; n < N; n += blockDim.x) a.p[off + n] = a.z[off + n] + be * a.p[off + n];
-    }
-    __syncthreads();
-    for (int s = tid; s < B; s += blockDim.x) sh.active[s] = sh.on[s];
     ++it;
-    stamp<kTimed>(ts, 16);
-    grid.sync();
-    stamp<kTimed>(ts, 17);
+    stamp<kTimed>(ts, 13);
   }
 
   if (blockIdx.x == 0) {
@@ -253,8 +346,9 @@ extern "C" int smoqy_pcg_stamps_per_iteration() { return kStamps; }
 
 extern "C" int smoqy_pcg(const float* b, float* x, float* eps, int* iters, const float* C,
                          const float* S, const int* partner, const float* expV, const void* W,
-                         const void* Wt, const void* Q, const void* Qt, const float* filt, float* work, double* part, int B,
-                         int Ltau, int Lh, int N, int n_colors, int tab_rows, int symmetric,
+                         const void* Wt, const void* Q, const void* Qt, const float* filt,
+                         float* work, double* part, int B, int Ltau, int Lh, int N, int n_colors,
+                         int tab_rows, int symmetric,
                          float tol, int maxiter, void* stamps, void* stream) {
   if (B < 1 || B > kMaxSystems) return (int)cudaErrorInvalidValue;
   int g = 0;
@@ -283,10 +377,10 @@ extern "C" int smoqy_pcg(const float* b, float* x, float* eps, int* iters, const
   const size_t plane = (size_t)B * Ltau * N;
   const size_t half = (size_t)B * 2 * Lh * N;  // bf16 elements
   a.r = work;
-  a.p = work + plane;
-  a.z = work + 2 * plane;
-  a.Ap = work + 3 * plane;
-  a.U = reinterpret_cast<__nv_bfloat16*>(work + 4 * plane);
+  a.p = work + 2 * plane;
+  a.z = work + 4 * plane;
+  a.Ap = work + 5 * plane;
+  a.U = reinterpret_cast<__nv_bfloat16*>(work + 6 * plane);
   a.Am = a.U + half;
   a.Bm = a.Am + half;
   a.part = part;

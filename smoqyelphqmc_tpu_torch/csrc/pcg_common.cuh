@@ -143,10 +143,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Operand sources: load(dst, ldd, bt, r0, c0, rows, cols, R, C, lead) stages
+// Operand sources: load(dst, ldd, bt, r0, c0, rows, cols, R, C, m0) stages
 // the (rows x cols) block at (r0, c0) of batch entry bt into dst (row stride
 // ldd), zeros outside the operand's R x C, and returns this thread's share
-// of a per-system dot (lead: the tile is its system's first row block).
+// of a per-system dot (m0: the first output row of the tile).
+
+// Four f32 values to bf16 at d (8-byte aligned).
+__device__ __forceinline__ void store4_bf16(__nv_bfloat16* d, float4 v) {
+  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(d);
+  d2[0] = __floats2bfloat162_rn(v.x, v.y);
+  d2[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+
+// f32 planes are staged four columns a step where rows and batches are
+// 4-aligned; a thread issues all its loads of a block before any store.
+constexpr int kVec4PerThread = kMmaK * kMmaN / 4 / kThreads;  // right operands only
+
+__device__ __forceinline__ bool f32_vec_ok(const void* p, size_t bs, int ld, int C) {
+  return ld % 4 == 0 && C % 4 == 0 && bs % 4 == 0 && (reinterpret_cast<size_t>(p) & 15) == 0;
+}
 //
 // A bf16 operand (nb, R, C), row-major with row stride ld and batch stride
 // bs: cp.async in 16-byte chunks where rows and batches are 8-aligned.
@@ -160,7 +175,7 @@ struct Bf16Src {
       : p(p_), bs(bs_), ld(ld_),
         vec(ld_ % 8 == 0 && C % 8 == 0 && bs_ % 8 == 0 && (reinterpret_cast<size_t>(p_) & 15) == 0) {}
   __device__ double load(__nv_bfloat16* dst, int ldd, int bt, int r0, int c0, int rows, int cols,
-                         int R, int C, bool) const {
+                         int R, int C, int) const {
     const __nv_bfloat16* base = p + bt * bs;
     if (vec) {
       const int cpr = cols / 8;
@@ -181,15 +196,35 @@ struct Bf16Src {
   }
 };
 
-// An f32 operand rounded to bf16 as it is staged.
+// An f32 right operand rounded to bf16 as it is staged.
 struct F32Src {
   static constexpr bool kDot = false;
   const float* p;
   size_t bs;
   int ld;
+  bool vec;
+  __device__ F32Src(const float* p_, size_t bs_, int ld_, int C)
+      : p(p_), bs(bs_), ld(ld_), vec(f32_vec_ok(p_, bs_, ld_, C)) {}
   __device__ double load(__nv_bfloat16* dst, int ldd, int bt, int r0, int c0, int rows, int cols,
-                         int R, int C, bool) const {
+                         int R, int C, int) const {
     const float* base = p + bt * bs;
+    if (vec) {
+      const int cpr = cols / 4;
+      float4 v[kVec4PerThread];
+#pragma unroll
+      for (int q = 0; q < kVec4PerThread; ++q) {
+        const int e = threadIdx.x + q * kThreads, i = e / cpr, j = (e % cpr) * 4;
+        const int r = r0 + i, c = c0 + j;
+        v[q] = (r < R && c < C) ? *reinterpret_cast<const float4*>(base + (size_t)r * ld + c)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int q = 0; q < kVec4PerThread; ++q) {
+        const int e = threadIdx.x + q * kThreads;
+        store4_bf16(dst + (e / cpr) * ldd + (e % cpr) * 4, v[q]);
+      }
+      return 0.0;
+    }
     for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
       const int i = e / cols, j = e % cols;
       const int r = r0 + i, c = c0 + j;
@@ -217,14 +252,13 @@ __device__ void gemm_mma(Shared& sh, __nv_bfloat16* smem, int nb, int M, int Nc,
     const int rem = tile % (tm * tn);
     const int m0 = (rem / tn) * kMmaM;
     const int n0 = (rem % tn) * kMmaN;
-    const bool lead = m0 == 0;
     double local = 0.0;
     auto stage = [&](int kc) {
       __nv_bfloat16* sA = smem + (kc & 1) * kStageElems;
       __nv_bfloat16* sB = sA + kMmaM * kLdA;
       const int k0 = kc * kMmaK;
-      local += A.load(sA, kLdA, bt, m0, k0, kMmaM, kMmaK, M, K, lead);
-      local += Bs.load(sB, kLdB, bt, k0, n0, kMmaK, kMmaN, K, Nc, lead);
+      local += A.load(sA, kLdA, bt, m0, k0, kMmaM, kMmaK, M, K, m0);
+      local += Bs.load(sB, kLdB, bt, k0, n0, kMmaK, kMmaN, K, Nc, m0);
       cp_async_commit();
     };
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
@@ -268,19 +302,19 @@ __device__ void gemm_mma(Shared& sh, __nv_bfloat16* smem, int nb, int M, int Nc,
 //   Bm = Am Q^T                (Q^T stored row-major: Qt)
 //   z  = [Wre^T Wim^T] Bm      (Ltau x 2Lh)(2Lh x N) per system (Wt)
 // U, Am and Bm are stored in bf16, the precision every reader takes them in.
-// rsrc is the source of U's right operand (r); where it has dots
+// rsrc is the source of U's right operand (the residual r, which the dot
+// with z reads); where it has dots
 // (RSrc::kDot), their per-system sums go to the RR partials. first_done() runs after the first grid sync. st(k)
 // marks the end of the k-th of its eight phases (product, sync, ...).
 template <typename Args, typename RSrc, typename First, typename Stamp>
 __device__ void precond(const Args& a, cg::grid_group& grid, Shared& sh, __nv_bfloat16* smem,
-                        const RSrc& rsrc, First first_done, Stamp st) {
+                        const RSrc& rsrc, const float* r, First first_done, Stamp st) {
   const int B = a.B, L = a.Ltau, Lh = a.Lh, N = a.N, M2 = 2 * a.Lh;
   const size_t plane = (size_t)L * N;
   __nv_bfloat16* U = a.U;
   __nv_bfloat16* Am = a.Am;
   __nv_bfloat16* Bm = a.Bm;
   float* z = a.z;
-  const float* r = a.r;
   const float* filt = a.filt;
 
   if (RSrc::kDot) zero_part(sh, B);

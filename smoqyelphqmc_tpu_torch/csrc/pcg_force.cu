@@ -80,7 +80,7 @@ __device__ __forceinline__ CbTables<float> walker_tables(const PcgForceArgs& a, 
   return t;
 }
 
-__global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
+__global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForceArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Shared sh;
@@ -142,8 +142,8 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
   }
   for (int w = tid; w < nw; w += blockDim.x) wit[w] = 0;
   __syncthreads();
-  const F32Src rsrc{a.r, plane, N};
-  precond(a, grid, sh, sg, rsrc, [] {}, [](int) {});
+  const F32Src rsrc(a.r, plane, N, N);
+  precond(a, grid, sh, sg, rsrc, a.r, [] {}, [](int) {});
   reduce_parts(a, sh, kPartRZ);
   for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)sh.sum[s];
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
@@ -205,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) pcg_force_kernel(PcgForceArgs a) {
     }
     __syncthreads();
 
-    precond(a, grid, sh, sg, rsrc, [] {}, [](int) {});
+    precond(a, grid, sh, sg, rsrc, a.r, [] {}, [](int) {});
     reduce_parts(a, sh, kPartRZ);
     for (int s = tid; s < B; s += blockDim.x) {
       const float nrz = (float)sh.sum[s];

@@ -95,9 +95,10 @@ __device__ T* apply_Bt(const CbTables<T>& tb, int l, T* u, T* t) {
 // over a stored m: one launch, no scratch plane, and the row's inputs
 // v_{l-1}, v_l, v_{l+1} are all the global reads. A, X, Y are three N-row
 // shared buffers. Returns this thread's share of dot(w, out_l) when w != null.
-template <typename T>
-__device__ T mtm_row(const CbTables<T>& tb, const T* v, T* out, int l, T* A, T* X, T* Y,
-                     const T* w) {
+// v(j, n) gives element n of row j (mtm_row_from; mtm_row reads a plane).
+template <typename T, typename Load>
+__device__ T mtm_row_from(const CbTables<T>& tb, Load v, T* out, int l, T* A, T* X, T* Y,
+                          const T* w) {
   const int N = tb.N, L = tb.Ltau;
   const int lm = (l + L - 1) % L;
   const int lp = (l + 1) % L;
@@ -105,16 +106,16 @@ __device__ T mtm_row(const CbTables<T>& tb, const T* v, T* out, int l, T* A, T* 
   const T s1_lp = (lp == 0) ? T(1) : T(-1);
   const T sL_l = (l == L - 1) ? T(1) : T(-1);
 
-  for (int n = threadIdx.x; n < N; n += blockDim.x) X[n] = v[(size_t)lm * N + n];
+  for (int n = threadIdx.x; n < N; n += blockDim.x) X[n] = v(lm, n);
   __syncthreads();
   T* r = apply_B(tb, l, X, Y);
-  for (int n = threadIdx.x; n < N; n += blockDim.x) A[n] = v[(size_t)l * N + n] + s1_l * r[n];
+  for (int n = threadIdx.x; n < N; n += blockDim.x) A[n] = v(l, n) + s1_l * r[n];
   __syncthreads();
 
-  for (int n = threadIdx.x; n < N; n += blockDim.x) X[n] = v[(size_t)l * N + n];
+  for (int n = threadIdx.x; n < N; n += blockDim.x) X[n] = v(l, n);
   __syncthreads();
   r = apply_B(tb, lp, X, Y);
-  for (int n = threadIdx.x; n < N; n += blockDim.x) r[n] = v[(size_t)lp * N + n] + s1_lp * r[n];
+  for (int n = threadIdx.x; n < N; n += blockDim.x) r[n] = v(lp, n) + s1_lp * r[n];
   __syncthreads();
   r = apply_Bt(tb, lp, r, other_buf(r, X, Y));
 
@@ -126,6 +127,13 @@ __device__ T mtm_row(const CbTables<T>& tb, const T* v, T* out, int l, T* A, T* 
   }
   __syncthreads();
   return acc;
+}
+
+template <typename T>
+__device__ T mtm_row(const CbTables<T>& tb, const T* v, T* out, int l, T* A, T* X, T* Y,
+                     const T* w) {
+  const int N = tb.N;
+  return mtm_row_from<T>(tb, [=](int j, int n) { return v[(size_t)j * N + n]; }, out, l, A, X, Y, w);
 }
 
 // Sum over the CTA (blockDim.x a multiple of 32, at most 1024); the result is

@@ -106,8 +106,8 @@ def pcg_cuda(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int, stamps=None)
     x = torch.empty_like(b)
     eps = torch.empty(B, dtype=torch.float32, device=dev)
     iters = torch.empty(1, dtype=torch.int32, device=dev)
-    # r, p, z, Ap in f32, then U, Am, Bm (B, 2 Lh, N) in bf16
-    work = torch.empty(B * N * (4 * Ltau + 3 * ops.Lh), dtype=torch.float32, device=dev)
+    # r and p (two planes each), z, Ap in f32, then U, Am, Bm (B, 2 Lh, N) in bf16
+    work = torch.empty(B * N * (6 * Ltau + 3 * ops.Lh), dtype=torch.float32, device=dev)
     part = torch.empty(3 * lib.smoqy_pcg_max_grid() * B, dtype=torch.float64, device=dev)
     rc = lib.smoqy_pcg(
         b.data_ptr(), x.data_ptr(), eps.data_ptr(), iters.data_ptr(),

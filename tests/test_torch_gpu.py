@@ -112,6 +112,69 @@ def test_pcg_kernel_matches_plain(cuda_device, warm, beta, n_sys):
     torch.testing.assert_close(xk, xp, rtol=2e-4, atol=2e-5)
 
 
+def _unit_rhs(fdm, n_sys, seed):
+    b = torch.randn((n_sys, fdm.Ltau, fdm.n_sites), dtype=torch.float32,
+                    generator=torch.Generator().manual_seed(seed)).to(fdm.device)
+    return (b / torch.linalg.vector_norm(b, dim=(1, 2), keepdim=True)).contiguous()
+
+
+@pytest.mark.parametrize("L,beta,n_sys", [(2, 1.0, 2), (3, 1.0, 1), (3, 0.9, 16), (4, 1.0, 16), (4, 0.9, 1)],
+                         ids=["N-8", "N-18-B-1", "N-18-odd-Ltau-B-16", "N-32-B-16", "N-32-odd-Ltau-B-1"])
+def test_pcg_kernel_shapes(cuda_device, L, beta, n_sys):
+    """Small and ragged shapes: N of 8, 18 (products masked at the ragged
+    edge, operands staged element by element) and 32 (16-byte staging), odd
+    Ltau (Lh = Ltau), one and sixteen systems; K2 against its plain version."""
+    fdm = _fdm(cuda_device, L=L, beta=beta)
+    pre = build_spectral(fdm)
+    fdm32 = fdm.astype(torch.float32)
+    b = _unit_rhs(fdm, n_sys, 7)
+    xk, ek, ik = pcg.pcg_cuda(fdm32, pre, b, 1e-5, 200)
+    xp, ep, ip = pcg.pcg_plain(fdm32, pre, b, 1e-5, 200)
+    assert bool((ek < 1e-5).all()) and bool((ep < 1e-5).all()) and bool(torch.isfinite(xk).all())
+    torch.testing.assert_close(xk, xp, rtol=2e-4, atol=2e-5)
+
+
+def test_pcg_kernel_bit_identical(cuda_device):
+    """Two launches on the same input give the same bits: every dot is summed
+    in a fixed order."""
+    fdm = _fdm(cuda_device, L=4)
+    pre = build_spectral(fdm)
+    fdm32 = fdm.astype(torch.float32)
+    b = _unit_rhs(fdm, 3, 8)
+    x1, e1, i1 = pcg.pcg_cuda(fdm32, pre, b, 1e-5, 200)
+    x2, e2, i2 = pcg.pcg_cuda(fdm32, pre, b, 1e-5, 200)
+    assert torch.equal(x1, x2) and torch.equal(e1, e2) and int(i1) == int(i2)
+
+
+def test_pcg_kernel_converged_system_beside_active(cuda_device):
+    """A zero right-hand side stops before its first iteration (x = 0, eps =
+    0) while the system beside it iterates to convergence."""
+    fdm = _fdm(cuda_device)
+    pre = build_spectral(fdm)
+    fdm32 = fdm.astype(torch.float32)
+    b = _unit_rhs(fdm, 2, 9)
+    b[0] = 0.0
+    xk, ek, ik = pcg.pcg_cuda(fdm32, pre, b, 1e-5, 200)
+    xp, ep, ip = pcg.pcg_plain(fdm32, pre, b, 1e-5, 200)
+    assert float(ek[0]) == 0.0 and bool((xk[0] == 0).all()) and int(ik) > 0
+    assert bool((ek < 1e-5).all()) and bool((ep < 1e-5).all())
+    torch.testing.assert_close(xk, xp, rtol=2e-4, atol=2e-5)
+
+
+def test_pcg_kernel_cut_by_maxiter(cuda_device):
+    """A solve cut by maxiter with its systems still active returns the
+    iterate of that many iterations, as the plain version does."""
+    fdm = _fdm(cuda_device, L=4)
+    pre = build_spectral(fdm)
+    fdm32 = fdm.astype(torch.float32)
+    b = _unit_rhs(fdm, 2, 10)
+    xk, ek, ik = pcg.pcg_cuda(fdm32, pre, b, 1e-9, 3)
+    xp, ep, ip = pcg.pcg_plain(fdm32, pre, b, 1e-9, 3)
+    assert int(ik) == int(ip) == 3 and bool((ek > 1e-9).all())
+    torch.testing.assert_close(xk, xp, rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(ek, ep.to(ek.device), rtol=2e-3, atol=0.0)
+
+
 def test_run_updates_on_gpu_launches_kernels(cuda_device):
     """A short GPU sweep loop goes through both kernels and no plain version."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
