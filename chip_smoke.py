@@ -7,7 +7,8 @@ Phases, one line each:
   2. build: nvcc builds the kernels from smoqyelphqmc_tpu_torch/csrc;
   3. K1 (M^T M, f32 and f64) against its plain PyTorch version on the headline
      model's tables at (2, 240, 288);
-  4. K2 (whole-solve spectral PCG) against its plain version, cold and warm;
+  4. K2 (whole-solve spectral PCG) against its plain version, cold and warm,
+     with its time, us and grid syncs per iteration;
   5. the main path: `run_updates` on the headline model (Holstein honeycomb
      L=12, beta=12, dtau=0.05) for a few sweeps; every solve must converge,
      every Delta H be finite, K1 and K2 must have launched and the plain
@@ -295,7 +296,10 @@ def phase_k2(fdm64, results, key="pcg"):
             fail(f"{tag} {run} solve: true residual {res_k:.3e} of the kernel's solution exceeds the plain one's")
     ms = cuda_ms(lambda: pcg.pcg_cuda(fdm32, pre, bu, tol, maxiter), 5)
     plain_ms = cuda_ms(lambda: pcg.pcg_plain(fdm32, pre, bu, tol, maxiter), 2)
-    lib_grid = pcg._build.load_library().smoqy_pcg_grid(fdm32.n_sites)
+    lib = pcg._build.load_library()
+    lib_grid = lib.smoqy_pcg_grid(fdm32.n_sites)
+    # grid-wide syncs per iteration: the waits among the timed instantiation's phases
+    syncs = sum(name.startswith("sync") for name in lib.smoqy_pcg_phases().decode().split(","))
     # the timed cold solve: its iterations for each system, b in, x out, the
     # preconditioner's operands and the tables read once
     Ltau, N, nc = fdm32.Ltau, fdm32.n_sites, fdm32.cb.n_colors
@@ -304,7 +308,8 @@ def phase_k2(fdm64, results, key="pcg"):
     bound_ms, bound_by = bound(4 * (2 * bu.numel() + Ltau * N) + precond_bytes(Ltau, N) + table_bytes(N, nc, 4),
                                {"f32": n_it * f32_it, "bf16": n_it * bf16_it})
     say(f"{tag} cold solve time: kernel {ms:.3f} ms plain {plain_ms:.3f} ms (grid {lib_grid} CTAs); "
-        f"bound {bound_ms:.4f} ms by {bound_by}")
+        f"{int(rows[0][3])} iterations, {1e3 * ms / max(int(rows[0][3]), 1):.2f} us each, {syncs} grid syncs "
+        f"each; bound {bound_ms:.4f} ms by {bound_by}")
     results[key] = dict(name="pcg", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/pcg.cu",
                           replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:495",
                           max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)

@@ -15,19 +15,20 @@
 // per system and, per walker, the number of iterations until both of its
 // channels stopped (the loop count of the TPU kernel's channel-pair grid step).
 //
-// Form: K2's persistent cooperative kernel (pcg_common.cuh: dot partials in a
-// fixed order, bf16 preconditioner tiling, six grid syncs per iteration),
+// Form: a persistent cooperative kernel on K2's machinery (pcg_common.cuh:
+// dot partials summed in a fixed order, a warp per system; the
+// preconditioner's products on the tensor cores), with its own loop of six
+// grid syncs per iteration (K2's loop has five),
 // with one more phase before the loop (the warm residual) and the epilogue
 // after it: once the loop's last grid.sync has published x, every CTA takes
 // (walker, tau) rows and runs force_epilogue.cuh on them, recomputing the
 // neighbour rows it needs, so the epilogue adds no grid sync and no scratch
 // plane. The grid is sized from this kernel's own occupancy.
 //
-// What bounds it on the H100: as K2, the preconditioner's products (2 x 37 M
-// multiply-adds per system and iteration at Ltau = 240, N = 288) on a plain
-// tiling without tensor cores, and the grid syncs; at W = 8 the sixteen
-// systems give those products eight times K2's tiles, so the grid is busier
-// per sync. The epilogue is one pass over W Ltau rows.
+// What bounds it on the H100: the chain of dependent phases behind grid
+// syncs, as in K2; at W = 8 the sixteen systems give the products (2 x 37 M
+// bf16 multiply-adds per system and iteration at Ltau = 240, N = 288) eight
+// times K2's tiles, ~4.5 per CTA. The epilogue is one pass over W Ltau rows.
 //
 // C interface (bound with ctypes from ops/pcg_force.py): returns a cudaError_t.
 

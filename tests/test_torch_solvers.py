@@ -95,6 +95,37 @@ def test_pcg_plain_with_port_preconditioner(name, kw):
     np.testing.assert_allclose(xp.numpy(), np.asarray(xj), rtol=2e-4, atol=2e-5)
 
 
+@pytest.mark.parametrize("Ltau_beta", [1.0, 0.9], ids=["even-Ltau", "odd-Ltau"])
+def test_pcg_operands_transposes(Ltau_beta):
+    """K2 / K3's Wt and Qt are W and Q transposed, exactly, bf16 and contiguous."""
+    _, pfdm, *_ = fdm_pair("honeycomb", dict(L=3, beta=Ltau_beta), x_seed=23)
+    ops = build_spectral(pfdm).pcg_operands()
+    for m, mt in ((ops.W, ops.Wt), (ops.Q, ops.Qt)):
+        assert mt.dtype == torch.bfloat16 and mt.is_contiguous() and m.is_contiguous()
+        assert torch.equal(mt, m.T)
+    assert ops.W.shape == (2 * ops.Lh, pfdm.Ltau) and ops.filt.shape == (ops.Lh, pfdm.n_sites)
+
+
+@pytest.mark.parametrize("name,kw", CASES)
+def test_precond_plain_bf16_intermediates_exact(name, kw):
+    """The plain preconditioner, which stores U, Am and Bm in bf16 as the
+    kernels do, equals the form that rounds them to bf16 on every read, bit
+    for bit (the f32 sums are the same; only the storage changed)."""
+    _, pfdm, *_ = fdm_pair(name, kw, x_seed=24)
+    pre = build_spectral(pfdm)
+    r = t32(np.random.default_rng(25).standard_normal((3, pfdm.Ltau, pfdm.n_sites)))
+    ops = pre.pcg_operands()
+    Wf, Qf = ops.W.to(torch.float32), ops.Q.to(torch.float32)
+
+    def bf16(t):
+        return t.to(torch.bfloat16).to(torch.float32)
+
+    U = torch.einsum("ml,bln->bmn", Wf, bf16(r))
+    A = (bf16(U) @ Qf) * torch.cat([ops.filt, ops.filt])
+    ref = torch.einsum("ml,bmn->bln", Wf, bf16(bf16(A) @ Qf.T))
+    assert torch.equal(pcg.precond_plain(pre, r), ref)
+
+
 def test_pcg_warm_start_from_solution():
     """A warm start from the solution converges in at most one iteration."""
     _, pfdm, *_ = fdm_pair("chain", dict(L=6, beta=0.8, alpha=0.4), x_seed=16)
