@@ -83,6 +83,33 @@ struct PcgArgs {
   unsigned long long* stamps;  // timed instantiation: (kStampHead + maxiter kStamps) clocks
 };
 
+// Phase stamps of a timed instantiation (kTimed): once its CTA is done, CTA
+// 0's thread 0 records clock64() in slot i; the path's kernel takes none.
+// Slots 0-3 hold globaltimer and clock64 at the kernel's start and end, so
+// the host converts cycles to nanoseconds.
+constexpr int kStampHead = 4;
+
+template <bool kTimed>
+__device__ __forceinline__ void stamp(unsigned long long* t, int i) {
+  if constexpr (kTimed) {
+    __syncthreads();
+    if (blockIdx.x == 0 && threadIdx.x == 0) t[i] = clock64();
+  }
+}
+
+template <bool kTimed>
+__device__ __forceinline__ void stamp_clock_pair(unsigned long long* t, int i) {
+  if constexpr (kTimed) {
+    __syncthreads();
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      unsigned long long g;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+      t[i] = g;
+      t[i + 1] = clock64();
+    }
+  }
+}
+
 // The phases of one iteration, in the order of the timed instantiation's
 // stamps (smoqy_pcg_phases).
 constexpr int kStamps = 14;

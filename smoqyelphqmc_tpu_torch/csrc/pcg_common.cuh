@@ -1,7 +1,7 @@
 // The cooperative whole-solve machinery shared by kernels K2 (pcg.cu) and K3
 // (pcg_force.cu): per-system dot partials reduced in a fixed order, a warp
 // per system; the preconditioner's four bf16 products on the tensor cores
-// (mma.sync); the cooperative grid size; the timed instantiation's stamps.
+// (mma.sync); the cooperative grid size.
 //
 // Both kernels' argument structs carry the fields these functions read (the
 // Krylov planes r, z, the preconditioner operands W, Wt, Q, Qt, filt, its
@@ -23,33 +23,6 @@ constexpr int kMaxSystems = 256;
 constexpr int kMaxGrid = 1024;
 constexpr int kCtasPerSm = 2;
 enum { kPartPAp = 0, kPartRR = 1, kPartRZ = 2 };
-
-// Phase stamps of a timed instantiation (kTimed): once its CTA is done, CTA
-// 0's thread 0 records clock64() in slot i; the path's kernels take none.
-// Slots 0-3 hold globaltimer and clock64 at the kernel's start and end, so
-// the host converts cycles to nanoseconds.
-constexpr int kStampHead = 4;
-
-template <bool kTimed>
-__device__ __forceinline__ void stamp(unsigned long long* t, int i) {
-  if constexpr (kTimed) {
-    __syncthreads();
-    if (blockIdx.x == 0 && threadIdx.x == 0) t[i] = clock64();
-  }
-}
-
-template <bool kTimed>
-__device__ __forceinline__ void stamp_clock_pair(unsigned long long* t, int i) {
-  if constexpr (kTimed) {
-    __syncthreads();
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
-      unsigned long long g;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
-      t[i] = g;
-      t[i + 1] = clock64();
-    }
-  }
-}
 
 struct Shared {
   double red[kThreads / 32];
@@ -173,7 +146,8 @@ struct Bf16Src {
   bool vec;
   __device__ Bf16Src(const __nv_bfloat16* p_, size_t bs_, int ld_, int C)
       : p(p_), bs(bs_), ld(ld_),
-        vec(ld_ % 8 == 0 && C % 8 == 0 && bs_ % 8 == 0 && (reinterpret_cast<size_t>(p_) & 15) == 0) {}
+        vec(ld_ % 8 == 0 && C % 8 == 0 && bs_ % 8 == 0 &&
+            (reinterpret_cast<size_t>(p_) & 15) == 0) {}
   __device__ double load(__nv_bfloat16* dst, int ldd, int bt, int r0, int c0, int rows, int cols,
                          int R, int C, int) const {
     const __nv_bfloat16* base = p + bt * bs;
@@ -302,10 +276,10 @@ __device__ void gemm_mma(Shared& sh, __nv_bfloat16* smem, int nb, int M, int Nc,
 //   Bm = Am Q^T                (Q^T stored row-major: Qt)
 //   z  = [Wre^T Wim^T] Bm      (Ltau x 2Lh)(2Lh x N) per system (Wt)
 // U, Am and Bm are stored in bf16, the precision every reader takes them in.
-// rsrc is the source of U's right operand (the residual r, which the dot
-// with z reads); where it has dots
-// (RSrc::kDot), their per-system sums go to the RR partials. first_done() runs after the first grid sync. st(k)
-// marks the end of the k-th of its eight phases (product, sync, ...).
+// rsrc stages U's right operand, the residual r that the dot with z reads;
+// where it has dots (RSrc::kDot), their per-system sums go to the RR
+// partials. first_done() runs after the first grid sync. st(k) marks the end
+// of the k-th of its eight phases (product, sync, ...).
 template <typename Args, typename RSrc, typename First, typename Stamp>
 __device__ void precond(const Args& a, cg::grid_group& grid, Shared& sh, __nv_bfloat16* smem,
                         const RSrc& rsrc, const float* r, First first_done, Stamp st) {

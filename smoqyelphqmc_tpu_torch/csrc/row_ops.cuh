@@ -133,7 +133,8 @@ template <typename T>
 __device__ T mtm_row(const CbTables<T>& tb, const T* v, T* out, int l, T* A, T* X, T* Y,
                      const T* w) {
   const int N = tb.N;
-  return mtm_row_from<T>(tb, [=](int j, int n) { return v[(size_t)j * N + n]; }, out, l, A, X, Y, w);
+  return mtm_row_from<T>(
+      tb, [=](int j, int n) { return v[(size_t)j * N + n]; }, out, l, A, X, Y, w);
 }
 
 // Sum over the CTA (blockDim.x a multiple of 32, at most 1024); the result is

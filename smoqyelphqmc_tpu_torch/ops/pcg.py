@@ -109,6 +109,9 @@ def pcg_cuda(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int, stamps=None)
     # r and p (two planes each), z, Ap in f32, then U, Am, Bm (B, 2 Lh, N) in bf16
     work = torch.empty(B * N * (6 * Ltau + 3 * ops.Lh), dtype=torch.float32, device=dev)
     part = torch.empty(3 * lib.smoqy_pcg_max_grid() * B, dtype=torch.float64, device=dev)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev
+                               or not stamps.is_contiguous() or stamps.numel() < stamp_slots(maxiter)):
+        raise ValueError(f"pcg kernel: stamps must be a contiguous int64 tensor of {stamp_slots(maxiter)} on {dev}")
     rc = lib.smoqy_pcg(
         b.data_ptr(), x.data_ptr(), eps.data_ptr(), iters.data_ptr(),
         C.data_ptr(), S.data_ptr(), partner.data_ptr(), expV.data_ptr(),
