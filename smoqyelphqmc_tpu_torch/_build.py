@@ -38,8 +38,9 @@ _SIGNATURES = {
     "smoqy_pcg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                   _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P],
     "smoqy_pcg_force_grid": [_I],
+    "smoqy_pcg_force_stamps_per_iteration": [],
     "smoqy_pcg_force": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P],
     "smoqy_force": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "smoqy_kpm_mf_max_sites": [_I],
     "smoqy_kpm_mf_cluster_fits": [_I, _I, _I, _I, _I, _I],
@@ -118,8 +119,10 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.smoqy_pcg_phases.argtypes = []
-    lib.smoqy_pcg_phases.restype = ctypes.c_char_p
+    for name in ("smoqy_pcg_phases", "smoqy_pcg_force_phases", "smoqy_pcg_force_once_phases"):
+        fn = getattr(lib, name)
+        fn.argtypes = []
+        fn.restype = ctypes.c_char_p
     return lib
 
 

@@ -83,141 +83,11 @@ struct PcgArgs {
   unsigned long long* stamps;  // timed instantiation: (kStampHead + maxiter kStamps) clocks
 };
 
-// Phase stamps of a timed instantiation (kTimed): once its CTA is done, CTA
-// 0's thread 0 records clock64() in slot i; the path's kernel takes none.
-// Slots 0-3 hold globaltimer and clock64 at the kernel's start and end, so
-// the host converts cycles to nanoseconds.
-constexpr int kStampHead = 4;
-
-template <bool kTimed>
-__device__ __forceinline__ void stamp(unsigned long long* t, int i) {
-  if constexpr (kTimed) {
-    __syncthreads();
-    if (blockIdx.x == 0 && threadIdx.x == 0) t[i] = clock64();
-  }
-}
-
-template <bool kTimed>
-__device__ __forceinline__ void stamp_clock_pair(unsigned long long* t, int i) {
-  if constexpr (kTimed) {
-    __syncthreads();
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
-      unsigned long long g;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
-      t[i] = g;
-      t[i + 1] = clock64();
-    }
-  }
-}
-
 // The phases of one iteration, in the order of the timed instantiation's
 // stamps (smoqy_pcg_phases).
 constexpr int kStamps = 14;
 constexpr const char* kPhases =
     "mtm,sync_pAp,reduce_pAp,x_r_U,sync_U,reduce_rr,Am,sync_Am,Bm,sync_Bm,z,sync_z,reduce_rz";
-
-// p = z + beta p for one element: the one expression every row that builds
-// it evaluates, so the rows l-1, l, l+1 of two CTAs agree to the bit.
-__device__ __forceinline__ float p_next(float z, float beta, float p) { return fmaf(beta, p, z); }
-
-// U's right operand: r - alpha Ap of the system, rounded to bf16 as it is
-// staged. The tile whose output rows are [m0, m0 + kMmaM) also owns those
-// rows (tau) of r: it writes them to the next r plane, updates x += alpha p
-// there and returns its share of |r|^2 (Ltau <= 2 Lh, so every row has an
-// owner, and each (tau, site) one). Inactive systems keep r and x.
-__device__ __forceinline__ float4 residual4(float4 r, float4 ap, bool act, float al) {
-  if (act) {
-    r.x = fmaf(-al, ap.x, r.x);
-    r.y = fmaf(-al, ap.y, r.y);
-    r.z = fmaf(-al, ap.z, r.z);
-    r.w = fmaf(-al, ap.w, r.w);
-  }
-  return r;
-}
-
-struct ResidualSrc {
-  static constexpr bool kDot = true;
-  const float* r;
-  float* r_next;
-  float* x;
-  const float* Ap;
-  const float* p;
-  const float* alpha;
-  const int* active;
-  size_t bs;
-  int ld;
-  bool vec;
-  __device__ ResidualSrc(const float* r_, float* r_next_, float* x_, const float* Ap_,
-                         const float* p_, const float* alpha_, const int* active_, size_t bs_,
-                         int ld_)
-      : r(r_), r_next(r_next_), x(x_), Ap(Ap_), p(p_), alpha(alpha_), active(active_), bs(bs_),
-        ld(ld_), vec(f32_vec_ok(r_, bs_, ld_, ld_) && f32_vec_ok(r_next_, bs_, ld_, ld_) &&
-                     f32_vec_ok(x_, bs_, ld_, ld_) && f32_vec_ok(Ap_, bs_, ld_, ld_) &&
-                     f32_vec_ok(p_, bs_, ld_, ld_)) {}
-
-  __device__ double load(__nv_bfloat16* dst, int ldd, int bt, int r0, int c0, int rows, int cols,
-                         int R, int C, int m0) const {
-    const bool act = active[bt] != 0;
-    const float al = alpha[bt];
-    double acc = 0.0;
-    if (vec) {
-      const int cpr = cols / 4;
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 rv[kVec4PerThread], av[kVec4PerThread];
-#pragma unroll
-      for (int q = 0; q < kVec4PerThread; ++q) {
-        const int e = threadIdx.x + q * kThreads;
-        const int k = r0 + e / cpr, c = c0 + (e % cpr) * 4;
-        const bool ok = k < R && c < C;
-        const size_t o = bt * bs + (size_t)k * ld + c;
-        rv[q] = ok ? *reinterpret_cast<const float4*>(r + o) : zero;
-        av[q] = ok && act ? *reinterpret_cast<const float4*>(Ap + o) : zero;
-      }
-#pragma unroll
-      for (int q = 0; q < kVec4PerThread; ++q) {
-        const int e = threadIdx.x + q * kThreads;
-        store4_bf16(dst + (e / cpr) * ldd + (e % cpr) * 4, residual4(rv[q], av[q], act, al));
-      }
-      // the owned rows, when this block holds them: one float4 a thread
-      static_assert(kMmaM * kMmaN / 4 == kThreads, "owned rows: one float4 a thread");
-      const int k = m0 + threadIdx.x / cpr, c = c0 + (threadIdx.x % cpr) * 4;
-      if (m0 >= r0 && m0 < r0 + rows && k < R && c < C) {
-        const size_t o = bt * bs + (size_t)k * ld + c;
-        const float4 v = residual4(*reinterpret_cast<const float4*>(r + o),
-                                   act ? *reinterpret_cast<const float4*>(Ap + o) : zero, act, al);
-        *reinterpret_cast<float4*>(r_next + o) = v;
-        if (act) {
-          const float4 pv = *reinterpret_cast<const float4*>(p + o);
-          const float4 xv = *reinterpret_cast<const float4*>(x + o);
-          *reinterpret_cast<float4*>(x + o) =
-              make_float4(fmaf(al, pv.x, xv.x), fmaf(al, pv.y, xv.y), fmaf(al, pv.z, xv.z),
-                          fmaf(al, pv.w, xv.w));
-          acc = (double)v.x * v.x + (double)v.y * v.y + (double)v.z * v.z + (double)v.w * v.w;
-        }
-      }
-      return acc;
-    }
-    for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
-      const int i = e / cols, j = e % cols;
-      const int k = r0 + i, c = c0 + j;
-      float v = 0.f;
-      if (k < R && c < C) {
-        const size_t o = bt * bs + (size_t)k * ld + c;
-        v = r[o];
-        if (act) v = fmaf(-al, Ap[o], v);
-        if (k >= m0 && k < m0 + kMmaM) {
-          r_next[o] = v;
-          if (act) {
-            x[o] = fmaf(al, p[o], x[o]);
-            acc += (double)v * v;
-          }
-        }
-      }
-      dst[i * ldd + j] = __float2bfloat16_rn(v);
-    }
-    return acc;
-  }
-};
 
 template <bool kTimed>
 __global__ void __launch_bounds__(smoqy::kThreads, smoqy::kCtasPerSm) pcg_kernel(PcgArgs a) {

@@ -73,6 +73,7 @@ struct PcgForceArgs {
   float tol;
   int maxiter;
   int want_p2;
+  unsigned long long* stamps;  // timed instantiation: kStampHead + kOnce + maxiter kStamps clocks
 };
 
 __device__ __forceinline__ CbTables<float> walker_tables(const PcgForceArgs& a, int w) {
@@ -81,6 +82,19 @@ __device__ __forceinline__ CbTables<float> walker_tables(const PcgForceArgs& a, 
   return t;
 }
 
+// The timed instantiation's stamps (smoqy_pcg_force_once_phases,
+// smoqy_pcg_force_phases): the phases before the loop, the loop, the
+// epilogue, each ending at a stamp after the kernel's start; then kStamps a
+// loop iteration, from its start.
+constexpr int kOnce = 17;
+constexpr const char* kOncePhases =
+    "b2,warm_mtm,sync_r,reduce_r,U,sync_U,Am,sync_Am,Bm,sync_Bm,z,sync_z,reduce_rz,p,sync_p,loop,epilogue";
+constexpr int kStamps = 18;
+constexpr const char* kPhases =
+    "mtm,sync_pAp,reduce_pAp,x_r,sync_rr,reduce_rr,U,sync_U,Am,sync_Am,Bm,sync_Bm,z,sync_z,reduce_rz,p,"
+    "sync_p";
+
+template <bool kTimed>
 __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForceArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -98,6 +112,8 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForc
   const size_t plane = (size_t)L * N;
   const int rows = B * L;
   const int tid = threadIdx.x;
+  unsigned long long* once = a.stamps + kStampHead;
+  stamp_clock_pair<kTimed>(a.stamps, 0);
 
   // |b|^2 and x = x0 (partials in the PAp slot) ...
   zero_part(sh, B);
@@ -113,6 +129,7 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForc
     if (tid == 0) sh.part[row / L] += t;
   }
   flush_part(a, sh, kPartPAp);
+  stamp<kTimed>(once, 0);
   // ... then r = b - M^T M x0 and |r|^2 (RR slot); both read only b and x0
   zero_part(sh, B);
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
@@ -130,7 +147,9 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForc
     if (tid == 0) sh.part[s] += t;
   }
   flush_part(a, sh, kPartRR);
+  stamp<kTimed>(once, 1);
   grid.sync();
+  stamp<kTimed>(once, 2);
   reduce_parts(a, sh, kPartPAp);
   for (int s = tid; s < B; s += blockDim.x) {
     normb[s] = (float)sqrt(sh.sum[s]);
@@ -143,15 +162,19 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForc
   }
   for (int w = tid; w < nw; w += blockDim.x) wit[w] = 0;
   __syncthreads();
+  stamp<kTimed>(once, 3);
   const F32Src rsrc(a.r, plane, N, N);
-  precond(a, grid, sh, sg, rsrc, a.r, [] {}, [](int) {});
+  precond(a, grid, sh, sg, rsrc, a.r, [] {}, [&](int k) { stamp<kTimed>(once, 4 + k); });
   reduce_parts(a, sh, kPartRZ);
   for (int s = tid; s < B; s += blockDim.x) sh.rdotz[s] = (float)sh.sum[s];
+  stamp<kTimed>(once, 12);
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const size_t off = (size_t)row * N;
     for (int n = tid; n < N; n += blockDim.x) a.p[off + n] = a.z[off + n];
   }
+  stamp<kTimed>(once, 13);
   grid.sync();
+  stamp<kTimed>(once, 14);
 
   int it = 0;
   while (true) {
@@ -160,6 +183,8 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForc
     for (int s = 0; s < B; ++s) any |= sh.active[s];
     if (!any || it >= a.maxiter) break;
     for (int w = tid; w < nw; w += blockDim.x) wit[w] += sh.active[2 * w] | sh.active[2 * w + 1];
+    unsigned long long* ts = a.stamps + kStampHead + kOnce + (size_t)it * kStamps;
+    stamp<kTimed>(ts, 0);
 
     // Ap = M^T M p and dot(p, Ap), rows of active systems only
     zero_part(sh, B);
@@ -173,13 +198,16 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForc
       if (tid == 0) sh.part[s] += t;
     }
     flush_part(a, sh, kPartPAp);
+    stamp<kTimed>(ts, 1);
     grid.sync();
+    stamp<kTimed>(ts, 2);
     reduce_parts(a, sh, kPartPAp);
     for (int s = tid; s < B; s += blockDim.x) {
       const float pAp = (float)sh.sum[s];
       sh.alpha[s] = sh.active[s] ? sh.rdotz[s] / (pAp != 0.f ? pAp : 1.f) : 0.f;
     }
     zero_part(sh, B);  // its __syncthreads also publishes alpha
+    stamp<kTimed>(ts, 3);
 
     // x += alpha p, r -= alpha Ap, |r|^2
     for (int row = blockIdx.x; row < rows; row += gridDim.x) {
@@ -198,15 +226,18 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForc
       if (tid == 0) sh.part[s] += t;
     }
     flush_part(a, sh, kPartRR);
+    stamp<kTimed>(ts, 4);
     grid.sync();
+    stamp<kTimed>(ts, 5);
     reduce_parts(a, sh, kPartRR);
     for (int s = tid; s < B; s += blockDim.x) {
       if (sh.active[s]) sh.eps[s] = (float)sqrt(sh.sum[s]);
       sh.on[s] = sh.active[s] && sh.eps[s] >= tolc[s];
     }
     __syncthreads();
+    stamp<kTimed>(ts, 6);
 
-    precond(a, grid, sh, sg, rsrc, a.r, [] {}, [](int) {});
+    precond(a, grid, sh, sg, rsrc, a.r, [] {}, [&](int k) { stamp<kTimed>(ts, 7 + k); });
     reduce_parts(a, sh, kPartRZ);
     for (int s = tid; s < B; s += blockDim.x) {
       const float nrz = (float)sh.sum[s];
@@ -214,6 +245,7 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForc
       if (sh.on[s]) sh.rdotz[s] = nrz;
     }
     __syncthreads();
+    stamp<kTimed>(ts, 15);
     for (int row = blockIdx.x; row < rows; row += gridDim.x) {
       const int s = row / L;
       if (!sh.on[s]) continue;
@@ -224,8 +256,11 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForc
     __syncthreads();
     for (int s = tid; s < B; s += blockDim.x) sh.active[s] = sh.on[s];
     ++it;
+    stamp<kTimed>(ts, 16);
     grid.sync();
+    stamp<kTimed>(ts, 17);
   }
+  stamp<kTimed>(once, 15);
 
   // the force epilogue on the solution: one (walker, tau) row per CTA step
   for (int row = blockIdx.x; row < nw * L; row += gridDim.x) {
@@ -234,10 +269,13 @@ __global__ void __launch_bounds__(kThreads, kCtasPerSm) pcg_force_kernel(PcgForc
               a.want_p2 != 0, rowA, a.P1 + (size_t)row * N, a.P2 + (size_t)row * N);
   }
 
+  stamp<kTimed>(once, 16);
+
   if (blockIdx.x == 0) {
     for (int s = tid; s < B; s += blockDim.x) a.eps_out[s] = sh.eps[s] / fmaxf(normb[s], kTiny);
     for (int w = tid; w < nw; w += blockDim.x) a.iters_out[w] = wit[w];
   }
+  stamp_clock_pair<kTimed>(a.stamps, 2);
 }
 
 size_t pcg_force_smem_bytes(int N) {
@@ -246,7 +284,7 @@ size_t pcg_force_smem_bytes(int N) {
 }
 
 int pcg_force_grid(int N, int* grid_out) {
-  return cooperative_grid(pcg_force_kernel, pcg_force_smem_bytes(N), grid_out);
+  return cooperative_grid(pcg_force_kernel<false>, pcg_force_smem_bytes(N), grid_out);
 }
 
 }  // namespace
@@ -259,6 +297,13 @@ extern "C" int smoqy_pcg_force_grid(int N) {
   return e ? -e : g;
 }
 
+// The timed instantiation's phase names (comma-separated) and stamps.
+extern "C" const char* smoqy_pcg_force_once_phases() { return kOncePhases; }
+
+extern "C" const char* smoqy_pcg_force_phases() { return kPhases; }
+
+extern "C" int smoqy_pcg_force_stamps_per_iteration() { return kStamps; }
+
 extern "C" int smoqy_pcg_force(const float* b, const float* x0, const float* Lam, float* x,
                                float* P1, float* P2, float* eps, int* iters, const float* C,
                                const float* S, const int* partner, const float* expV,
@@ -266,7 +311,7 @@ extern "C" int smoqy_pcg_force(const float* b, const float* x0, const float* Lam
                                const float* filt, float* work,
                                double* part, int n_walkers, int Ltau, int Lh, int N,
                                int n_colors, int tab_rows, float tol, int maxiter, int want_p2,
-                               void* stream) {
+                               void* stamps, void* stream) {
   const int B = 2 * n_walkers;
   if (n_walkers < 1 || B > kMaxSystems) return (int)cudaErrorInvalidValue;
   int g = 0;
@@ -313,8 +358,16 @@ extern "C" int smoqy_pcg_force(const float* b, const float* x0, const float* Lam
   a.tol = tol;
   a.maxiter = maxiter;
   a.want_p2 = want_p2;
+  a.stamps = static_cast<unsigned long long*>(stamps);
+  // the timed instantiation when stamps are given, on the same grid
+  const void* fn = stamps ? (const void*)pcg_force_kernel<true> : (const void*)pcg_force_kernel<false>;
+  if (stamps && pcg_force_smem_bytes(N) > 48 * 1024) {
+    e = (int)cudaFuncSetAttribute(pcg_force_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)pcg_force_smem_bytes(N));
+    if (e) return e;
+  }
   void* args[] = {&a};
-  cudaError_t ce = cudaLaunchCooperativeKernel((const void*)pcg_force_kernel, dim3(g),
+  cudaError_t ce = cudaLaunchCooperativeKernel(fn, dim3(g),
                                                dim3(kThreads), args, pcg_force_smem_bytes(N),
                                                static_cast<cudaStream_t>(stream));
   if (ce != cudaSuccess) return (int)ce;

@@ -1,7 +1,8 @@
 // Site-row operators shared by kernels K1 (mtm.cu), K2 (pcg.cu), K3
 // (pcg_force.cu) and K4 (force.cu).
 //
-// One CTA works on one (system, tau) row of N sites held in shared memory. A
+// One CTA works on one (system, tau) row of N sites held in shared memory
+// (mtm_rows_block: on a block of consecutive tau rows). A
 // checkerboard color is u <- C_c u + S_c u[partner_c]: a gather by the
 // partner table, which needs the whole row, so colors are separated by
 // __syncthreads() and written ping-pong between two row buffers. The C/S
@@ -135,6 +136,109 @@ __device__ T mtm_row(const CbTables<T>& tb, const T* v, T* out, int l, T* A, T* 
   const int N = tb.N;
   return mtm_row_from<T>(
       tb, [=](int j, int n) { return v[(size_t)j * N + n]; }, out, l, A, X, Y, w);
+}
+
+// ---- tau-blocked rows: one CTA takes T consecutive tau rows of one system ----
+//
+// Buffer rows hold k rows of N sites each, row i at tau row (lb + i) mod Ltau;
+// a stage runs over all k N elements (thread e takes element e, e + blockDim.x,
+// ...), so the rows of a block share each __syncthreads().
+
+// Rows of N values that mtm_rows_block's buffer holds for a block of T rows.
+__host__ __device__ constexpr int mtm_block_rows(int T) { return 3 * T + 4; }
+
+__device__ __forceinline__ int wrap_row(int l, int L) {
+  while (l >= L) l -= L;
+  return l;
+}
+
+// t = C_c u + S_c u[partner_c] on k rows, times expV of each row's tau when
+// kScale (the diagonal factor that follows this color in B).
+template <typename T, bool kScale>
+__device__ void color_rows(const CbTables<T>& tb, int c, int lb, int k, const T* u, T* t) {
+  const int N = tb.N, L = tb.Ltau;
+  const T* Cc = tb.C + (size_t)c * tb.color_stride;
+  const T* Sc = tb.S + (size_t)c * tb.color_stride;
+  const int* pc = tb.partner + (size_t)c * N;
+  const int di = blockDim.x / N, dn = blockDim.x % N;
+  for (int i = threadIdx.x / N, n = threadIdx.x % N; i < k;) {
+    const int l = wrap_row(lb + i, L);
+    const size_t ro = (size_t)l * tb.tau_stride;
+    const T* ui = u + (size_t)i * N;
+    T v = Cc[ro + n] * ui[n] + Sc[ro + n] * ui[pc[n]];
+    if (kScale) v = tb.expV[(size_t)l * N + n] * v;
+    t[(size_t)i * N + n] = v;
+    i += di;
+    n += dn;
+    if (n >= N) {
+      n -= N;
+      ++i;
+    }
+  }
+}
+
+// B_l u on k rows of u (symmetric factorization: the colors reversed, expV,
+// the colors in order, as apply_B), ping-ponging through a and b (k rows
+// each, neither of them u); returns the buffer with the result. u must be
+// complete in shared memory (synchronised) on entry; n_colors >= 1.
+template <typename T>
+__device__ const T* apply_B_rows(const CbTables<T>& tb, int lb, int k, const T* u, T* a, T* b) {
+  const int nc = tb.n_colors;
+  const T* in = u;
+  T* out = a;
+  for (int s = 0; s < 2 * nc; ++s) {
+    if (s < nc - 1) {
+      color_rows<T, false>(tb, nc - 1 - s, lb, k, in, out);
+    } else if (s == nc - 1) {
+      color_rows<T, true>(tb, 0, lb, k, in, out);
+    } else {
+      color_rows<T, false>(tb, s - nc, lb, k, in, out);
+    }
+    __syncthreads();
+    in = out;
+    out = out == a ? b : a;
+  }
+  return in;
+}
+
+// Rows l0 .. l0+nr-1 (nr >= 1, l0 + nr <= Ltau) of M^T M v for one system v
+// (Ltau, N), symmetric factorization:
+//   m_j = v_j + sgn1_j B_j v_{j-1}            j = l0 .. l0+nr      (nr + 1 B)
+//   out_j = m_j + sgnL_j B_{j+1} m_{j+1}      j = l0 .. l0+nr-1    (nr B)
+// with rows taken mod Ltau, sgn1 = +1 at row 0 and sgnL = +1 at row Ltau-1
+// (-1 elsewhere): 2 nr + 1 B applications where one row at a time takes 3 nr,
+// and ~2 (2 n_colors + 1) barriers for the block. v(j, n) gives element n of
+// row j (0 <= j < Ltau), read once per staged row; emit(j, n, o) receives
+// out_j[n] and returns its share of a dot, summed over this thread's
+// elements into the return value. buf holds mtm_block_rows(nr) N values:
+// V (nr + 2 rows, v_{l0-1} .. v_{l0+nr}), Mb (nr + 1 rows, m) and X
+// (nr + 1); the second application ping-pongs through X and V.
+template <typename T, typename Load, typename Emit>
+__device__ double mtm_rows_block(const CbTables<T>& tb, Load v, int l0, int nr, T* buf, Emit emit) {
+  const int N = tb.N, L = tb.Ltau;
+  T* V = buf;
+  T* Mb = V + (size_t)(nr + 2) * N;
+  T* X = Mb + (size_t)(nr + 1) * N;
+  const int lv = wrap_row(l0 + L - 1, L);  // tau row of V[0]
+  for (int e = threadIdx.x; e < (nr + 2) * N; e += blockDim.x) {
+    V[e] = v(wrap_row(lv + e / N, L), e % N);
+  }
+  __syncthreads();
+  const T* r = apply_B_rows(tb, l0, nr + 1, V, X, Mb);
+  for (int e = threadIdx.x; e < (nr + 1) * N; e += blockDim.x) {
+    const T s1 = wrap_row(l0 + e / N, L) == 0 ? T(1) : T(-1);
+    Mb[e] = V[e + N] + s1 * r[e];  // r may be Mb: each element reads its own
+  }
+  __syncthreads();
+  r = apply_B_rows(tb, wrap_row(l0 + 1, L), nr, Mb + N, X, V);
+  double acc = 0.0;
+  for (int e = threadIdx.x; e < nr * N; e += blockDim.x) {
+    const int j = l0 + e / N;
+    const T sL = j == L - 1 ? T(1) : T(-1);
+    acc += (double)emit(j, e % N, Mb[e] + sL * r[e]);
+  }
+  __syncthreads();  // buf is staged again by the next block
+  return acc;
 }
 
 // Sum over the CTA (blockDim.x a multiple of 32, at most 1024); the result is

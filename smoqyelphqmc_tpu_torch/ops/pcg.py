@@ -137,14 +137,26 @@ def phase_times(stamps: torch.Tensor, iters: int) -> dict:
     instantiation's run, from its stamps (clock64 of CTA 0, converted with the
     globaltimer / clock64 pairs at the kernel's start and end)."""
     lib = _build.load_library()
-    names = lib.smoqy_pcg_phases().decode().split(",")
-    k = lib.smoqy_pcg_stamps_per_iteration()
-    t = stamps.cpu().tolist()
+    return stamp_phases(stamps.cpu().tolist(), iters, lib.smoqy_pcg_phases().decode().split(","),
+                        lib.smoqy_pcg_stamps_per_iteration())
+
+
+def stamp_phases(t: list, iters: int, names: list, per_iteration: int, once: tuple = ()) -> dict:
+    """Microseconds of each phase from a timed instantiation's stamps t: the
+    mean per iteration of each loop phase (`names`, the gaps between an
+    iteration's `per_iteration` stamps), of the whole iteration, the kernel's
+    time, and, where the kernel stamps `once` phases (each ending at a stamp
+    of its own, slots STAMP_HEAD.., the first starting at the kernel's
+    start), their times under "once"; the loop's stamps follow those."""
     us_per_cycle = (t[2] - t[0]) / (t[3] - t[1]) / 1e3
-    rows = [t[STAMP_HEAD + i * k:STAMP_HEAD + (i + 1) * k] for i in range(iters)]
-    out = {name: us_per_cycle * sum(r[j + 1] - r[j] for r in rows) / iters for j, name in enumerate(names)}
-    out["iteration"] = us_per_cycle * sum(r[-1] - r[0] for r in rows) / iters
+    first = STAMP_HEAD + len(once)
+    rows = [t[first + i * per_iteration:first + (i + 1) * per_iteration] for i in range(iters)]
+    out = {name: us_per_cycle * sum(r[j + 1] - r[j] for r in rows) / max(iters, 1) for j, name in enumerate(names)}
+    out["iteration"] = us_per_cycle * sum(r[-1] - r[0] for r in rows) / max(iters, 1)
     out["kernel"] = (t[2] - t[0]) / 1e3
+    if once:
+        chain = [t[1]] + t[STAMP_HEAD:first]
+        out["once"] = {name: us_per_cycle * (chain[j + 1] - chain[j]) for j, name in enumerate(once)}
     return out
 
 

@@ -26,7 +26,7 @@ from .. import _build
 from .cg import CGStats
 from .force import check_operands, planes
 from .mtm import KernelCounter, mtm_tables, require_real
-from .pcg import precond_plain
+from .pcg import STAMP_HEAD, precond_plain, stamp_phases
 
 PCG_FORCE = KernelCounter("pcg_force")
 
@@ -87,8 +87,12 @@ def pcg_force_plain(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Te
 
 
 def pcg_force_cuda(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Tensor, tol: float,
-                   maxiter: int, want_p2: bool):
-    """Launch K3 on contiguous CUDA tensors b, x0 (W, 2, Ltau, N), Lam (W, Ltau, N)."""
+                   maxiter: int, want_p2: bool, stamps=None):
+    """Launch K3 on contiguous CUDA tensors b, x0 (W, 2, Ltau, N), Lam (W, Ltau, N).
+
+    `stamps`, an int64 CUDA tensor of `stamp_slots(maxiter)` entries, selects
+    the timed instantiation, which records per-phase clocks there
+    (`phase_times`); the path never passes it."""
     W = check_operands(fdm32, Lam, b)
     if x0.shape != b.shape or x0.dtype != b.dtype or x0.device != b.device or pre.Q.device != b.device:
         raise ValueError("pcg_force kernel: x0 or the preconditioner does not match b")
@@ -110,16 +114,38 @@ def pcg_force_cuda(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Ten
     # r, p, z, Ap in f32, then U, Am, Bm (2W, 2 Lh, N) in bf16
     work = torch.empty(2 * W * N * (4 * Ltau + 3 * ops.Lh), dtype=torch.float32, device=dev)
     part = torch.empty(3 * lib.smoqy_pcg_max_grid() * 2 * W, dtype=torch.float64, device=dev)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev
+                               or not stamps.is_contiguous() or stamps.numel() < stamp_slots(maxiter)):
+        raise ValueError(f"pcg_force kernel: stamps must be a contiguous int64 tensor of {stamp_slots(maxiter)} "
+                         f"on {dev}")
     rc = lib.smoqy_pcg_force(
         b.data_ptr(), x0.data_ptr(), Lam.data_ptr(), x.data_ptr(), P1.data_ptr(), P2.data_ptr(),
         eps.data_ptr(), iters.data_ptr(), C.data_ptr(), S.data_ptr(), partner.data_ptr(),
         expV.data_ptr(), ops.W.data_ptr(), ops.Wt.data_ptr(), ops.Q.data_ptr(), ops.Qt.data_ptr(),
         ops.filt.data_ptr(), work.data_ptr(), part.data_ptr(), W, Ltau, ops.Lh, N, C.shape[0], C.shape[1], float(tol), int(maxiter),
-        int(want_p2), torch.cuda.current_stream(dev).cuda_stream,
+        int(want_p2), None if stamps is None else stamps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "pcg_force kernel launch")
     PCG_FORCE.launches += 1
     return x, P1, P2, eps, iters
+
+
+def _once_phases(lib) -> tuple:
+    return tuple(lib.smoqy_pcg_force_once_phases().decode().split(","))
+
+
+def stamp_slots(maxiter: int) -> int:
+    lib = _build.load_library()
+    return STAMP_HEAD + len(_once_phases(lib)) + maxiter * lib.smoqy_pcg_force_stamps_per_iteration()
+
+
+def phase_times(stamps: torch.Tensor, iters: int) -> dict:
+    """Microseconds of each phase of the timed instantiation's run: per loop
+    iteration (mean over `iters`, the largest per-walker count), and under
+    "once" the phases before the loop, the loop and the epilogue."""
+    lib = _build.load_library()
+    return stamp_phases(stamps.cpu().tolist(), iters, lib.smoqy_pcg_force_phases().decode().split(","),
+                        lib.smoqy_pcg_force_stamps_per_iteration(), _once_phases(lib))
 
 
 def pcg_force(fdm32, pre, b, x0, Lam, tol: float, maxiter: int, want_p2: bool):

@@ -17,8 +17,14 @@ per measurement:
   per iteration of each phase of one cold solve (CTA 0's clock at each phase
   boundary: its own work, then its wait at each grid sync), over `--reps`
   timed solves;
-- `k3`: ms per cold solve of W=8 jittered walker fields (16 systems) with the
-  force planes, iterations per walker, us per iteration;
+- `k3`: ms per cold and per warm solve (from a tol-1e-3 solution, the
+  trajectory's case) of W=8 jittered walker fields (16 systems) with the
+  force planes, iterations per walker, us per iteration, whether two
+  launches gave the same bits, the grid and the tau block;
+- `k3_phases`: where the package has K3's timed instantiation, cold and
+  warm: the mean us per iteration of each loop phase, and the us of each
+  phase before the loop (|b|^2, the warm residual, the first
+  preconditioner), of the loop and of the force epilogue;
 - `--sweeps n`: seconds per sweep of `run_updates` at the headline, W=1 and
   W=8 (n sweeps each), with CG iterations per solve.
 
@@ -151,16 +157,34 @@ def main() -> None:
     Phi = torch.randn((W, 2, fdmw.Ltau, fdmw.n_sites), generator=gen, dtype=torch.float32).to(dev)
     bk3 = ldiv_lambda_T(Lam[:, None], Phi).contiguous()
     zeros = torch.zeros_like(bk3)
-    xk, _, _, sk = pcg_force.solve_force(fdmw32, prew, bk3, Lam, x0=zeros, tol=tol, maxiter=maxiter)
-    xp, _, _, ep, ip = pcg_force.pcg_force_plain(fdmw32, prew, bk3, zeros, Lam, tol, maxiter, True)
-    torch.cuda.synchronize()
-    ms = cuda_ms(lambda: pcg_force.solve_force(fdmw32, prew, bk3, Lam, x0=zeros, tol=tol, maxiter=maxiter),
-                 max(args.reps // 4, 3))
-    iters = sk.iters.tolist()
-    say(kind="k3", walkers=W, shape=list(bk3.shape), ms=ms, iters=iters, plain_iters=ip.tolist(),
-        us_per_iteration=1e3 * ms / max(max(iters), 1), max_abs_diff=float((xk - xp).abs().max()),
-        max_x=float(xp.abs().max()), converged=bool(sk.converged.all()),
-        grid=lib.smoqy_pcg_force_grid(fdmw.n_sites))
+    # the warm start of a trajectory solve: a tol-1e-3 solution (chip_smoke.py phase 8)
+    x_warm, *_ = pcg_force.pcg_force_plain(fdmw32, prew, bk3, zeros, Lam, 1e-3, maxiter, True)
+    for start, x0 in (("cold", zeros), ("warm", x_warm)):
+        xk, _, _, sk = pcg_force.solve_force(fdmw32, prew, bk3, Lam, x0=x0, tol=tol, maxiter=maxiter)
+        xk2, _, _, sk2 = pcg_force.solve_force(fdmw32, prew, bk3, Lam, x0=x0, tol=tol, maxiter=maxiter)
+        xp, _, _, ep, ip = pcg_force.pcg_force_plain(fdmw32, prew, bk3, x0, Lam, tol, maxiter, True)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(xk, xk2)) and bool(torch.equal(sk.eps, sk2.eps))
+        ms = cuda_ms(lambda: pcg_force.solve_force(fdmw32, prew, bk3, Lam, x0=x0, tol=tol, maxiter=maxiter),
+                     max(args.reps // 4, 3))
+        iters = sk.iters.tolist()
+        extra = {}
+        if hasattr(pcg_force, "block_rows"):
+            extra["tau_block"] = pcg_force.block_rows(fdmw32, 2 * W)
+        say(kind="k3", start=start, walkers=W, shape=list(bk3.shape), ms=ms, iters=iters, plain_iters=ip.tolist(),
+            us_per_iteration=1e3 * ms / max(max(iters), 1), max_abs_diff=float((xk - xp).abs().max()),
+            max_x=float(xp.abs().max()), converged=bool(sk.converged.all()), bit_identical=same,
+            grid=lib.smoqy_pcg_force_grid(fdmw.n_sites), **extra)
+        if hasattr(pcg_force, "phase_times"):
+            stamps = torch.zeros(pcg_force.stamp_slots(maxiter), dtype=torch.int64, device=dev)
+            runs = []
+            for _ in range(args.reps):
+                *_, it = pcg_force.pcg_force_cuda(fdmw32, prew, bk3, x0, Lam, tol, maxiter, True, stamps=stamps)
+                torch.cuda.synchronize()
+                runs.append(pcg_force.phase_times(stamps, int(it.max())))
+            loop = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0] if k != "once"}
+            once = {k: sum(r["once"][k] for r in runs) / len(runs) for k in runs[0]["once"]}
+            say(kind="k3_phases", start=start, iters=int(it.max()), us=loop, once_us=once)
 
     for n_walkers in ((1, 8) if args.sweeps > 0 else ()):
         cfg = SimulationConfig(beta=h["beta"], dtau=h["dtau"], Nt=24, tol=1e-10, seed=1, mixed_precision=True,
