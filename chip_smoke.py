@@ -20,7 +20,8 @@ Phases, one line each:
      JAX package takes `_mtm_kernel_mm`) against its plain version, then one
      sweep on that lattice (`driver.run_sweeps`);
   8. K3 (whole-solve PCG + force epilogue) on W = 8 walkers at the headline
-     size against its plain version, cold and warm;
+     size against its plain version, cold and warm, with the time of each,
+     us and grid syncs per iteration, its tau block and grid;
   9. K4 (the force epilogue alone) on one channel pair against its plain
      version;
  10. the walker path: `run_updates` at the headline with W = 8 walkers; every
@@ -463,7 +464,7 @@ def phase_k3(results):
 
     x_warm, *_ = pcg_force.pcg_force_plain(fdm32, pre, b, torch.zeros_like(b), Lam, 1e-3, maxiter, True)
     max_err = 0.0
-    cold_iters = None
+    iters = {}
     for tag, x0 in (("cold", torch.zeros_like(b)), ("warm", x_warm)):
         xk, P1k, P2k, sk = pcg_force.solve_force(fdm32, pre, b, Lam, x0=x0, tol=tol, maxiter=maxiter)
         xp, P1p, P2p, ep, ip = pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, tol, maxiter, True)
@@ -479,7 +480,7 @@ def phase_k3(results):
         f_ok = bool(((Fk - Fp).abs() <= 2e-4 * float(Fp.abs().max()) + 2e-4 * Fp.abs()).all())
         res_k, res_p = true_res(xk), true_res(xp)
         max_err = max(max_err, err)
-        cold_iters = sk.iters.tolist() if cold_iters is None else cold_iters
+        iters[tag] = sk.iters.tolist()
         say(f"K3 {tag} W={W}: converged kernel {conv_k} plain {conv_p}; iters/walker kernel "
             f"{sk.iters.tolist()} plain {ip.tolist()}; true residual kernel {res_k:.3e} plain {res_p:.3e}; "
             f"max|x| {scale:.4g} max |x_kernel - x_plain| {err:.3e} (rtol 2e-4, atol 2e-5 max|x|: {x_ok}); "
@@ -492,19 +493,26 @@ def phase_k3(results):
             fail(f"K3 {tag}: true residual {res_k:.3e} of the kernel's solution exceeds the plain one's")
     zeros = torch.zeros_like(b)
     ms = cuda_ms(lambda: pcg_force.solve_force(fdm32, pre, b, Lam, x0=zeros, tol=tol, maxiter=maxiter), 3)
+    warm_ms = cuda_ms(lambda: pcg_force.solve_force(fdm32, pre, b, Lam, x0=x_warm, tol=tol, maxiter=maxiter), 3)
     plain_ms = cuda_ms(lambda: pcg_force.pcg_force_plain(fdm32, pre, b, zeros, Lam, tol, maxiter, True), 1)
-    grid = pcg_force._build.load_library().smoqy_pcg_force_grid(fdm.n_sites)
+    launch = pcg_force.launch_shape(fdm32, 2 * W)
+    # grid-wide syncs per iteration: the waits among the timed instantiation's loop phases
+    phases = pcg_force._build.load_library().smoqy_pcg_force_phases().decode().split(",")
+    syncs = sum(name.startswith("sync") for name in phases)
     # the timed cold solve: each walker's two channels for its iterations,
     # the epilogue per walker; b, x0, Lambda, expV in, x, P1, P2 out
     Ltau, N, nc = fdm.Ltau, fdm.n_sites, fdm.cb.n_colors
     f32_it, bf16_it = pcg_iteration_ops(Ltau, N, nc)
-    n_it = 2 * sum(cold_iters)
+    n_it = 2 * sum(iters["cold"])
     plane = W * Ltau * N * 4
     bound_ms, bound_by = bound(2 * 2 * plane + 2 * plane + 2 * plane + 2 * plane + precond_bytes(Ltau, N)
                                + table_bytes(N, nc, 4),
                                {"f32": n_it * f32_it + W * epilogue_ops(Ltau, N, nc), "bf16": n_it * bf16_it})
-    say(f"K3 cold solve + planes, W={W}: kernel {ms:.3f} ms plain {plain_ms:.3f} ms (grid {grid} CTAs); "
-        f"bound {bound_ms:.4f} ms by {bound_by}")
+    cold_n, warm_n = max(iters["cold"]), max(iters["warm"])
+    say(f"K3 cold solve + planes, W={W}: kernel {ms:.3f} ms plain {plain_ms:.3f} ms; {cold_n} iterations, "
+        f"{1e3 * ms / max(cold_n, 1):.2f} us each (whole solve); warm {warm_ms:.3f} ms, {warm_n} iterations; "
+        f"{syncs} grid syncs an iteration; tau blocks of {launch['tau_block']} rows, grid {launch['grid']} CTAs, "
+        f"{launch['smem']} bytes of shared memory; bound {bound_ms:.4f} ms by {bound_by}")
     results["pcg_force"] = dict(name="pcg_force", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/pcg_force.cu",
                                 replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:620",
                                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)

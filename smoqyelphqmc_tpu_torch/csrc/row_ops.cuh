@@ -138,35 +138,86 @@ __device__ T mtm_row(const CbTables<T>& tb, const T* v, T* out, int l, T* A, T* 
       tb, [=](int j, int n) { return v[(size_t)j * N + n]; }, out, l, A, X, Y, w);
 }
 
+// ---- asynchronous copies global -> shared (cp.async) ----------------------
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; src_bytes = 0 fills zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// sizeof(T) bytes global -> shared (4 or 8)
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "n"((int)sizeof(T)));
+}
+
+// count elements src -> dst by the CTA, 16 bytes a copy where both are
+// 16-byte aligned and count fills whole copies, else one element a copy;
+// the caller commits and waits.
+template <typename T>
+__device__ void copy_async(T* dst, const T* src, int count) {
+  constexpr int kPer = 16 / sizeof(T);
+  if (((reinterpret_cast<size_t>(dst) | reinterpret_cast<size_t>(src)) & 15) == 0 && count % kPer == 0) {
+    for (int c = threadIdx.x; c < count / kPer; c += blockDim.x)
+      cp_async16(dst + c * kPer, src + c * kPer, 16);
+  } else {
+    for (int e = threadIdx.x; e < count; e += blockDim.x) cp_async_elem(dst + e, src + e);
+  }
+}
+
+// Rows first, first + 1, ... (mod L) of an (L, N) plane into dst, rows x N.
+template <typename T>
+__device__ void stage_rows_async(T* dst, const T* plane, int first, int rows, int L, int N) {
+  for (int done = 0, j = first; done < rows; j = 0) {
+    const int run = rows - done < L - j ? rows - done : L - j;  // rows up to the wrap
+    copy_async(dst + (size_t)done * N, plane + (size_t)j * N, run * N);
+    done += run;
+  }
+}
+
 // ---- tau-blocked rows: one CTA takes T consecutive tau rows of one system ----
 //
 // Buffer rows hold k rows of N sites each, row i at tau row (lb + i) mod Ltau;
 // a stage runs over all k N elements (thread e takes element e, e + blockDim.x,
-// ...), so the rows of a block share each __syncthreads().
+// ...), so the rows of a block share each __syncthreads(). Every read from
+// device memory (the staged rows and expV) is a cp.async issued before the
+// block's first stage, so none of them waits inside a stage.
 
 // Rows of N values that mtm_rows_block's buffer holds for a block of T rows.
-__host__ __device__ constexpr int mtm_block_rows(int T) { return 3 * T + 4; }
+__host__ __device__ constexpr int mtm_block_rows(int T) { return 5 * T + 5; }
 
 __device__ __forceinline__ int wrap_row(int l, int L) {
   while (l >= L) l -= L;
   return l;
 }
 
-// t = C_c u + S_c u[partner_c] on k rows, times expV of each row's tau when
-// kScale (the diagonal factor that follows this color in B).
+// t = C_c u + S_c u[partner_c] on k rows, times E (expV of each row's tau,
+// row-aligned with u) when kScale: the diagonal factor that follows this
+// color in B.
 template <typename T, bool kScale>
-__device__ void color_rows(const CbTables<T>& tb, int c, int lb, int k, const T* u, T* t) {
+__device__ void color_rows(const CbTables<T>& tb, const T* E, int c, int lb, int k, const T* u,
+                           T* t) {
   const int N = tb.N, L = tb.Ltau;
   const T* Cc = tb.C + (size_t)c * tb.color_stride;
   const T* Sc = tb.S + (size_t)c * tb.color_stride;
   const int* pc = tb.partner + (size_t)c * N;
   const int di = blockDim.x / N, dn = blockDim.x % N;
   for (int i = threadIdx.x / N, n = threadIdx.x % N; i < k;) {
-    const int l = wrap_row(lb + i, L);
-    const size_t ro = (size_t)l * tb.tau_stride;
+    const size_t ro = tb.tau_stride ? (size_t)wrap_row(lb + i, L) * tb.tau_stride + n : n;
     const T* ui = u + (size_t)i * N;
-    T v = Cc[ro + n] * ui[n] + Sc[ro + n] * ui[pc[n]];
-    if (kScale) v = tb.expV[(size_t)l * N + n] * v;
+    T v = Cc[ro] * ui[n] + Sc[ro] * ui[pc[n]];
+    if (kScale) v = E[(size_t)i * N + n] * v;
     t[(size_t)i * N + n] = v;
     i += di;
     n += dn;
@@ -179,20 +230,21 @@ __device__ void color_rows(const CbTables<T>& tb, int c, int lb, int k, const T*
 
 // B_l u on k rows of u (symmetric factorization: the colors reversed, expV,
 // the colors in order, as apply_B), ping-ponging through a and b (k rows
-// each, neither of them u); returns the buffer with the result. u must be
-// complete in shared memory (synchronised) on entry; n_colors >= 1.
+// each, neither of them u); returns the buffer with the result. u and E
+// must be complete in shared memory (synchronised) on entry; n_colors >= 1.
 template <typename T>
-__device__ const T* apply_B_rows(const CbTables<T>& tb, int lb, int k, const T* u, T* a, T* b) {
+__device__ const T* apply_B_rows(const CbTables<T>& tb, const T* E, int lb, int k, const T* u,
+                                 T* a, T* b) {
   const int nc = tb.n_colors;
   const T* in = u;
   T* out = a;
   for (int s = 0; s < 2 * nc; ++s) {
     if (s < nc - 1) {
-      color_rows<T, false>(tb, nc - 1 - s, lb, k, in, out);
+      color_rows<T, false>(tb, E, nc - 1 - s, lb, k, in, out);
     } else if (s == nc - 1) {
-      color_rows<T, true>(tb, 0, lb, k, in, out);
+      color_rows<T, true>(tb, E, 0, lb, k, in, out);
     } else {
-      color_rows<T, false>(tb, s - nc, lb, k, in, out);
+      color_rows<T, false>(tb, E, s - nc, lb, k, in, out);
     }
     __syncthreads();
     in = out;
@@ -207,35 +259,60 @@ __device__ const T* apply_B_rows(const CbTables<T>& tb, int lb, int k, const T* 
 //   out_j = m_j + sgnL_j B_{j+1} m_{j+1}      j = l0 .. l0+nr-1    (nr B)
 // with rows taken mod Ltau, sgn1 = +1 at row 0 and sgnL = +1 at row Ltau-1
 // (-1 elsewhere): 2 nr + 1 B applications where one row at a time takes 3 nr,
-// and ~2 (2 n_colors + 1) barriers for the block. v(j, n) gives element n of
-// row j (0 <= j < Ltau), read once per staged row; emit(j, n, o) receives
-// out_j[n] and returns its share of a dot, summed over this thread's
-// elements into the return value. buf holds mtm_block_rows(nr) N values:
-// V (nr + 2 rows, v_{l0-1} .. v_{l0+nr}), Mb (nr + 1 rows, m) and X
-// (nr + 1); the second application ping-pongs through X and V.
-template <typename T, typename Load, typename Emit>
-__device__ double mtm_rows_block(const CbTables<T>& tb, Load v, int l0, int nr, T* buf, Emit emit) {
+// and ~2 (2 n_colors + 1) barriers for the block. v is the plane va, or
+// comb(va, vb) element by element where vb is given (both staged). emit(j,
+// n, out_j[n], v_j[n]) writes the output and returns its share of a dot,
+// summed over this thread's elements into the return value. buf holds
+// mtm_block_rows(nr) N values: V (nr + 2 rows, v_{l0-1} .. v_{l0+nr}), Mb
+// (nr + 1, m; with X it first holds vb's rows), X (nr + 1), Y (nr) and E
+// (nr + 1, expV of rows l0 .. l0+nr).
+template <typename T, typename Comb, typename Emit>
+__device__ double mtm_rows_block(const CbTables<T>& tb, const T* va, const T* vb, Comb comb, int l0,
+                                 int nr, T* buf, Emit emit) {
   const int N = tb.N, L = tb.Ltau;
   T* V = buf;
   T* Mb = V + (size_t)(nr + 2) * N;
   T* X = Mb + (size_t)(nr + 1) * N;
+  T* Y = X + (size_t)(nr + 1) * N;
+  T* E = Y + (size_t)nr * N;
   const int lv = wrap_row(l0 + L - 1, L);  // tau row of V[0]
-  for (int e = threadIdx.x; e < (nr + 2) * N; e += blockDim.x) {
-    V[e] = v(wrap_row(lv + e / N, L), e % N);
-  }
+  stage_rows_async(V, va, lv, nr + 2, L, N);
+  if (vb != nullptr) stage_rows_async(Mb, vb, lv, nr + 2, L, N);
+  stage_rows_async(E, tb.expV, l0, nr + 1, L, N);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  const T* r = apply_B_rows(tb, l0, nr + 1, V, X, Mb);
-  for (int e = threadIdx.x; e < (nr + 1) * N; e += blockDim.x) {
-    const T s1 = wrap_row(l0 + e / N, L) == 0 ? T(1) : T(-1);
+  if (vb != nullptr) {
+    for (int e = threadIdx.x; e < (nr + 2) * N; e += blockDim.x) V[e] = comb(V[e], Mb[e]);
+    __syncthreads();
+  }
+  const T* r = apply_B_rows(tb, E, l0, nr + 1, V, X, Mb);
+  const int di = blockDim.x / N, dn = blockDim.x % N;
+  for (int i = threadIdx.x / N, n = threadIdx.x % N; i <= nr;) {
+    const T s1 = wrap_row(l0 + i, L) == 0 ? T(1) : T(-1);
+    const size_t e = (size_t)i * N + n;
     Mb[e] = V[e + N] + s1 * r[e];  // r may be Mb: each element reads its own
+    i += di;
+    n += dn;
+    if (n >= N) {
+      n -= N;
+      ++i;
+    }
   }
   __syncthreads();
-  r = apply_B_rows(tb, wrap_row(l0 + 1, L), nr, Mb + N, X, V);
+  r = apply_B_rows(tb, E + N, wrap_row(l0 + 1, L), nr, Mb + N, X, Y);
   double acc = 0.0;
-  for (int e = threadIdx.x; e < nr * N; e += blockDim.x) {
-    const int j = l0 + e / N;
+  for (int i = threadIdx.x / N, n = threadIdx.x % N; i < nr;) {
+    const int j = l0 + i;
     const T sL = j == L - 1 ? T(1) : T(-1);
-    acc += (double)emit(j, e % N, Mb[e] + sL * r[e]);
+    const size_t e = (size_t)i * N + n;
+    acc += emit(j, n, Mb[e] + sL * r[e], V[e + N]);
+    i += di;
+    n += dn;
+    if (n >= N) {
+      n -= N;
+      ++i;
+    }
   }
   __syncthreads();  // buf is staged again by the next block
   return acc;

@@ -66,6 +66,37 @@ def mtm_plain(fdm, v: torch.Tensor) -> torch.Tensor:
     return fdm.mul_Mt(fdm.mul_M(v))
 
 
+def mtm_blocked_plain(fdm, v: torch.Tensor, T: int):
+    """M^T M v (symmetric or not) as the tau-blocked rows compute it
+    (csrc/row_ops.cuh:mtm_rows_block, K3's matvec phases), block by block of T
+    tau rows, one B application at a time: for the rows l0 .. l0+nr-1 of a
+    block, m_j = v_j + sgn1_j B_j v_{j-1} for j = l0 .. l0+nr (nr + 1 B) and
+    out_j = m_j + sgnL_j B_{j+1}^T m_{j+1} (nr B^T), rows taken mod Ltau.
+    The plain model of the kernel's algebra, for tests. Returns (out, the
+    number of B and B^T applications)."""
+    L = fdm.Ltau
+    out = torch.empty_like(v)
+    n_apply = 0
+
+    def row_op(op, u, j):
+        # op on one row: u placed at tau row j of an otherwise zero plane
+        plane = torch.zeros_like(v)
+        plane[..., j, :] = u
+        return op(plane)[..., j, :]
+
+    for l0 in range(0, L, T):
+        nr = min(T, L - l0)
+        m = []
+        for i in range(nr + 1):
+            j = (l0 + i) % L
+            m.append(v[..., j, :] + (1.0 if j == 0 else -1.0) * row_op(fdm.apply_B, v[..., j - 1, :], j))
+        for i in range(nr):
+            j = l0 + i
+            out[..., j, :] = m[i] + (1.0 if j == L - 1 else -1.0) * row_op(fdm.apply_Bt, m[i + 1], (j + 1) % L)
+        n_apply += 2 * nr + 1
+    return out, n_apply
+
+
 def mtm_cuda(fdm, v: torch.Tensor) -> torch.Tensor:
     """Launch K1 on v (..., Ltau, N), a CUDA tensor of the fermion matrix's dtype."""
     require_real(fdm, "mtm kernel (K1)")

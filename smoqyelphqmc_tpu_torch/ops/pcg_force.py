@@ -13,7 +13,9 @@ iteration counts (iterations until both channels of the walker stopped) and
 per-walker `converged` (finite and every eps < tol).
 
 `pcg_force` is the dispatcher: a CPU tensor takes `pcg_force_plain`, a CUDA
-tensor launches `csrc/pcg_force.cu` or raises.
+tensor launches `csrc/pcg_force.cu` or raises. The kernel's matvec phases take
+T consecutive tau rows of one system a CTA; `tau_block_rows` picks T (the
+algebra of one block is `ops/mtm.py:mtm_blocked_plain`).
 """
 
 from __future__ import annotations
@@ -31,6 +33,62 @@ from .pcg import STAMP_HEAD, precond_plain, stamp_phases
 PCG_FORCE = KernelCounter("pcg_force")
 
 _TINY = 1e-30
+
+# a CTA's dynamic shared memory that keeps two CTAs of K3 on an SM beside
+# their static arrays (228 KB an SM)
+SMEM_BUDGET = 96 * 1024
+_GEMM_SMEM = 2 * (16 * 72 + 64 * 72) * 2  # csrc/pcg_common.cuh:kGemmSmem
+_FORCE_ROWS = 8  # csrc/force_epilogue.cuh:kForceRows
+
+
+def smem_bytes(N: int, T: int) -> int:
+    """K3's dynamic shared memory for tau blocks of T rows
+    (csrc/pcg_force.cu:pcg_force_smem_bytes): the GEMM stages, the epilogue's
+    rows or the block's 5T + 5 rows (row_ops.cuh:mtm_block_rows), whichever
+    is largest."""
+    return max(max(5 * T + 5, _FORCE_ROWS) * N * 4, _GEMM_SMEM)
+
+
+def tau_block_rows(n_systems: int, Ltau: int, N: int, grid: int) -> int:
+    """T, the tau rows a CTA takes in K3's matvec phases: the fewest for which
+    the n_systems * ceil(Ltau / T) blocks make one round of `grid` CTAs, but
+    no more than the shared-memory budget allows (at least 1: at large N a
+    block is one row, over the budget)."""
+    fit = 1
+    while fit < Ltau and smem_bytes(N, fit + 1) <= SMEM_BUDGET:
+        fit += 1
+    T = 1
+    while T < fit and n_systems * -(-Ltau // T) > grid:
+        T += 1
+    return T
+
+
+def tau_blocks(Ltau: int, T: int) -> list:
+    """(first row, rows) of each block of a system, as the kernel walks them."""
+    return [(l0, min(T, Ltau - l0)) for l0 in range(0, Ltau, T)]
+
+
+def _grid(lib, N: int, T: int) -> int:
+    grid = lib.smoqy_pcg_force_grid(N, T)
+    if grid <= 0:
+        raise RuntimeError(f"pcg_force kernel: no cooperative grid (CUDA error {-grid})")
+    return grid
+
+
+def tau_block(fdm32, n_systems: int) -> int:
+    """T for a launch on this fermion matrix (the grid of one-row blocks is
+    the most CTAs the kernel can have)."""
+    grid = _grid(_build.load_library(), fdm32.n_sites, 1)
+    return tau_block_rows(n_systems, fdm32.Ltau, fdm32.n_sites, grid)
+
+
+def launch_shape(fdm32, n_systems: int) -> dict:
+    """How K3 launches for n_systems on this fermion matrix: T, the grid
+    and the dynamic shared memory in bytes."""
+    lib = _build.load_library()
+    T = tau_block(fdm32, n_systems)
+    N = fdm32.n_sites
+    return dict(tau_block=T, grid=_grid(lib, N, T), smem=lib.smoqy_pcg_force_smem_bytes(N, T))
 
 
 def pcg_force_plain(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Tensor, tol: float,
@@ -87,12 +145,13 @@ def pcg_force_plain(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Te
 
 
 def pcg_force_cuda(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Tensor, tol: float,
-                   maxiter: int, want_p2: bool, stamps=None):
+                   maxiter: int, want_p2: bool, stamps=None, tau_rows=None):
     """Launch K3 on contiguous CUDA tensors b, x0 (W, 2, Ltau, N), Lam (W, Ltau, N).
 
     `stamps`, an int64 CUDA tensor of `stamp_slots(maxiter)` entries, selects
     the timed instantiation, which records per-phase clocks there
-    (`phase_times`); the path never passes it."""
+    (`phase_times`); `tau_rows` overrides T (`tau_block`); the path passes
+    neither."""
     W = check_operands(fdm32, Lam, b)
     if x0.shape != b.shape or x0.dtype != b.dtype or x0.device != b.device or pre.Q.device != b.device:
         raise ValueError("pcg_force kernel: x0 or the preconditioner does not match b")
@@ -104,6 +163,11 @@ def pcg_force_cuda(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Ten
         raise ValueError(f"pcg_force kernel: {W} walkers, at most {lib.smoqy_pcg_max_systems() // 2}")
     b, x0, Lam = b.contiguous(), x0.contiguous(), Lam.contiguous()
     C, S, partner, expV = mtm_tables(fdm32)
+    if C.shape[0] < 1:
+        raise ValueError("pcg_force kernel: the fermion matrix has no hopping colors")
+    T = tau_block(fdm32, 2 * W) if tau_rows is None else int(tau_rows)
+    if not 1 <= T <= Ltau:
+        raise ValueError(f"pcg_force kernel: tau blocks of {T} rows, Ltau = {Ltau}")
     ops = pre.pcg_operands()
     dev = b.device
     x = torch.empty_like(b)
@@ -111,8 +175,8 @@ def pcg_force_cuda(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Ten
     P2 = torch.empty_like(P1)
     eps = torch.empty(2 * W, dtype=torch.float32, device=dev)
     iters = torch.empty(W, dtype=torch.int32, device=dev)
-    # r, p, z, Ap in f32, then U, Am, Bm (2W, 2 Lh, N) in bf16
-    work = torch.empty(2 * W * N * (4 * Ltau + 3 * ops.Lh), dtype=torch.float32, device=dev)
+    # r and p (two planes each), z, Ap in f32, then U, Am, Bm (2W, 2 Lh, N) in bf16
+    work = torch.empty(2 * W * N * (6 * Ltau + 3 * ops.Lh), dtype=torch.float32, device=dev)
     part = torch.empty(3 * lib.smoqy_pcg_max_grid() * 2 * W, dtype=torch.float64, device=dev)
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != dev
                                or not stamps.is_contiguous() or stamps.numel() < stamp_slots(maxiter)):
@@ -122,7 +186,8 @@ def pcg_force_cuda(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Ten
         b.data_ptr(), x0.data_ptr(), Lam.data_ptr(), x.data_ptr(), P1.data_ptr(), P2.data_ptr(),
         eps.data_ptr(), iters.data_ptr(), C.data_ptr(), S.data_ptr(), partner.data_ptr(),
         expV.data_ptr(), ops.W.data_ptr(), ops.Wt.data_ptr(), ops.Q.data_ptr(), ops.Qt.data_ptr(),
-        ops.filt.data_ptr(), work.data_ptr(), part.data_ptr(), W, Ltau, ops.Lh, N, C.shape[0], C.shape[1], float(tol), int(maxiter),
+        ops.filt.data_ptr(), work.data_ptr(), part.data_ptr(), W, Ltau, ops.Lh, N, C.shape[0], C.shape[1], T,
+        float(tol), int(maxiter),
         int(want_p2), None if stamps is None else stamps.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "pcg_force kernel launch")

@@ -1,7 +1,7 @@
 """Time K2 (the whole-solve spectral PCG) and K3 at the headline shapes on one GPU.
 
     python smoqyelphqmc_tpu_torch/time_pcg.py [--reps 20] [--sweeps 3]
-        [--package-root DIR] [--label NAME]
+        [--package-root DIR] [--label NAME] [--tau-rows T ...]
 
 Builds the headline fermion matrix (Holstein honeycomb L=12, beta=12,
 dtau=0.05, alpha=0.6: N=288, Ltau=240) and its spectral preconditioner from
@@ -20,11 +20,15 @@ per measurement:
 - `k3`: ms per cold and per warm solve (from a tol-1e-3 solution, the
   trajectory's case) of W=8 jittered walker fields (16 systems) with the
   force planes, iterations per walker, us per iteration, whether two
-  launches gave the same bits, the grid and the tau block;
+  launches gave the same bits, the grid, and the tau block and shared
+  memory where the package has them;
 - `k3_phases`: where the package has K3's timed instantiation, cold and
   warm: the mean us per iteration of each loop phase, and the us of each
   phase before the loop (|b|^2, the warm residual, the first
   preconditioner), of the loop and of the force epilogue;
+- `--tau-rows T ...`: K3's cold solve again with its tau blocks forced to
+  each T (`k3_tau_rows`: ms, iterations, largest difference from the solve
+  with the chosen T);
 - `--sweeps n`: seconds per sweep of `run_updates` at the headline, W=1 and
   W=8 (n sweeps each), with CG iterations per solve.
 
@@ -52,6 +56,8 @@ def main() -> None:
     ap.add_argument("--sweeps", type=int, default=0)
     ap.add_argument("--package-root", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--label", default="change")
+    ap.add_argument("--tau-rows", type=int, nargs="*", default=[],
+                    help="also time K3 cold with its tau blocks forced to these row counts")
     args = ap.parse_args()
     sys.path.insert(0, args.package_root)
 
@@ -164,17 +170,19 @@ def main() -> None:
         xk2, _, _, sk2 = pcg_force.solve_force(fdmw32, prew, bk3, Lam, x0=x0, tol=tol, maxiter=maxiter)
         xp, _, _, ep, ip = pcg_force.pcg_force_plain(fdmw32, prew, bk3, x0, Lam, tol, maxiter, True)
         torch.cuda.synchronize()
+        if start == "cold":
+            xk_cold = xk
         same = bool(torch.equal(xk, xk2)) and bool(torch.equal(sk.eps, sk2.eps))
         ms = cuda_ms(lambda: pcg_force.solve_force(fdmw32, prew, bk3, Lam, x0=x0, tol=tol, maxiter=maxiter),
                      max(args.reps // 4, 3))
         iters = sk.iters.tolist()
-        extra = {}
-        if hasattr(pcg_force, "block_rows"):
-            extra["tau_block"] = pcg_force.block_rows(fdmw32, 2 * W)
+        if hasattr(pcg_force, "launch_shape"):
+            launch = pcg_force.launch_shape(fdmw32, 2 * W)
+        else:
+            launch = dict(grid=lib.smoqy_pcg_force_grid(fdmw.n_sites))
         say(kind="k3", start=start, walkers=W, shape=list(bk3.shape), ms=ms, iters=iters, plain_iters=ip.tolist(),
             us_per_iteration=1e3 * ms / max(max(iters), 1), max_abs_diff=float((xk - xp).abs().max()),
-            max_x=float(xp.abs().max()), converged=bool(sk.converged.all()), bit_identical=same,
-            grid=lib.smoqy_pcg_force_grid(fdmw.n_sites), **extra)
+            max_x=float(xp.abs().max()), converged=bool(sk.converged.all()), bit_identical=same, **launch)
         if hasattr(pcg_force, "phase_times"):
             stamps = torch.zeros(pcg_force.stamp_slots(maxiter), dtype=torch.int64, device=dev)
             runs = []
@@ -185,6 +193,12 @@ def main() -> None:
             loop = {k: sum(r[k] for r in runs) / len(runs) for k in runs[0] if k != "once"}
             once = {k: sum(r["once"][k] for r in runs) / len(runs) for k in runs[0]["once"]}
             say(kind="k3_phases", start=start, iters=int(it.max()), us=loop, once_us=once)
+
+    for T in args.tau_rows:
+        xt, *_, it = pcg_force.pcg_force_cuda(fdmw32, prew, bk3, zeros, Lam, tol, maxiter, True, tau_rows=T)
+        ms = cuda_ms(lambda: pcg_force.pcg_force_cuda(fdmw32, prew, bk3, zeros, Lam, tol, maxiter, True, tau_rows=T),
+                     max(args.reps // 4, 3))
+        say(kind="k3_tau_rows", tau_block=T, ms=ms, iters=it.tolist(), max_abs_diff=float((xt - xk_cold).abs().max()))
 
     for n_walkers in ((1, 8) if args.sweeps > 0 else ()):
         cfg = SimulationConfig(beta=h["beta"], dtau=h["dtau"], Nt=24, tol=1e-10, seed=1, mixed_precision=True,

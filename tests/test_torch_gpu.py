@@ -214,7 +214,7 @@ def _close_planes(got, ref):
 
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
 @pytest.mark.parametrize("beta", [1.0, 0.9], ids=["Ltau-10", "Ltau-9"])
-@pytest.mark.parametrize("W", [1, 2, 3])
+@pytest.mark.parametrize("W", [1, 2, 3, 8])
 def test_pcg_force_kernel_matches_plain(cuda_device, W, beta, warm):
     """K3 on W walkers against its plain version on the same tensors:
     solutions, per-walker iteration counts, eps and the force planes."""
@@ -231,6 +231,125 @@ def test_pcg_force_kernel_matches_plain(cuda_device, W, beta, warm):
     torch.testing.assert_close(xk, xp, rtol=2e-4, atol=2e-5)
     _close_planes(P1k, P1p)
     _close_planes(P2k, P2p)
+
+
+def _check_k3(got, ref, tol=1e-5):
+    """K3's outputs (x, P1, P2, eps, iters) against the plain version's."""
+    xk, P1k, P2k, ek, ik = got
+    xp, P1p, P2p, ep, ip = ref
+    assert bool((ek < tol).all()) and bool((ep < tol).all()) and bool(torch.isfinite(xk).all())
+    assert int((ik.cpu() - ip.cpu()).abs().max()) <= 1
+    torch.testing.assert_close(xk, xp, rtol=2e-4, atol=2e-5)
+    _close_planes(P1k, P1p)
+    _close_planes(P2k, P2p)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("T", [1, 3, None], ids=["T-1", "T-3", "T-Ltau"])
+@pytest.mark.parametrize("beta", [1.0, 0.9], ids=["Ltau-10", "Ltau-9"])
+def test_pcg_force_kernel_tau_blocks(cuda_device, beta, T, warm):
+    """K3 with its tau blocks forced to 1, 3 and Ltau rows (3 leaves a ragged
+    last block at Ltau 9 and 10; Ltau wraps the whole system into one block)
+    at N = 18, W = 2, against its plain version."""
+    fdm32, pre, Lam, b = _walker_problem(cuda_device, 2, beta)
+    x0 = torch.zeros_like(b)
+    if warm:
+        x0, *_ = pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, 1e-3, 200, True)
+    T = fdm32.Ltau if T is None else T
+    got = pcg_force.pcg_force_cuda(fdm32, pre, b, x0, Lam, 1e-5, 200, True, tau_rows=T)
+    _check_k3(got, pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, 1e-5, 200, True))
+
+
+def _first_converged(fdm32, pre, b, x0, Lam, tol=1e-5):
+    """The plain version's iteration at which each channel system first has
+    eps < tol (cut by maxiter = k for k = 0, 1, ...)."""
+    first = [None] * (2 * b.shape[0])
+    for k in range(200):
+        eps = pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, tol, k, False)[3]
+        for s in range(len(first)):
+            if first[s] is None and float(eps[s]) < tol:
+                first[s] = k
+        if all(f is not None for f in first):
+            return first
+    raise AssertionError("the plain solve did not converge")
+
+
+def test_pcg_force_kernel_channels_stop_apart(cuda_device):
+    """One walker whose channel 1 starts from a tol-1e-3 solution and channel
+    0 from zero: the channels stop at different iterations (the walker's count
+    is the later one), and the stopped channel keeps its x while the other
+    iterates."""
+    fdm32, pre, Lam, b = _walker_problem(cuda_device, 1, 1.0)
+    x0 = torch.zeros_like(b)
+    x0[:, 1] = pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, 1e-3, 200, True)[0][:, 1]
+    first = _first_converged(fdm32, pre, b, x0, Lam)
+    assert first[0] != first[1]
+    got = pcg_force.pcg_force_cuda(fdm32, pre, b, x0, Lam, 1e-5, 200, True)
+    ref = pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, 1e-5, 200, True)
+    assert int(ref[4][0]) == max(first)
+    _check_k3(got, ref)
+
+
+def test_pcg_force_kernel_zero_rhs_beside_active(cuda_device):
+    """A zero right-hand side (x0 = 0) stops before the first iteration with x
+    = 0 and eps = 0, while the other channel of its walker and the other
+    walker iterate to convergence."""
+    fdm32, pre, Lam, b = _walker_problem(cuda_device, 2, 1.0)
+    b[0, 0] = 0.0
+    x0 = torch.zeros_like(b)
+    got = pcg_force.pcg_force_cuda(fdm32, pre, b, x0, Lam, 1e-5, 200, True)
+    assert float(got[3][0]) == 0.0 and bool((got[0][0, 0] == 0).all()) and int(got[4][0]) > 0
+    _check_k3(got, pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, 1e-5, 200, True))
+
+
+def test_pcg_force_kernel_cut_by_maxiter(cuda_device):
+    """A solve cut at maxiter = 3 with every system still active returns the
+    iterate of three iterations, as the plain version does, and the force
+    planes of that iterate. An iterate short of convergence carries the
+    rounding of the bf16 preconditioner's input, which later iterations
+    correct: the kernel rounds r - alpha Ap once (fmaf), the plain version
+    twice, and on this problem that alone moves the plain version's own
+    three-iteration iterate by 1.3e-5 of max|x| (1e-4 allowed here), where
+    converged solutions agree to 3.6e-6 absolute. The residual norms after
+    three iterations differ by up to 1.25% (2% allowed), the same with K3's
+    earlier one-row design on this problem."""
+    fdm32, pre, Lam, b = _walker_problem(cuda_device, 3, 1.0)
+    x0 = torch.zeros_like(b)
+    xk, P1k, P2k, ek, ik = pcg_force.pcg_force_cuda(fdm32, pre, b, x0, Lam, 1e-9, 3, True)
+    xp, P1p, P2p, ep, ip = pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, 1e-9, 3, True)
+    assert ik.tolist() == ip.tolist() == [3, 3, 3] and bool((ek > 1e-9).all())
+    torch.testing.assert_close(xk, xp, rtol=2e-4, atol=1e-4 * float(xp.abs().max()))
+    torch.testing.assert_close(ek, ep, rtol=2e-2, atol=0.0)
+    P1r, P2r = force.planes(fdm32, Lam, xk, True)
+    _close_planes(P1k, P1r)
+    _close_planes(P2k, P2r)
+
+
+def test_pcg_force_kernel_bit_identical_and_timed(cuda_device):
+    """Two launches give the same bits, and so does the timed instantiation
+    (its stamps add barriers, not arithmetic); its phase names count five
+    grid syncs a loop iteration."""
+    fdm32, pre, Lam, b = _walker_problem(cuda_device, 3, 0.9)
+    x0 = torch.zeros_like(b)
+    one = pcg_force.pcg_force_cuda(fdm32, pre, b, x0, Lam, 1e-5, 200, True)
+    two = pcg_force.pcg_force_cuda(fdm32, pre, b, x0, Lam, 1e-5, 200, True)
+    stamps = torch.zeros(pcg_force.stamp_slots(200), dtype=torch.int64, device=cuda_device)
+    timed = pcg_force.pcg_force_cuda(fdm32, pre, b, x0, Lam, 1e-5, 200, True, stamps=stamps)
+    for u, v, w in zip(one, two, timed):
+        assert torch.equal(u, v) and torch.equal(u, w)
+    us = pcg_force.phase_times(stamps, int(one[4].max()))
+    assert sum(k.startswith("sync") for k in us if k != "once") == 5
+    assert us["iteration"] > 0 and set(us["once"]) >= {"b2", "warm_mtm", "loop", "epilogue"}
+
+
+@pytest.mark.parametrize("N_L", [3, 12], ids=["N-18", "N-288"])
+def test_pcg_force_smem_matches_host_mirror(cuda_device, N_L):
+    """The kernel's shared memory for a block size is what the host's choice
+    of T assumes (ops/pcg_force.py:smem_bytes)."""
+    lib = pcg_force._build.load_library()
+    N = 2 * N_L * N_L
+    for T in (1, 3, 15, 16):
+        assert lib.smoqy_pcg_force_smem_bytes(N, T) == pcg_force.smem_bytes(N, T)
 
 
 @pytest.mark.parametrize("want_p2", [True, False], ids=["p2", "no-p2"])

@@ -1,5 +1,6 @@
-"""Parity of the port's transforms, spectral preconditioner and solvers, and
-of kernel K2 (the whole-solve spectral PCG).
+"""Parity of the port's transforms, spectral preconditioner and solvers, of
+kernel K2 (the whole-solve spectral PCG), and of the tau-blocked M^T M rows
+of K3's matvec phases with the host's choice of their block size.
 
 Tolerances: the Fourier transforms are exact up to f64 rounding (1e-12); the
 preconditioner's action, both built in f64, to 1e-10 (eigh differs in signs
@@ -21,11 +22,11 @@ from _torch_common import CASES, fdm_pair, np64, port_chain_model, t32, t64
 from smoqyelphqmc_tpu.ops.fermion_det import solve_MtM as jsolve
 from smoqyelphqmc_tpu.ops.fourier import AxisDFT as JAxisDFT
 from smoqyelphqmc_tpu.ops.fourier import TauFourier as JTauFourier
-from smoqyelphqmc_tpu.ops.pallas_fused import build_fused_pcg
+from smoqyelphqmc_tpu.ops.pallas_fused import build_fused_mtm, build_fused_pcg
 from smoqyelphqmc_tpu.ops.spectral_precond import build_spectral as jbuild_spectral
 from smoqyelphqmc_tpu.ops.spectral_precond import spectral_apply as jspectral_apply
 from smoqyelphqmc_tpu_torch import convert
-from smoqyelphqmc_tpu_torch.ops import pcg
+from smoqyelphqmc_tpu_torch.ops import mtm, pcg, pcg_force
 from smoqyelphqmc_tpu_torch.ops.cg import cg_solve
 from smoqyelphqmc_tpu_torch.ops.fermion_det import solve_MtM
 from smoqyelphqmc_tpu_torch.ops.fourier import AxisDFT, TauFourier
@@ -199,3 +200,69 @@ def test_preconditioner_kinds():
     assert isinstance(state.precond, KPMPreconditioner) and state.precond.matrix_free
     with pytest.raises(ValueError):
         build_preconditioner("cheb", pfdm)
+
+
+BLOCK_T = [pytest.param(T, id=f"T-{T}") for T in (1, 2, 3, 4)] + [pytest.param(None, id="T-Ltau")]
+LTAU = [pytest.param(0.9, id="Ltau-9"), pytest.param(1.0, id="Ltau-10")]
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "asym"])
+@pytest.mark.parametrize("beta", LTAU)
+@pytest.mark.parametrize("T", BLOCK_T)
+def test_mtm_blocked_plain_matches_mul_MtM(T, beta, symmetric):
+    """The tau-blocked algebra of K3's matvec phases (ops/mtm.py:
+    mtm_blocked_plain) against M^T M in f64: 1e-12, with 2 nr + 1 B
+    applications for each block of nr rows (the last block ragged where T
+    does not divide Ltau, the rows wrapping periodically with sgn1 / sgnL at
+    rows 0 and Ltau - 1)."""
+    _, pfdm, *_ = fdm_pair("honeycomb", dict(L=3, beta=beta, alpha=0.4), x_seed=26, symmetric=symmetric)
+    L = pfdm.Ltau
+    T = L if T is None else T
+    v = t64(np.random.default_rng(27).standard_normal((2, L, pfdm.n_sites)))
+    got, n_apply = mtm.mtm_blocked_plain(pfdm, v, T)
+    ref = pfdm.mul_Mt(pfdm.mul_M(v))
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-12
+    assert n_apply == sum(2 * nr + 1 for _, nr in pcg_force.tau_blocks(L, T))
+
+
+@pytest.mark.parametrize("beta", LTAU)
+@pytest.mark.parametrize("T", [pytest.param(1, id="T-1"), pytest.param(3, id="T-3"), pytest.param(None, id="T-Ltau")])
+def test_mtm_blocked_plain_matches_pallas_interpret(T, beta):
+    """The same blocked algebra against `_mtm_kernel_roll` in interpret mode,
+    which computes in f32: 2e-6 (tests/test_pallas.py:65)."""
+    jfdm, pfdm, *_ = fdm_pair("honeycomb", dict(L=3, beta=beta, alpha=0.4), x_seed=28)
+    fused = build_fused_mtm(jfdm, interpret=True)
+    assert fused is not None and fused.mode == "roll"
+    L = pfdm.Ltau
+    v = np.random.default_rng(29).standard_normal((2, L, pfdm.n_sites)).astype(np.float32)
+    ref = np.asarray(fused(jnp.asarray(v)), dtype=np.float64)
+    got, _ = mtm.mtm_blocked_plain(pfdm, t64(v), L if T is None else T)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-6, atol=2e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("N", [18, 288, 4000])
+def test_tau_block_rows_cover_and_fit(N):
+    """K3's choice of T: each system's blocks cover its tau rows once, in
+    order; the blocks make one round of the grid where the budget allows;
+    the shared memory stays within the budget that keeps two CTAs on an SM,
+    except at large N, where a block is one row and the launch stays under
+    the card's 227 KB a CTA."""
+    for n_sys, L, grid in ((16, 240, 264), (2, 240, 264), (2, 9, 264), (6, 10, 132), (16, 240, 132),
+                           (512, 10, 264)):
+        T = pcg_force.tau_block_rows(n_sys, L, N, grid)
+        assert 1 <= T <= L
+        rows = [l0 + i for l0, nr in pcg_force.tau_blocks(L, T) for i in range(nr)]
+        assert rows == list(range(L))
+        smem = pcg_force.smem_bytes(N, T)
+        if N <= 288:
+            assert smem <= pcg_force.SMEM_BUDGET
+            if T < L and n_sys * -(-L // T) > grid:  # more than a round: T at the budget's limit
+                assert pcg_force.smem_bytes(N, T + 1) > pcg_force.SMEM_BUDGET
+            elif T > 1:  # the fewest rows that make one round
+                assert n_sys * -(-L // (T - 1)) > grid
+        else:
+            assert T == 1 and smem <= 227 * 1024
+    # the headline at W = 8: 16 systems of (240, 288), 264 CTAs: 16 blocks of
+    # 15 rows a system, 256 blocks
+    assert pcg_force.tau_block_rows(16, 240, 288, 264) == 15
+    assert pcg_force.smem_bytes(288, 15) == 80 * 288 * 4
