@@ -38,12 +38,15 @@
 // syncs, as in K2. At W = 8 the matvec is 3840 rows: one row a CTA took 26
 // barriers and three B applications, each stage 1-2 elements a thread with
 // the tables read from L2; a block of T rows takes 2T + 1 B applications, all
-// its rows in each stage between one pair of barriers, and every read of
-// device memory it makes (its rows of z and the previous p, or of x0, and of
-// expV) is a cp.async issued before its first stage: a loop that read them
-// an element at a time waited out L2 in turn (52 us of MtM at W = 8 where
-// ~20 were predicted). The host picks T (ops/pcg_force.py:tau_block_rows) so
-// that the blocks make about one round of the grid with two CTAs an SM. The products (2 x 37 M bf16 multiply-adds per
+// its rows in each stage between one pair of barriers. A thread runs down
+// all rows of its sites, so it reads a site's tables once a stage, and every
+// read of device memory the block makes (its rows of z and the previous p,
+// or of x0, and of expV) is a cp.async issued before its first stage. (A
+// thread that took the block's elements in row order spent ~45 instructions
+// an element on indices and table reads: MtM and its wait cost ~60 us an
+// iteration at W = 8, however the reads were arranged.) The host picks T
+// (ops/pcg_force.py:tau_block_rows) so that the blocks make about one round
+// of the grid with two CTAs an SM. The products (2 x 37 M bf16 multiply-adds per
 // system and iteration at Ltau = 240, N = 288) are eight times K2's tiles at
 // W = 8, ~4.5 per CTA. The epilogue is one pass over W Ltau rows.
 //

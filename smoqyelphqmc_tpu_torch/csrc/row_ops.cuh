@@ -188,11 +188,11 @@ __device__ void stage_rows_async(T* dst, const T* plane, int first, int rows, in
 
 // ---- tau-blocked rows: one CTA takes T consecutive tau rows of one system ----
 //
-// Buffer rows hold k rows of N sites each, row i at tau row (lb + i) mod Ltau;
-// a stage runs over all k N elements (thread e takes element e, e + blockDim.x,
-// ...), so the rows of a block share each __syncthreads(). Every read from
-// device memory (the staged rows and expV) is a cp.async issued before the
-// block's first stage, so none of them waits inside a stage.
+// Buffer rows hold k rows of N sites each, row i at tau row (lb + i) mod Ltau.
+// A thread takes sites n = threadIdx.x, + blockDim.x, ... and runs down all k
+// rows of each, so a stage reads a site's tables once for the block and the
+// rows share each __syncthreads(). Every read from device memory (the staged
+// rows and expV) is a cp.async issued before the block's first stage.
 
 // Rows of N values that mtm_rows_block's buffer holds for a block of T rows.
 __host__ __device__ constexpr int mtm_block_rows(int T) { return 5 * T + 5; }
@@ -212,18 +212,19 @@ __device__ void color_rows(const CbTables<T>& tb, const T* E, int c, int lb, int
   const T* Cc = tb.C + (size_t)c * tb.color_stride;
   const T* Sc = tb.S + (size_t)c * tb.color_stride;
   const int* pc = tb.partner + (size_t)c * N;
-  const int di = blockDim.x / N, dn = blockDim.x % N;
-  for (int i = threadIdx.x / N, n = threadIdx.x % N; i < k;) {
-    const size_t ro = tb.tau_stride ? (size_t)wrap_row(lb + i, L) * tb.tau_stride + n : n;
-    const T* ui = u + (size_t)i * N;
-    T v = Cc[ro] * ui[n] + Sc[ro] * ui[pc[n]];
-    if (kScale) v = E[(size_t)i * N + n] * v;
-    t[(size_t)i * N + n] = v;
-    i += di;
-    n += dn;
-    if (n >= N) {
-      n -= N;
-      ++i;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    const int pn = pc[n];
+    T cn = Cc[n], sn = Sc[n];
+    for (int i = 0; i < k; ++i) {
+      if (tb.tau_stride != 0) {  // tau-dependent hoppings: this row's tables
+        const size_t ro = (size_t)wrap_row(lb + i, L) * tb.tau_stride + n;
+        cn = Cc[ro];
+        sn = Sc[ro];
+      }
+      const T* ui = u + i * N;
+      T v = cn * ui[n] + sn * ui[pn];
+      if (kScale) v = E[i * N + n] * v;
+      t[i * N + n] = v;
     }
   }
 }
@@ -271,10 +272,10 @@ __device__ double mtm_rows_block(const CbTables<T>& tb, const T* va, const T* vb
                                  int nr, T* buf, Emit emit) {
   const int N = tb.N, L = tb.Ltau;
   T* V = buf;
-  T* Mb = V + (size_t)(nr + 2) * N;
-  T* X = Mb + (size_t)(nr + 1) * N;
-  T* Y = X + (size_t)(nr + 1) * N;
-  T* E = Y + (size_t)nr * N;
+  T* Mb = V + (nr + 2) * N;
+  T* X = Mb + (nr + 1) * N;
+  T* Y = X + (nr + 1) * N;
+  T* E = Y + nr * N;
   const int lv = wrap_row(l0 + L - 1, L);  // tau row of V[0]
   stage_rows_async(V, va, lv, nr + 2, L, N);
   if (vb != nullptr) stage_rows_async(Mb, vb, lv, nr + 2, L, N);
@@ -287,31 +288,20 @@ __device__ double mtm_rows_block(const CbTables<T>& tb, const T* va, const T* vb
     __syncthreads();
   }
   const T* r = apply_B_rows(tb, E, l0, nr + 1, V, X, Mb);
-  const int di = blockDim.x / N, dn = blockDim.x % N;
-  for (int i = threadIdx.x / N, n = threadIdx.x % N; i <= nr;) {
-    const T s1 = wrap_row(l0 + i, L) == 0 ? T(1) : T(-1);
-    const size_t e = (size_t)i * N + n;
-    Mb[e] = V[e + N] + s1 * r[e];  // r may be Mb: each element reads its own
-    i += di;
-    n += dn;
-    if (n >= N) {
-      n -= N;
-      ++i;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    for (int i = 0; i <= nr; ++i) {
+      const T s1 = l0 + i == 0 || l0 + i == L ? T(1) : T(-1);  // tau 0 (l0 + i <= L)
+      Mb[i * N + n] = V[(i + 1) * N + n] + s1 * r[i * N + n];  // r may be Mb: in place
     }
   }
   __syncthreads();
   r = apply_B_rows(tb, E + N, wrap_row(l0 + 1, L), nr, Mb + N, X, Y);
   double acc = 0.0;
-  for (int i = threadIdx.x / N, n = threadIdx.x % N; i < nr;) {
-    const int j = l0 + i;
-    const T sL = j == L - 1 ? T(1) : T(-1);
-    const size_t e = (size_t)i * N + n;
-    acc += emit(j, n, Mb[e] + sL * r[e], V[e + N]);
-    i += di;
-    n += dn;
-    if (n >= N) {
-      n -= N;
-      ++i;
+  for (int n = threadIdx.x; n < N; n += blockDim.x) {
+    for (int i = 0; i < nr; ++i) {
+      const int j = l0 + i;
+      const T sL = j == L - 1 ? T(1) : T(-1);
+      acc += emit(j, n, Mb[i * N + n] + sL * r[i * N + n], V[(i + 1) * N + n]);
     }
   }
   __syncthreads();  // buf is staged again by the next block
