@@ -29,8 +29,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of csrc/*.cu: every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "smoqy_mtm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "smoqy_mtm_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "smoqy_mtm_stamp_slots": [],
+    "smoqy_mtm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "smoqy_mtm_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "smoqy_pcg_grid": [_I],
     "smoqy_pcg_max_grid": [],
     "smoqy_pcg_max_systems": [],

@@ -14,6 +14,11 @@
 // colors separated by __syncthreads), so device memory sees the inputs and
 // the output once, and the tables stay resident in L2 across rows.
 //
+// A timed instantiation (kTimed) stamps clock64() after every phase of its
+// row (the staging of an input row, each color stage and the expV scaling
+// with their barriers, the m passes and the output pass) on CTA 0 and on the
+// last CTA to finish (ops/mtm.py:phase_times names them).
+//
 // C interface (bound with ctypes from ops/mtm.py): returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -22,27 +27,172 @@
 
 namespace {
 
-template <typename T>
+using smoqy::CbTables;
+
+// ---- the timed instantiation's stamps ---------------------------------------
+//
+// Layout of the int64 stamp buffer (zeroed by the host): slots 0-3 CTA 0's
+// globaltimer and clock64 at its start and end, 4-7 the same for the last CTA
+// to finish, 8 the finish counter, 9 that CTA's index, then kMaxStamps clocks
+// of CTA 0 (one at the end of each phase) and kMaxStamps of the last CTA.
+constexpr int kStampBase = 10;
+constexpr int kMaxStamps = 64;
+
+template <bool kTimed>
+struct Stamps {
+  __device__ void start() {}
+  __device__ void mark() {}
+  __device__ void finish(unsigned long long*) {}
+};
+
+template <>
+struct Stamps<true> {
+  unsigned long long* sh;  // kMaxStamps + 2 clocks in shared memory
+  int n = 0;
+  unsigned long long g0 = 0, c0 = 0;
+
+  __device__ static unsigned long long gtime() {
+    unsigned long long g;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+    return g;
+  }
+  __device__ void start() {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      g0 = gtime();
+      c0 = clock64();
+    }
+  }
+  __device__ void mark() {
+    __syncthreads();
+    if (threadIdx.x == 0 && n < kMaxStamps) sh[n] = clock64();
+    ++n;
+  }
+  __device__ void finish(unsigned long long* t) {
+    __syncthreads();
+    if (threadIdx.x != 0) return;
+    const unsigned long long g1 = gtime(), c1 = clock64();
+    const unsigned long long head[4] = {g0, c0, g1, c1};
+    const unsigned done = atomicAdd(reinterpret_cast<unsigned long long*>(t + 8), 1ull);
+    const int m = n < kMaxStamps ? n : kMaxStamps;
+    if (blockIdx.x == 0) {
+      for (int i = 0; i < 4; ++i) t[i] = head[i];
+      for (int i = 0; i < m; ++i) t[kStampBase + i] = sh[i];
+    }
+    if (done == gridDim.x - 1) {
+      for (int i = 0; i < 4; ++i) t[4 + i] = head[i];
+      t[9] = blockIdx.x;
+      for (int i = 0; i < m; ++i) t[kStampBase + kMaxStamps + i] = sh[i];
+    }
+  }
+};
+
+// ---- one row a CTA (the design of the first port, with stamps) --------------
+
+template <typename T, typename St>
+__device__ T* sweep(const CbTables<T>& tb, int l, T* u, T* t, bool reverse, St& st) {
+  for (int i = 0; i < tb.n_colors; ++i) {
+    const int c = reverse ? tb.n_colors - 1 - i : i;
+    const size_t off = (size_t)c * tb.color_stride + (size_t)l * tb.tau_stride;
+    const T* Cc = tb.C + off;
+    const T* Sc = tb.S + off;
+    const int* pc = tb.partner + (size_t)c * tb.N;
+    for (int n = threadIdx.x; n < tb.N; n += blockDim.x) t[n] = Cc[n] * u[n] + Sc[n] * u[pc[n]];
+    __syncthreads();
+    st.mark();
+    T* s = u;
+    u = t;
+    t = s;
+  }
+  return u;
+}
+
+template <typename T, typename St>
+__device__ void scale(const CbTables<T>& tb, int l, T* u, St& st) {
+  const T* e = tb.expV + (size_t)l * tb.N;
+  for (int n = threadIdx.x; n < tb.N; n += blockDim.x) u[n] = e[n] * u[n];
+  __syncthreads();
+  st.mark();
+}
+
+template <typename T, typename St>
+__device__ T* row_B(const CbTables<T>& tb, int l, T* u, T* t, St& st) {
+  if (tb.symmetric) {
+    T* r = sweep(tb, l, u, t, true, st);
+    scale(tb, l, r, st);
+    return sweep(tb, l, r, smoqy::other_buf(r, u, t), false, st);
+  }
+  T* r = sweep(tb, l, u, t, false, st);
+  scale(tb, l, r, st);
+  return r;
+}
+
+template <typename T, typename St>
+__device__ T* row_Bt(const CbTables<T>& tb, int l, T* u, T* t, St& st) {
+  if (tb.symmetric) return row_B(tb, l, u, t, st);
+  scale(tb, l, u, st);
+  return sweep(tb, l, u, t, true, st);
+}
+
+// Row l of M^T M v (row_ops.cuh:mtm_row_from's algorithm): three B
+// applications, ~6 n_colors + 7 barriers.
+template <typename T, typename St>
+__device__ void mtm_one_row(const CbTables<T>& tb, const T* v, T* out, int l, T* A, T* X, T* Y,
+                            St& st) {
+  const int N = tb.N, L = tb.Ltau;
+  const int lm = (l + L - 1) % L;
+  const int lp = (l + 1) % L;
+  const T s1_l = (l == 0) ? T(1) : T(-1);
+  const T s1_lp = (lp == 0) ? T(1) : T(-1);
+  const T sL_l = (l == L - 1) ? T(1) : T(-1);
+
+  for (int n = threadIdx.x; n < N; n += blockDim.x) X[n] = v[(size_t)lm * N + n];
+  __syncthreads();
+  st.mark();  // load v_{l-1}
+  T* r = row_B(tb, l, X, Y, st);
+  for (int n = threadIdx.x; n < N; n += blockDim.x) A[n] = v[(size_t)l * N + n] + s1_l * r[n];
+  __syncthreads();
+  st.mark();  // m_l
+  for (int n = threadIdx.x; n < N; n += blockDim.x) X[n] = v[(size_t)l * N + n];
+  __syncthreads();
+  st.mark();  // load v_l
+  r = row_B(tb, lp, X, Y, st);
+  for (int n = threadIdx.x; n < N; n += blockDim.x) r[n] = v[(size_t)lp * N + n] + s1_lp * r[n];
+  __syncthreads();
+  st.mark();  // m_{l+1}
+  r = row_Bt(tb, lp, r, smoqy::other_buf(r, X, Y), st);
+  for (int n = threadIdx.x; n < N; n += blockDim.x) out[n] = A[n] + sL_l * r[n];
+  __syncthreads();
+  st.mark();  // out
+}
+
+template <typename T, bool kTimed>
 __global__ void __launch_bounds__(smoqy::kThreads)
-mtm_kernel(const T* __restrict__ v, T* __restrict__ out, smoqy::CbTables<T> tb, int n_sys) {
+mtm_kernel(const T* __restrict__ v, T* __restrict__ out, CbTables<T> tb, int n_sys,
+           unsigned long long* stamps) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned long long st_sh[kTimed ? kMaxStamps : 1];
   T* A = reinterpret_cast<T*>(smem_raw);
   T* X = A + tb.N;
   T* Y = X + tb.N;
+  Stamps<kTimed> st;
+  if constexpr (kTimed) st.sh = st_sh;
+  st.start();
   const size_t plane = (size_t)tb.Ltau * tb.N;
   const int rows = n_sys * tb.Ltau;
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const int s = row / tb.Ltau;
     const int l = row % tb.Ltau;
-    smoqy::mtm_row<T>(tb, v + s * plane, out + (size_t)row * tb.N, l, A, X, Y, nullptr);
+    mtm_one_row<T>(tb, v + s * plane, out + (size_t)row * tb.N, l, A, X, Y, st);
   }
+  st.finish(stamps);
 }
 
 template <typename T>
 int launch_mtm(const T* v, T* out, const T* C, const T* S, const int* partner, const T* expV,
                int n_sys, int Ltau, int N, int n_colors, int tab_rows, int symmetric,
-               cudaStream_t stream) {
-  smoqy::CbTables<T> tb;
+               unsigned long long* stamps, cudaStream_t stream) {
+  CbTables<T> tb;
   tb.C = C;
   tb.S = S;
   tb.partner = partner;
@@ -54,28 +204,36 @@ int launch_mtm(const T* v, T* out, const T* C, const T* S, const int* partner, c
   tb.color_stride = tab_rows * N;
   tb.symmetric = symmetric;
   const size_t smem = 3 * (size_t)N * sizeof(T);
+  const void* fn = stamps ? (const void*)mtm_kernel<T, true> : (const void*)mtm_kernel<T, false>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(mtm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int rows = n_sys * Ltau;
-  mtm_kernel<T><<<rows, smoqy::kThreads, smem, stream>>>(v, out, tb, n_sys);
+  if (stamps) {
+    mtm_kernel<T, true><<<rows, smoqy::kThreads, smem, stream>>>(v, out, tb, n_sys, stamps);
+  } else {
+    mtm_kernel<T, false><<<rows, smoqy::kThreads, smem, stream>>>(v, out, tb, n_sys, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+extern "C" int smoqy_mtm_stamp_slots() { return kStampBase + 2 * kMaxStamps; }
+
 extern "C" int smoqy_mtm_f32(const float* v, float* out, const float* C, const float* S,
                              const int* partner, const float* expV, int n_sys, int Ltau, int N,
-                             int n_colors, int tab_rows, int symmetric, void* stream) {
+                             int n_colors, int tab_rows, int symmetric, void* stamps, void* stream) {
   return launch_mtm<float>(v, out, C, S, partner, expV, n_sys, Ltau, N, n_colors, tab_rows,
-                           symmetric, static_cast<cudaStream_t>(stream));
+                           symmetric, static_cast<unsigned long long*>(stamps),
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int smoqy_mtm_f64(const double* v, double* out, const double* C, const double* S,
                              const int* partner, const double* expV, int n_sys, int Ltau, int N,
-                             int n_colors, int tab_rows, int symmetric, void* stream) {
+                             int n_colors, int tab_rows, int symmetric, void* stamps, void* stream) {
   return launch_mtm<double>(v, out, C, S, partner, expV, n_sys, Ltau, N, n_colors, tab_rows,
-                            symmetric, static_cast<cudaStream_t>(stream));
+                            symmetric, static_cast<unsigned long long*>(stamps),
+                            static_cast<cudaStream_t>(stream));
 }

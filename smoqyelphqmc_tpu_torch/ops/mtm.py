@@ -97,8 +97,12 @@ def mtm_blocked_plain(fdm, v: torch.Tensor, T: int):
     return out, n_apply
 
 
-def mtm_cuda(fdm, v: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on v (..., Ltau, N), a CUDA tensor of the fermion matrix's dtype."""
+def mtm_cuda(fdm, v: torch.Tensor, stamps=None) -> torch.Tensor:
+    """Launch K1 on v (..., Ltau, N), a CUDA tensor of the fermion matrix's dtype.
+
+    `stamps`, a zeroed int64 CUDA tensor of `stamp_slots()` entries, selects
+    the timed instantiation, which records per-phase clocks there
+    (`phase_times`); the path never passes it."""
     require_real(fdm, "mtm kernel (K1)")
     if v.dtype != fdm.dtype or v.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"mtm kernel: v is {v.dtype}, the fermion matrix {fdm.dtype}")
@@ -113,15 +117,76 @@ def mtm_cuda(fdm, v: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(vb)
     C, S, partner, expV = mtm_tables(fdm)
     lib = _build.load_library()
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != v.device
+                               or not stamps.is_contiguous() or stamps.numel() < stamp_slots()):
+        raise ValueError(f"mtm kernel: stamps must be a contiguous int64 tensor of {stamp_slots()} on {v.device}")
     fn = lib.smoqy_mtm_f32 if v.dtype == torch.float32 else lib.smoqy_mtm_f64
     rc = fn(
         vb.data_ptr(), out.data_ptr(), C.data_ptr(), S.data_ptr(), partner.data_ptr(),
         expV.data_ptr(), vb.shape[0], Ltau, N, C.shape[0], C.shape[1], int(fdm.symmetric),
-        torch.cuda.current_stream(v.device).cuda_stream,
+        None if stamps is None else stamps.data_ptr(), torch.cuda.current_stream(v.device).cuda_stream,
     )
     _build.check(rc, "mtm kernel launch")
     MTM[v.dtype].launches += 1
     return out.reshape(v.shape)
+
+
+STAMP_BASE = 10  # csrc/mtm.cu:kStampBase
+
+
+def stamp_slots() -> int:
+    return _build.load_library().smoqy_mtm_stamp_slots()
+
+
+def phase_names(n_colors: int, symmetric: bool) -> list:
+    """The timed instantiation's phases of one row, in the order it stamps
+    them: the staging of v_{l-1}, B_l (its color stages and expV scaling),
+    m_l, the staging of v_l, B_{l+1}, m_{l+1}, B_{l+1}^T and the output."""
+    rev = [f"c{c}" for c in reversed(range(n_colors))]
+    fwd = [f"c{c}" for c in range(n_colors)]
+    b = rev + ["expV"] + fwd if symmetric else fwd + ["expV"]
+    bt = b if symmetric else ["expV"] + rev
+
+    def tagged(tag, stages):
+        return [f"{tag}.{k}:{s}" for k, s in enumerate(stages)]
+
+    return (["stage:v_l-1"] + tagged("B_l", b) + ["m:l", "stage:v_l"] + tagged("B_l+1", b) + ["m:l+1"]
+            + tagged("Bt_l+1", bt) + ["out"])
+
+
+def phase_names_for(fdm, n_sys: int) -> list:
+    """The phases a timed launch on this fermion matrix stamps (one row a CTA)."""
+    return phase_names(fdm.cb.n_colors, fdm.symmetric)
+
+
+def _group(name: str) -> str:
+    """The phase group of a stamp name: stage, color, expV, m or out."""
+    if name.startswith("stage"):
+        return "stage"
+    if name.startswith("m:"):
+        return "m"
+    if name == "out":
+        return "out"
+    return "expV" if name.endswith("expV") else "color"
+
+
+def phase_times(stamps: torch.Tensor, names: list) -> dict:
+    """Microseconds of each phase of a timed launch, on CTA 0 and on the last
+    CTA to finish (`names`: the phases the kernel stamped, in order), their
+    sums by group (stage, color, expV, m, out), each CTA's time and the
+    kernel's (CTA 0's start to the last CTA's end, by globaltimer)."""
+    t = stamps.cpu().tolist()
+    us_per_cycle = (t[2] - t[0]) / max(t[3] - t[1], 1) / 1e3
+    out = {"kernel": (t[6] - t[0]) / 1e3, "last_cta": int(t[9]), "last_start": (t[4] - t[0]) / 1e3}
+    last_base = STAMP_BASE + (stamp_slots() - STAMP_BASE) // 2
+    for who, head, base in (("cta0", 0, STAMP_BASE), ("last", 4, last_base)):
+        chain = [t[head + 1]] + t[base:base + len(names)]
+        us = [us_per_cycle * (chain[j + 1] - chain[j]) for j in range(len(names))]
+        groups: dict = {}
+        for name, u in zip(names, us):
+            groups[_group(name)] = groups.get(_group(name), 0.0) + u
+        out[who] = {"us": (t[head + 2] - t[head]) / 1e3, "groups": groups, "phases": dict(zip(names, us))}
+    return out
 
 
 def mul_MtM(fdm, v: torch.Tensor) -> torch.Tensor:
