@@ -14,7 +14,10 @@ initial field (the expansion seed 0), in both factorizations:
   more than 8 lane-shift classes a color, K5's function).
 
 For each shape, factorization and dtype (f32, f64) it prints one JSON line
-(`k1`): ms per launch (CUDA events over `--reps` launches after a warm-up),
+(`k1`): ms per launch, the device's time (`ms`: CUDA events around replays
+of a CUDA graph of `--reps` launches, so that the host's launch cost, which
+exceeds the kernel at the headline, is left out) and the eager caller's
+(`eager_ms`: CUDA events over `--reps` launches from Python after a warm-up),
 the bound (the larger of the bytes K1 must move over 3.35 TB/s and its
 operations over the type's peak, as chip_smoke.py:mtm_bound counts them),
 the largest difference from the plain version relative to its largest value
@@ -112,6 +115,27 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    def graph_ms(fn, reps, replays=3):
+        """Device ms per launch: `reps` launches captured in one CUDA graph."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (reps * replays)
+
     dev = torch.device("cuda")
     timed = hasattr(mtm, "phase_times")
     for shape in args.shapes:
@@ -137,10 +161,11 @@ def main() -> None:
                 ref = mtm.mtm_plain(fdm, v)
                 torch.cuda.synchronize()
                 rel = float((got - ref).abs().max() / ref.abs().max())
-                ms = cuda_ms(lambda: mtm.mtm_cuda(fdm, v), args.reps)
+                eager_ms = cuda_ms(lambda: mtm.mtm_cuda(fdm, v), args.reps)
+                ms = graph_ms(lambda: mtm.mtm_cuda(fdm, v), args.reps)
                 bound_ms, bound_by = mtm_bound(v.shape[0], fdm.Ltau, fdm.n_sites, fdm.cb.n_colors, v.element_size())
                 row = dict(kind="k1", shape=shape, symmetric=symmetric, dtype=str(dtype).split(".")[-1],
-                           v=list(v.shape), n_colors=fdm.cb.n_colors, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                           v=list(v.shape), n_colors=fdm.cb.n_colors, ms=ms, eager_ms=eager_ms, bound_ms=bound_ms, bound_by=bound_by,
                            max_rel_err=rel, tol=tol, ok=rel <= tol, bit_identical=bool(torch.equal(got, again)))
                 if hasattr(mtm, "launch_shape"):
                     row["launch"] = mtm.launch_shape(fdm, v.shape[0])
@@ -170,7 +195,7 @@ def main() -> None:
                 for T in args.tau_rows:
                     xt = mtm.mtm_cuda(fdm, v, tau_rows=T)
                     torch.cuda.synchronize()
-                    tms = cuda_ms(lambda: mtm.mtm_cuda(fdm, v, tau_rows=T), args.reps)
+                    tms = graph_ms(lambda: mtm.mtm_cuda(fdm, v, tau_rows=T), args.reps)
                     say(kind="k1_tau_rows", shape=shape, symmetric=symmetric, dtype=row["dtype"], tau_block=T,
                         ms=tms, max_rel_err=float((xt - ref).abs().max() / ref.abs().max()),
                         launch=mtm.launch_shape(fdm, v.shape[0], tau_rows=T))
