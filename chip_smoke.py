@@ -6,7 +6,10 @@ Phases, one line each:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: nvcc builds the kernels from smoqyelphqmc_tpu_torch/csrc;
   3. K1 (M^T M, f32 and f64) against its plain PyTorch version on the headline
-     model's tables at (2, 240, 288);
+     model's tables at (2, 240, 288), its time the device's (a CUDA graph of
+     launches) beside the eager caller's; then the same at the large-N
+     path's shape (2, 240, 4608), symmetric and asymmetric, f32 and f64, each
+     on its own line with its bound;
   4. K2 (whole-solve spectral PCG) against its plain version, cold and warm,
      with its time, us and grid syncs per iteration;
   5. the main path: `run_updates` on the headline model (Holstein honeycomb
@@ -40,7 +43,7 @@ Phases, one line each:
      preconditioner='auto', which resolves to the matrix-free KPM
      preconditioner; KPM must stay active, every solve converge, every
      Delta H be finite, and K1 f32, K1 f64 and K6 launch with no plain
-     version run;
+     version run (the line gives K1's launches per sweep);
  16. the same path with the asymmetric factorization (K7);
  17. a KPM chain (preconditioner='kpm', N=1152 > 1024, so matrix-free) on the
      GPU and on the CPU: the chains must agree;
@@ -137,6 +140,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int, replays: int = 3) -> float:
+    """Mean device time of fn over reps launches captured in one CUDA graph
+    (CUDA events around its replays): the kernel's own time where the host's
+    launch cost would exceed it, as it does for K1 at the headline."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def bound(nbytes: float, ops: dict):
     """(bound_ms, bound_by): the larger of nbytes over the HBM rate and the
     operations {type: count} over their peaks."""
@@ -216,12 +245,17 @@ def headline_fdm(device, neighbor_table=None, x=None, h=HEADLINE, symmetric=True
 
 def phase_k1(fdm64, results, tag="K1", names=("mtm_f32", "mtm_f64"),
              replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:121"):
+    """K1 against its plain version on fdm64's tables in f32 and f64, v (2,
+    Ltau, N). `ms` is the device's time per launch (a CUDA graph of 50
+    launches); the line also gives the eager caller's (CUDA events over 50
+    launches from Python), the launch's form and T. With names=None the
+    results are printed only (the L=48 shapes)."""
     import torch
 
     from smoqyelphqmc_tpu_torch.ops import mtm
 
     gen = torch.Generator(device="cpu").manual_seed(11)
-    for dtype, tol, name in ((torch.float32, 2e-6, names[0]), (torch.float64, 1e-12, names[1])):
+    for dtype, tol, name in ((torch.float32, 2e-6, names and names[0]), (torch.float64, 1e-12, names and names[1])):
         fdm = fdm64.astype(dtype)
         v = torch.randn((2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float64).to(fdm.device, dtype)
         got = mtm.mtm_cuda(fdm, v)
@@ -229,16 +263,31 @@ def phase_k1(fdm64, results, tag="K1", names=("mtm_f32", "mtm_f64"),
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         rel = err / float(ref.abs().max())
-        ms = cuda_ms(lambda: mtm.mtm_cuda(fdm, v), 50)
+        ms = graph_ms(lambda: mtm.mtm_cuda(fdm, v), 50)
+        eager_ms = cuda_ms(lambda: mtm.mtm_cuda(fdm, v), 50)
         plain_ms = cuda_ms(lambda: mtm.mtm_plain(fdm, v), 20)
-        say(f"{tag} {name}: shape {tuple(v.shape)} max_rel_err {rel:.3e} (tol {tol:g}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        if not rel <= tol:
-            fail(f"{tag} {name} disagrees with its plain version: {rel:.3e} > {tol:g}")
         bound_ms, bound_by = mtm_bound(v.shape[0], fdm.Ltau, fdm.n_sites, fdm.cb.n_colors, v.element_size())
-        results[name] = dict(name=name, route="cuda", source="smoqyelphqmc_tpu_torch/csrc/mtm.cu",
-                             replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
+        shape = mtm.launch_shape(fdm, v.shape[0])
+        say(f"{tag} {name or str(dtype).split('.')[-1]} ({'symmetric' if fdm.symmetric else 'asymmetric'}): shape "
+            f"{tuple(v.shape)} max_rel_err {rel:.3e} (tol {tol:g}) kernel {ms:.4f} ms (eager call {eager_ms:.4f}) "
+            f"plain {plain_ms:.4f} ms bound {bound_ms:.5f} ms by {bound_by}; T {shape['tau_block']}, "
+            f"{shape['threads']} threads, form {shape['form']}, grid {shape['grid']}, {shape['smem']} bytes")
+        if not rel <= tol:
+            fail(f"{tag} {name or dtype} disagrees with its plain version: {rel:.3e} > {tol:g}")
+        if name:
+            results[name] = dict(name=name, route="cuda", source="smoqyelphqmc_tpu_torch/csrc/mtm.cu",
+                                 replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+
+
+def phase_k1_large():
+    """K1 at the large-N path's shape (2, 240, 4608), both factorizations,
+    f32 and f64, on the large model's tables (large_model_kpm's fermion
+    matrix), each on its own line with its bound."""
+    import torch
+
+    for symmetric in (True, False):
+        phase_k1(headline_fdm(torch.device("cuda"), h=LARGE, symmetric=symmetric), {}, tag="K1 L=48", names=None)
 
 
 def phase_k2(fdm64, results, key="pcg"):
@@ -744,7 +793,8 @@ def phase_large_path(results, card, symmetric, n_sweeps):
         f"{md['reflection_acceptance_rate']:.3f} swap {md['swap_acceptance_rate']:.3f} hmc "
         f"{md['hmc_acceptance_rate']:.3f}; iters/solve refl {md['reflection_iters']:.2f} swap "
         f"{md['swap_iters']:.2f} hmc {md['hmc_iters']:.2f}; {name} launches per solve "
-        f"{counts[name][0] / n_solves:.2f}; dH {rounded(md['hmc_delta_H'], 5)}; launches/plain calls {counts}")
+        f"{counts[name][0] / n_solves:.2f}; K1 launches per sweep f32 {counts['mtm_f32'][0] / n_sweeps:.1f} f64 "
+        f"{counts['mtm_f64'][0] / n_sweeps:.1f}; dH {rounded(md['hmc_delta_H'], 5)}; launches/plain calls {counts}")
     if md.get("kpm_active") is not True:
         fail(f"the large-N path did not keep an active KPM preconditioner (kpm_active {md.get('kpm_active')})")
     if not md["all_converged"] or not all(math.isfinite(d) for d in md["hmc_delta_H"]):
@@ -937,6 +987,7 @@ def main() -> None:
     results: dict = {}
     fdm64 = headline_fdm(torch.device("cuda"))
     phase_k1(fdm64, results)
+    phase_k1_large()
     phase_k2(fdm64, results)
     phase_main(results, card)
     phase_small_reference()

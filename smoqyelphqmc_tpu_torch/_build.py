@@ -30,8 +30,11 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu: every pointer and the stream are c_void_p
 _SIGNATURES = {
     "smoqy_mtm_stamp_slots": [],
-    "smoqy_mtm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    "smoqy_mtm_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "smoqy_mtm_row_ld": [_I, _I],
+    "smoqy_mtm_smem_bytes": [_I, _I, _I],
+    "smoqy_mtm_resident": [_I, _I, _I, _I],
+    "smoqy_mtm_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "smoqy_mtm_f64": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "smoqy_pcg_grid": [_I],
     "smoqy_pcg_max_grid": [],
     "smoqy_pcg_max_systems": [],

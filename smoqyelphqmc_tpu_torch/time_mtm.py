@@ -27,7 +27,8 @@ the same bits too and its per-phase breakdown (`k1_phases`: us of each phase
 group and of each phase on CTA 0 and on the last CTA to finish, the mean
 over 10 timed launches) and the launch's form (`launch_shape`, where the
 package has it). `--tau-rows T ...` times the launch again with its tau
-blocks forced to each T (`k1_tau_rows`).
+blocks forced to each T (`k1_tau_rows`), `--memory-form` in the form that
+reads the pair tables from device memory in every stage (`k1_memory_form`).
 
 `--package-root DIR` imports smoqyelphqmc_tpu_torch from DIR (an unpacked
 earlier commit), so that two versions are timed by one script on one card,
@@ -69,6 +70,8 @@ def main() -> None:
     ap.add_argument("--shapes", nargs="*", default=list(SHAPES), choices=list(SHAPES))
     ap.add_argument("--tau-rows", type=int, nargs="*", default=[],
                     help="also time each launch with its tau blocks forced to these row counts")
+    ap.add_argument("--memory-form", action="store_true",
+                    help="also time each launch in the memory form (tables read from device memory a stage)")
     args = ap.parse_args()
     sys.path.insert(0, args.package_root)
 
@@ -98,7 +101,8 @@ def main() -> None:
     _build.load_library()
     say(kind="build", seconds=info["seconds"], built=info["built"])
     entry = ""
-    for ln in info["log"].splitlines():  # K1's registers and spills
+    log = info["log"] or Path(info["path"]).with_suffix(".log").read_text()
+    for ln in log.splitlines():  # K1's registers and spills
         if "Compiling entry function" in ln:
             entry = ln.split("'")[1]
         elif "mtm" in entry and ("registers" in ln or "spill" in ln):
@@ -192,7 +196,16 @@ def main() -> None:
                                        for k in runs[0][who]["phases"]},
                         }
                     say(kind="k1_phases", shape=shape, symmetric=symmetric, dtype=row["dtype"], **mean)
+                if args.memory_form:
+                    xm = mtm.mtm_cuda(fdm, v, memory_form=True)
+                    torch.cuda.synchronize()
+                    mms = graph_ms(lambda: mtm.mtm_cuda(fdm, v, memory_form=True), args.reps)
+                    say(kind="k1_memory_form", shape=shape, symmetric=symmetric, dtype=row["dtype"], ms=mms,
+                        max_rel_err=float((xm - ref).abs().max() / ref.abs().max()),
+                        launch=mtm.launch_shape(fdm, v.shape[0], memory_form=True))
                 for T in args.tau_rows:
+                    if mtm.smem_bytes(fdm.n_sites, T, v.element_size()) > mtm.SMEM_MAX:
+                        continue  # the block does not fit a CTA
                     xt = mtm.mtm_cuda(fdm, v, tau_rows=T)
                     torch.cuda.synchronize()
                     tms = graph_ms(lambda: mtm.mtm_cuda(fdm, v, tau_rows=T), args.reps)

@@ -67,18 +67,125 @@ def test_mtm_kernel_matches_plain(cuda_device, dtype, tol, symmetric):
     assert float((got - ref).abs().max() / ref.abs().max()) <= tol
 
 
-def test_mtm_kernel_tau_dependent_tables(cuda_device):
-    """Full (n_colors, Ltau, N) C/S tables (tau stride N), the layout of
-    tau-dependent hoppings, through the same kernel."""
-    import dataclasses
+DTYPES = [pytest.param(torch.float32, 2e-6, id="f32"), pytest.param(torch.float64, 1e-12, id="f64")]
 
-    fdm = dataclasses.replace(_fdm(cuda_device, beta=0.9), static_hops=False)
+
+def _mtm_close(got, ref, tol):
+    assert float((got - ref).abs().max() / ref.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("symmetric", SYM)
+@pytest.mark.parametrize("T", [2, None], ids=["T-2", "T-Ltau"])
+def test_mtm_kernel_tau_dependent_tables(cuda_device, dtype, tol, symmetric, T):
+    """Full (n_colors, Ltau, N) C/S tables, the layout of tau-dependent
+    hoppings (the memory form, which reads a row's (cosh, sinh) in each row),
+    at Ltau 9: a ragged last tau block (T = 2) and one block of all rows."""
+    fdm = dataclasses.replace(_fdm(cuda_device, symmetric, beta=0.9), static_hops=False).astype(dtype)
     C, S, _, _ = mtm.mtm_tables(fdm)
     assert C.shape[1] == fdm.Ltau == 9
-    v = torch.randn((2, fdm.Ltau, fdm.n_sites), dtype=torch.float64,
+    assert mtm.launch_shape(fdm, 2)["form"] == 0
+    v = torch.randn((2, fdm.Ltau, fdm.n_sites), dtype=dtype,
                     generator=torch.Generator().manual_seed(4)).to(cuda_device)
-    got, ref = mtm.mtm_cuda(fdm, v), mtm.mtm_plain(fdm, v)
-    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-12
+    got = mtm.mtm_cuda(fdm, v, tau_rows=fdm.Ltau if T is None else T)
+    _mtm_close(got, mtm.mtm_plain(fdm, v), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("symmetric", SYM)
+@pytest.mark.parametrize("T", [1, 2, 3, None], ids=["T-1", "T-2", "T-3", "T-Ltau"])
+@pytest.mark.parametrize("beta", [0.9, 1.0], ids=["Ltau-9", "Ltau-10"])
+@pytest.mark.parametrize("L", [3, 12], ids=["N-18", "N-288"])
+def test_mtm_kernel_tau_blocks(cuda_device, L, beta, T, symmetric, dtype, tol):
+    """K1 with its tau blocks forced to 1, 2, 3 and Ltau rows (3 leaves a
+    ragged last block at Ltau 9 and 10; Ltau wraps the whole system into one
+    block, tau 0 at both ends of its m rows) against its plain version."""
+    fdm = _fdm(cuda_device, symmetric, L=L, beta=beta).astype(dtype)
+    T = fdm.Ltau if T is None else T
+    v = torch.randn((2, fdm.Ltau, fdm.n_sites), dtype=dtype,
+                    generator=torch.Generator().manual_seed(21)).to(cuda_device)
+    _mtm_close(mtm.mtm_cuda(fdm, v, tau_rows=T), mtm.mtm_plain(fdm, v), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("symmetric", SYM)
+@pytest.mark.parametrize("L", [39, 48], ids=["N-3042", "N-4608"])
+def test_mtm_kernel_large_n(cuda_device, L, symmetric, dtype, tol):
+    """Large N: 3042 sites (1521 pairs a color: a ragged last slot of 512
+    threads, K = 3) and the L=48 path's 4608 (K = 5), with the chosen T and
+    with T = 1, in the register form and the memory form."""
+    fdm = _fdm(cuda_device, symmetric, L=L, alpha=1.5).astype(dtype)
+    v = torch.randn((2, fdm.Ltau, fdm.n_sites), dtype=dtype,
+                    generator=torch.Generator().manual_seed(22)).to(cuda_device)
+    ref = mtm.mtm_plain(fdm, v)
+    shape = mtm.launch_shape(fdm, 2)
+    assert shape["form"] == shape["K"] and shape["smem"] <= 227 * 1024
+    for kw in ({}, {"tau_rows": 1}, {"memory_form": True}):
+        _mtm_close(mtm.mtm_cuda(fdm, v, **kw), ref, tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("symmetric", SYM)
+@pytest.mark.parametrize("form", ["registers", "memory"])
+def test_mtm_kernel_permuted_lattice(cuda_device, dtype, tol, symmetric, form):
+    """K5's function: the headline honeycomb's site labels permuted (an
+    irregular partner map), N = 288, Ltau = 10."""
+    geo, tbm, em = holstein_honeycomb_model(12, 1.0, 0.6, 0.0)
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=cuda_device)
+    elph = ElectronPhononParameters.from_model(1.0, 0.1, em, tbp, rng, device=cuda_device)
+    perm = np.random.default_rng(15).permutation(tbp.n_sites)
+    nt = perm[np.asarray(tbp.neighbor_table)].astype(np.int32)
+    structure = build_checkerboard_structure(nt, tbp.n_sites)
+    fdm = FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph), structure,
+                                              symmetric=symmetric).astype(dtype)
+    v = torch.randn((2, fdm.Ltau, fdm.n_sites), dtype=dtype,
+                    generator=torch.Generator().manual_seed(23)).to(cuda_device)
+    got = mtm.mtm_cuda(fdm, v, memory_form=form == "memory")
+    _mtm_close(got, mtm.mtm_plain(fdm, v), tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("n_sys", [1, 3], ids=["1-system", "3-systems"])
+def test_mtm_kernel_batches(cuda_device, n_sys, dtype, tol):
+    """A batch of one system and of three, with a leading axis to flatten."""
+    fdm = _fdm(cuda_device, L=12).astype(dtype)
+    v = torch.randn((n_sys, 1, fdm.Ltau, fdm.n_sites), dtype=dtype,
+                    generator=torch.Generator().manual_seed(24)).to(cuda_device)
+    got = mtm.mtm_cuda(fdm, v)
+    assert got.shape == v.shape
+    _mtm_close(got, mtm.mtm_plain(fdm, v), tol)
+
+
+@pytest.mark.parametrize("symmetric", SYM)
+def test_mtm_kernel_bit_identical_and_timed(cuda_device, symmetric):
+    """Two launches give the same bits, and so does the timed instantiation
+    (its stamps add barriers, not arithmetic); it stamps the staging, 2
+    n_colors (symmetric) or n_colors color stages for B and for B^T, m and
+    the output, on CTA 0 and on the last CTA to finish."""
+    fdm = _fdm(cuda_device, symmetric, L=12).astype(torch.float32)
+    v = torch.randn((2, fdm.Ltau, fdm.n_sites), dtype=torch.float32,
+                    generator=torch.Generator().manual_seed(25)).to(cuda_device)
+    one, two = mtm.mtm_cuda(fdm, v), mtm.mtm_cuda(fdm, v)
+    stamps = torch.zeros(mtm.stamp_slots(), dtype=torch.int64, device=cuda_device)
+    timed = mtm.mtm_cuda(fdm, v, stamps=stamps)
+    assert torch.equal(one, two) and torch.equal(one, timed)
+    names = mtm.phase_names_for(fdm, 2)
+    assert len(names) == 3 + 2 * (2 if symmetric else 1) * fdm.cb.n_colors
+    us = mtm.phase_times(stamps, names)
+    assert us["kernel"] > 0 and all(us[w]["us"] > 0 for w in ("cta0", "last"))
+    assert set(us["cta0"]["groups"]) == {"stage", "B", "m", "Bt", "out"}
+
+
+@pytest.mark.parametrize("N", [18, 288, 3042, 4608])
+def test_mtm_smem_matches_host_mirror(cuda_device, N):
+    """The kernel's row stride and shared memory for a block size are what the
+    host's choice of T assumes (ops/mtm.py:row_ld, smem_bytes)."""
+    lib = mtm._build.load_library()
+    for es in (4, 8):
+        assert lib.smoqy_mtm_row_ld(N, int(es == 8)) == mtm.row_ld(N, es)
+        for T in (1, 2, 3, 4, 10):
+            assert lib.smoqy_mtm_smem_bytes(N, T, int(es == 8)) == mtm.smem_bytes(N, T, es)
 
 
 def test_mtm_kernel_rejects_mixed_dtypes(cuda_device):

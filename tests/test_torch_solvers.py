@@ -266,3 +266,121 @@ def test_tau_block_rows_cover_and_fit(N):
     # 15 rows a system, 256 blocks
     assert pcg_force.tau_block_rows(16, 240, 288, 264) == 15
     assert pcg_force.smem_bytes(288, 15) == 80 * 288 * 4
+
+
+PAIR_MODELS = [pytest.param("honeycomb", dict(L=3, beta=0.9, alpha=0.4), None, id="honeycomb-Ltau-9"),
+               pytest.param("honeycomb", dict(L=3, beta=1.0, alpha=0.4), None, id="honeycomb-Ltau-10"),
+               pytest.param("honeycomb", dict(L=3, beta=1.0, alpha=0.4), 15, id="honeycomb-permuted"),
+               pytest.param("chain", dict(L=6, beta=0.8, alpha=0.4), None, id="chain")]
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "asym"])
+@pytest.mark.parametrize("tau_tabs", [False, True], ids=["tables-1", "tables-Ltau"])
+@pytest.mark.parametrize("T", [pytest.param(1, id="T-1"), pytest.param(3, id="T-3"), pytest.param(None, id="T-Ltau")])
+@pytest.mark.parametrize("name,kw,perm", PAIR_MODELS)
+def test_mtm_pairs_plain_matches_mul_MtM(name, kw, perm, T, tau_tabs, symmetric):
+    """K1's algebra (ops/mtm.py:mtm_blocked_plain with pairs: the padded pair
+    tables, in-place pair updates, expV on a color stage, tau blocks of T
+    rows) against M^T M in f64: 1e-12, both factorizations, tau-independent
+    and tau-dependent tables, a permuted lattice and a chain."""
+    import dataclasses
+
+    _, pfdm, *_ = fdm_pair(name, kw, x_seed=30, symmetric=symmetric, perm_seed=perm)
+    if tau_tabs:
+        pfdm = dataclasses.replace(pfdm, static_hops=False)
+    L = pfdm.Ltau
+    v = t64(np.random.default_rng(31).standard_normal((2, L, pfdm.n_sites)))
+    got, n_apply = mtm.mtm_blocked_plain(pfdm, v, L if T is None else T, pairs=True)
+    ref = pfdm.mul_Mt(pfdm.mul_M(v))
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-12
+    assert n_apply == sum(2 * nr + 1 for _, nr in pcg_force.tau_blocks(L, L if T is None else T))
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "asym"])
+@pytest.mark.parametrize("T", [pytest.param(2, id="T-2"), pytest.param(None, id="T-Ltau")])
+def test_mtm_pairs_plain_matches_pallas_interpret(T, symmetric):
+    """The same pair algebra against `_mtm_kernel_roll` in interpret mode,
+    which computes in f32: 2e-6 (tests/test_pallas.py:65), both
+    factorizations."""
+    jfdm, pfdm, *_ = fdm_pair("honeycomb", dict(L=3, beta=0.9, alpha=0.4), x_seed=32, symmetric=symmetric)
+    fused = build_fused_mtm(jfdm, interpret=True)
+    assert fused is not None and fused.mode == "roll"
+    L = pfdm.Ltau
+    v = np.random.default_rng(33).standard_normal((2, L, pfdm.n_sites)).astype(np.float32)
+    ref = np.asarray(fused(jnp.asarray(v)), dtype=np.float64)
+    got, _ = mtm.mtm_blocked_plain(pfdm, t64(v), L if T is None else T, pairs=True)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=2e-6, atol=2e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("name,kw,perm", PAIR_MODELS)
+def test_mtm_pair_index_covers_each_site_once(name, kw, perm):
+    """Each color's pairs, padding aside, hold every site exactly once (so a
+    stage's in-place updates never race); the table has K * threads slots a
+    color with padding pairs (N, N), and each pair carries one (cosh, sinh):
+    the two sites of a bond have the same C and S."""
+    _, pfdm, *_ = fdm_pair(name, kw, x_seed=34, perm_seed=perm)
+    N = pfdm.n_sites
+    for es in (4, 8):
+        ab, gather = mtm.pair_index(pfdm.structure, "cpu", es)
+        abl = ab.to(torch.int64) & 0xFFFFFFFF
+        a, b = (abl & 0xFFFF).numpy(), (abl >> 16).numpy()
+        threads, K, _ = mtm.block_form(ab.shape[1], ab.shape[0], False)
+        assert ab.shape[1] == K * threads
+        for c in range(ab.shape[0]):
+            real = a[c] < N
+            assert np.array_equal(a[c][~real], np.full((~real).sum(), N)) and np.all(b[c][~real] == N)
+            sites = np.concatenate([a[c][real], b[c][real][b[c][real] != a[c][real]]])
+            assert np.array_equal(np.sort(sites), np.arange(N))
+            p = pfdm.structure.partner[c]
+            assert np.array_equal(p[a[c][real]], b[c][real])
+        C, S, _, _ = mtm.mtm_tables(pfdm)
+        for T_ in (C, S):
+            assert torch.equal(T_[:, :, torch.as_tensor(a).clamp(max=N - 1)] * torch.as_tensor(a < N),
+                               T_[:, :, torch.as_tensor(b).clamp(max=N - 1)] * torch.as_tensor(a < N))
+
+
+def test_mtm_pair_index_refuses_a_non_matching():
+    """A partner map that is not an involution is not a checkerboard color:
+    the pair table refuses it."""
+    with pytest.raises(ValueError, match="not a matching"):
+        mtm.color_pairs(np.array([[1, 2, 0]]))
+
+
+@pytest.mark.parametrize("N,nc,tau_tabs,form", [(18, 3, False, (32, 1, 1)), (288, 3, False, (160, 1, 1)),
+                                                (1152, 3, False, (512, 2, 2)), (3042, 3, False, (512, 3, 3)),
+                                                (4608, 3, False, (512, 5, 5)), (4608, 3, True, (512, 5, 0)),
+                                                (288, 4, False, (160, 1, 0)), (6144, 3, False, (512, 6, 0))])
+def test_mtm_block_form(N, nc, tau_tabs, form):
+    """Threads, pairs a thread and form of K1's launch for N sites (N / 2
+    pairs a color): the register form for tau-independent tables, up to 3
+    colors and 5 pairs a thread; the memory form otherwise."""
+    assert mtm.block_form(N // 2, nc, tau_tabs) == form
+
+
+@pytest.mark.parametrize("es", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("N", [18, 288, 4608])
+def test_mtm_tau_block_rows_cover_and_fit(N, es):
+    """K1's choice of T: each system's blocks cover its tau rows once, in
+    order; the fewest rows whose blocks make one round of the resident CTAs,
+    else the most that fit a CTA (227 KB), f64 at N = 4608 included; the
+    shared memory is 2T + 2 rows of a 16-byte aligned stride past the spare
+    site."""
+    ld = mtm.row_ld(N, es)
+    assert ld > N and (ld * es) % 16 == 0 and ld - N <= 16 // es
+    assert mtm.smem_bytes(N, 3, es) == 8 * ld * es
+    for n_sys, L, per_sm in ((2, 240, 1), (2, 240, 2), (2, 240, 9), (1, 9, 1), (3, 10, 4), (16, 240, 1)):
+        def resident(T):  # per_sm CTAs an SM of 132 while they fit its 228 KB
+            return 132 * max(1, min(per_sm, 228 * 1024 // mtm.smem_bytes(N, T, es)))
+        T = mtm.tau_block_rows(n_sys, L, N, es, resident)
+        assert 1 <= T <= L and mtm.smem_bytes(N, T, es) <= mtm.SMEM_MAX
+        rows = [l0 + i for l0, nr in pcg_force.tau_blocks(L, T) for i in range(nr)]
+        assert rows == list(range(L))
+        if n_sys * -(-L // T) <= resident(T):
+            assert T == 1 or n_sys * -(-L // (T - 1)) > resident(T - 1)  # the fewest that make a round
+        else:
+            assert T == L or mtm.smem_bytes(N, T + 1, es) > mtm.SMEM_MAX  # the most that fit
+    # the L=48 path: one CTA an SM (the register form's registers) on 132 SMs
+    if N == 4608:
+        one = lambda T: 132  # noqa: E731
+        assert mtm.tau_block_rows(2, 240, N, es, one) == (4 if es == 4 else 2)
+        assert mtm.smem_bytes(N, 2, 8) <= 227 * 1024 < mtm.smem_bytes(N, 3, 8)
