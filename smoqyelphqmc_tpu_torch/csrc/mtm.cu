@@ -12,10 +12,9 @@
 // What bounds it on the H100: memory (v in, out once, expV; ~1/3 of a
 // microsecond at the headline, ~7 us at L=48 in f32), then shared memory: a
 // B application is 2 n_colors (symmetric) or n_colors (asymmetric) color
-// stages, each a gather of every site's partner, separated by barriers. The
-// first design (one row a CTA, three B applications a row, site tables read
-// from L2 in every stage of every row) ran at ~17x (L=48) to ~113x
-// (headline) its bound. This one:
+// stages, each a gather of every site's partner, separated by barriers, and
+// a row taken alone needs three B applications and its tables read again
+// in every stage. The design:
 //
 // - tau blocks: a CTA takes T consecutive tau rows l0 .. l0+nr-1 of one
 //   system and applies B to the nr+1 rows v_{l0-1} .. v_{l0+nr-1} and B^T to
@@ -76,6 +75,9 @@ struct PairTabs {
 
 // ---- the timed instantiation's stamps ---------------------------------------
 //
+// pcg_common.cuh's stamps write CTA 0's clocks straight to memory; K1's grid
+// can run in more than one round (f64 at L=48), so it also records the last
+// CTA to finish, which keeps its clocks in shared memory until it knows.
 // Layout of the int64 stamp buffer (zeroed by the host): slots 0-3 CTA 0's
 // globaltimer and clock64 at its start and end, 4-7 the same for the last CTA
 // to finish, 8 the finish counter, 9 that CTA's index, then kMaxStamps clocks

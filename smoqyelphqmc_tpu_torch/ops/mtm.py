@@ -332,7 +332,7 @@ def _launch_cache(fdm, n_sys: int, tau_rows, memory_form: bool):
     is a host call the path should not repeat every launch)."""
     ab, C, _, _ = pair_tables(fdm)
     key = (fdm.Ltau, fdm.n_sites, C.dtype, C.shape[0], C.shape[1], ab.shape[1], n_sys, tau_rows, memory_form,
-           str(C.device))
+           C.device)
     shape = _LAUNCH.get(key)
     if shape is None:
         shape = _LAUNCH[key] = launch_shape(fdm, n_sys, tau_rows, memory_form)

@@ -1,6 +1,8 @@
 """Parity of the port's transforms, spectral preconditioner and solvers, of
-kernel K2 (the whole-solve spectral PCG), and of the tau-blocked M^T M rows
-of K3's matvec phases with the host's choice of their block size.
+kernel K2 (the whole-solve spectral PCG), of the tau-blocked M^T M rows of
+K3's matvec phases with the host's choice of their block size, and of K1's
+algebra (checkerboard pairs updated in place on tau blocks) with its host
+side (pair tables, launch form, T).
 
 Tolerances: the Fourier transforms are exact up to f64 rounding (1e-12); the
 preconditioner's action, both built in f64, to 1e-10 (eigh differs in signs
