@@ -47,10 +47,12 @@ Phases, one line each:
  16. the same path with the asymmetric factorization (K7);
  17. a KPM chain (preconditioner='kpm', N=1152 > 1024, so matrix-free) on the
      GPU and on the CPU: the chains must agree;
- 18. K8 (the complex-hopping matrix-free KPM apply, channel-mixing
-     checkerboard) against its plain version, symmetric and asymmetric, on
-     the complex chain's tables (t e^{0.7 i}, N=1152, beta=12, Ltau=240) with
-     live Lanczos bounds, u (2 vectors, re and im planes of (2, 240, 1152));
+ 18. K8 (the complex-hopping matrix-free KPM apply, channel-mixing stage
+     tables) against its plain version, symmetric and asymmetric, on the
+     complex chain's tables (t e^{0.7 i}, N=1152, beta=12, Ltau=240) with
+     live Lanczos bounds, one and two channel pairs of (240, 1152) planes;
+     with a line on how it launched (stages per order step, us per order
+     step and per stage of the longest frequency, the cluster plan);
  19. the complex path: `run_updates` on that chain with preconditioner='kpm'
      (matrix-free above 1024 sites), 2 symmetric sweeps and 1 asymmetric;
      KPM must stay active, every solve converge, every Delta H be finite, K8
@@ -861,7 +863,7 @@ def phase_kpm_cplx_kernel(results, symmetric):
     ms = cuda_ms(lambda: kpm_mf.kpm_mf_cplx_cuda(ops, ure, uim), 20)
     plain_ms = cuda_ms(lambda: kpm_mf.kpm_mf_cplx_plain(ops, ure, uim), 2)
     # the single vector's u in and y out once, the coefficient planes, the
-    # tables C, S, S_im and partners, expV/half, orders and the sort;
+    # stage tables A, B, B_im and 16-bit partners, orders and the sort;
     # operations per site for every order step: one channel-mixing Bbar, the
     # recurrence on the pair (10) and the coefficient update (4 real, 8 with
     # the asymmetric passes' i-rotation)
@@ -869,13 +871,25 @@ def phase_kpm_cplx_kernel(results, symmetric):
     orders = pre.orders.astype(int)
     C_pad = ops.coefs_re.shape[1]
     nbytes = 2 * 2 * ure.numel() * 4 + (1 if symmetric else 2) * Ltau * C_pad * 4 \
-        + nc * N * (3 * 4 + 4) + N * 4 + 2 * Ltau * 4
+        + ops.stage_A.shape[0] * N * (3 * 4 + 2) + 2 * Ltau * 4
     if symmetric:
         ops_f32 = N * int(sum(2 + (o - 1) * (cplx_bbar_flops(nc, True) + 14) for o in orders))
     else:
         ops_f32 = 2 * N * int(sum(6 + (o - 1) * (cplx_bbar_flops(nc, False) + 18) for o in orders))
     bound_ms, bound_by = bound(nbytes, {"f32": ops_f32})
     kind = "symmetric" if symmetric else "asymmetric"
+    # the per-stage breakdown: the stages of an order step, the time of one
+    # order step and of one stage of the longest frequency (which the
+    # kernel's time is), the plan's cluster part
+    plan = kpm_mf.cluster_plan(ops, 1)
+    steps = (1 if symmetric else 2) * (int(orders.max()) - 1)
+    say(f"K8 {kind} launch: {plan['stages']} stages per order step; {1e3 * ms / steps:.3f} us per order step, "
+        f"{1e3 * ms / steps / plan['stages']:.3f} us per stage of the longest frequency ({ms:.4f} ms / {steps} "
+        f"steps); cluster size {plan['cluster_size']}, order threshold {plan['order_threshold']}, "
+        f"{plan['sites_per_thread']} site(s) a thread; {plan['n_cluster']} of {Ltau} frequencies took the cluster "
+        f"form")
+    if plan["sites_per_thread"] == 0:
+        fail(f"K8 ({kind}): the cluster form does not fit the complex path's shape")
     say(f"K8 {kind} u 2 x ({Ltau}, {N}), coefficients ({Ltau}, {C_pad}): bounds [{pre.lo:.4f}, {pre.hi:.4f}]; "
         f"max|S_im| {float(ops.S_im.abs().max()):.4f}; live orders max {orders.max()} sum {orders.sum()}; "
         f"max abs err {err:.3e} at max|y| {scale:.4g} (rel {err / scale:.3e}, tol {tol:g}; two vectors "

@@ -84,21 +84,20 @@
 // its checkerboard MIXES the (re, im) rows of one vector at every color,
 //   re' = C re + S re[p] - S_im im[p],   im' = C im + S im[p] + S_im re[p],
 // with the sign of S_im flipped on the second site of each pair (conj(s)).
-// The symmetric factorization's Bbar = CB expV CB^H (applied as the colors
-// reversed, the diagonal, the colors forward) is Hermitian: real
-// coefficients, one pass. The asymmetric Bbar = expV CB (the colors forward,
-// then the diagonal) takes K7's two conjugate passes with the i-rotation of
-// the same row pair. Its design is the earlier one of K7: one CTA per (vector,
-// frequency), both rows ping-ponged in shared memory (each gather reads the
-// partner site of BOTH rows), t_prev, t_cur and y of both rows in registers,
-// every color, the diagonal and the recurrence step a pass of its own.
-// Per site that is six floats per order step, so K8 takes 4, 8 or 16 sites
-// per thread (512 threads at most) to keep the register tiles small at
-// N = 1152 (288 threads of 4 sites) and refuses N above 16 x 512 = 8192.
-// Like K6 and K7 it is bound by its depth, not by bytes: at N = 1152 an apply
-// to two vectors moves ~9 MB (~3 us at 3.35 TB/s), while the longest
-// symmetric recurrence runs ~60 orders of 6 barrier-separated stages (two
-// color sweeps, the diagonal, the recurrence step).
+// K8 runs on K6 / K7's bodies with a compile-time complex flag: its stage
+// tables (ops/kpm_mf.py:build_stage_tables_pair) carry B's imaginary part Bi
+// beside A and B, a stage is the mixing form
+//   re' = A re + B re[P] - Bi im[P],   im' = A im + B im[P] + Bi re[P],
+// and a CTA carries re and im of one vector (G = 2) or two (G = 4) side by
+// side, as K7 does, so the partner's re and im arrive in one push or one
+// gather. The symmetric Bbar = CB expV CB^H is Hermitian: one pass with real
+// coefficients on 2 n_colors - 1 mirrored stages (the middle block's A is
+// real: s_p = conj(s_n)); the asymmetric Bbar = expV CB takes K7's two
+// conjugate passes with the i-rotation on n_colors stages. At the complex
+// chain's 2 colors that is 3 stages an order step (6 barrier-separated
+// passes before) and 2 (4 before). Like K6 and K7 it is bound by its depth,
+// not by bytes: at N = 1152 an apply to two vectors moves ~9 MB (~3 us at
+// 3.35 TB/s), while the longest symmetric recurrence runs ~60 order steps.
 //
 // C interface (bound with ctypes from ops/kpm_mf.py): returns a cudaError_t.
 
@@ -113,20 +112,21 @@ namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kK6MaxSites = 16 * 1024;  // the one-CTA form: 16 sites a thread, one row
-constexpr int kK7MaxSites = 16 * 512;   // the one-CTA form: 16 sites a thread, one vector
+constexpr int kK7MaxSites = 16 * 512;   // the one-CTA form: 16 sites a thread, one vector (K7, K8)
 constexpr int kMaxClusterSize = 8;      // the portable limit; 16 is taken with the non-portable attribute
 constexpr size_t kMaxSmem = 227 * 1024;
-constexpr int kK8MaxThreads = 512;
-constexpr int kK8MaxSites = 16 * kK8MaxThreads;  // PER = 16
 
 __device__ __forceinline__ int site(int i) { return threadIdx.x + i * blockDim.x; }
 
 // Bbar / half as gathers x <- A_t x + B_t x[P_t]: stage s takes table s, or,
 // mirrored (the symmetric form), table |s - (n_tables - 1)|: the colors
 // n_tables-1 .. 1, the folded middle block (table 0), the colors 1 .. n_tables-1.
+// With complex hoppings (K8) B_t is complex, Bc + i Bi, and mixes the (re, im)
+// rows of each vector.
 struct StageTables {
   const float* A;           // (n_tables, N)
   const float* Bc;          // (n_tables, N)
+  const float* Bi;          // (n_tables, N), K8 only
   const unsigned short* P;  // (n_tables, N) partner sites
   int N;
   int n_tables;
@@ -141,7 +141,7 @@ struct MfArgs {
   float* yim;
   StageTables tb;
   const float* cre;  // (F, C_pad)
-  const float* cim;  // (F, C_pad), K7 only
+  const float* cim;  // (F, C_pad), the asymmetric passes only
   const int* orders;  // (F,) live orders
   const int* perm;    // (F,) the plan: frequencies in descending order
   float cih;          // center / half
@@ -230,10 +230,11 @@ __device__ __forceinline__ void st_row(float* p, const float (&x)[G]) {
 
 // Row g of row group `group` of frequency f: its offset in the (B, F, N)
 // planes, and whether it lies in the im plane. K6's rows 0..B-1 are u_re's
-// vectors and B..2B-1 u_im's; K7's rows 2j, 2j+1 are re and im of vector j.
-template <int G, bool kAsym>
+// vectors and B..2B-1 u_im's; K7's and K8's (kPair) rows 2j, 2j+1 are re and
+// im of vector j.
+template <int G, bool kPair>
 __device__ __forceinline__ size_t row_offset(int group, int g, int f, int B, int F, int N, bool& im) {
-  if constexpr (kAsym) {
+  if constexpr (kPair) {
     im = g & 1;
     return ((size_t)(group * (G / 2) + g / 2) * F + f) * N;
   } else {
@@ -245,24 +246,24 @@ __device__ __forceinline__ size_t row_offset(int group, int g, int f, int B, int
 
 // The sites [lo, lo + len) of this CTA's rows of frequency f, site(i) of
 // thread threadIdx.x, between registers and the (B, F, N) planes.
-template <int G, int PER, bool kAsym>
+template <int G, int PER, bool kPair>
 __device__ __forceinline__ void load_rows(const MfArgs& a, int f, int lo, int len, float (&t)[PER][G]) {
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     bool im;
-    const size_t off = row_offset<G, kAsym>(blockIdx.y, g, f, a.B, a.F, a.tb.N, im);
+    const size_t off = row_offset<G, kPair>(blockIdx.y, g, f, a.B, a.F, a.tb.N, im);
     const float* __restrict__ src = (im ? a.uim : a.ure) + off + lo;
 #pragma unroll
     for (int i = 0; i < PER; ++i) t[i][g] = site(i) < len ? src[site(i)] : 0.f;
   }
 }
 
-template <int G, int PER, bool kAsym>
+template <int G, int PER, bool kPair>
 __device__ __forceinline__ void store_rows(const MfArgs& a, int f, int lo, int len, const float (&y)[PER][G]) {
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     bool im;
-    const size_t off = row_offset<G, kAsym>(blockIdx.y, g, f, a.B, a.F, a.tb.N, im);
+    const size_t off = row_offset<G, kPair>(blockIdx.y, g, f, a.B, a.F, a.tb.N, im);
     float* __restrict__ dst = (im ? a.yim : a.yre) + off + lo;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
@@ -313,6 +314,23 @@ __device__ __forceinline__ void recurrence_step(float (&w)[G], float (&tc)[G], f
   }
 }
 
+// One stage on a site's G rows: w <- a w + b x, x the partner's rows; with
+// complex hoppings (kCplx) b + i bi acts on each (re, im) row pair.
+template <int G, bool kCplx>
+__device__ __forceinline__ void stage_combine(float (&w)[G], const float (&x)[G], float a, float b, float bi) {
+  if constexpr (kCplx) {
+#pragma unroll
+    for (int g = 0; g < G; g += 2) {
+      const float re = a * w[g] + b * x[g] - bi * x[g + 1];
+      w[g + 1] = a * w[g + 1] + b * x[g + 1] + bi * x[g];
+      w[g] = re;
+    }
+  } else {
+#pragma unroll
+    for (int g = 0; g < G; ++g) w[g] = a * w[g] + b * x[g];
+  }
+}
+
 __device__ __forceinline__ int stage_table(const StageTables& tb, int s) {
   return tb.mirror ? abs(s - (tb.n_tables - 1)) : s;
 }
@@ -333,11 +351,14 @@ __device__ __forceinline__ int stage_table(const StageTables& tb, int s) {
 // waited on d's push, made after d read the slot at stage q. The own value
 // moves through the stages in registers.
 // Shared memory: mbarriers [2 n_stages][slice / 32] | slots
-// [2 n_stages][slice][G] | coefficients [2][C_pad] | A, B [T][slice] | slot
-// and mbarrier addresses (shared::cluster) [T][slice] each.
-template <int G, int PER, bool kAsym>
+// [2 n_stages][slice][G] | coefficients [2][C_pad] | A, B [T][slice] | Bi
+// [T][slice] (kCplx) | slot and mbarrier addresses (shared::cluster)
+// [T][slice] each. kAsym: two conjugate passes with complex coefficients;
+// kCplx: complex hoppings (rows in (re, im) pairs as with kAsym).
+template <int G, int PER, bool kAsym, bool kCplx>
 __device__ __forceinline__ void kpm_mf_cluster_body(const MfArgs& a) {
   static_assert(G % 2 == 0, "whole vectors (re and im rows), or row pairs");
+  constexpr bool kPair = kAsym || kCplx;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cl = cg::this_cluster();
   const int k = (int)cl.num_blocks();
@@ -360,14 +381,15 @@ __device__ __forceinline__ void kpm_mf_cluster_body(const MfArgs& a) {
   float* coef = slots + (size_t)n_buf * slice * G;
   float* sA = coef + 2 * C_pad;
   float* sB = sA + (size_t)T * slice;
-  uint32_t* sSlot = reinterpret_cast<uint32_t*>(sB + (size_t)T * slice);
+  float* sBi = sB + (size_t)T * slice;  // kCplx only
+  uint32_t* sSlot = reinterpret_cast<uint32_t*>(sB + (size_t)(kCplx ? 2 : 1) * T * slice);
   uint32_t* sMbar = sSlot + (size_t)T * slice;
   const uint32_t buf_bytes = (uint32_t)slice * G * sizeof(float);
   const uint32_t mbar_buf_bytes = 8u * n_blk;
   auto block_bytes = [&](int blk) { return (uint32_t)min(32, len - 32 * blk) * G * (uint32_t)sizeof(float); };
 
   float tc[PER][G], tp[PER][G], y[PER][G];
-  load_rows<G, PER, kAsym>(a, f, lo, len, tc);
+  load_rows<G, PER, kPair>(a, f, lo, len, tc);
   if (n_ord > 1) {
     // every CTA of the cluster takes this branch: they share the frequency
     for (int j = threadIdx.x; j < n_ord; j += blockDim.x) {
@@ -379,6 +401,7 @@ __device__ __forceinline__ void kpm_mf_cluster_body(const MfArgs& a) {
       for (int n = threadIdx.x; n < len; n += blockDim.x) {
         sA[t * slice + n] = tb.A[(size_t)t * N + lo + n];
         sB[t * slice + n] = tb.Bc[(size_t)t * N + lo + n];
+        if (kCplx) sBi[t * slice + n] = tb.Bi[(size_t)t * N + lo + n];
         const int p = tb.P[(size_t)t * N + lo + n];
         const int owner = p / slice;
         sSlot[t * slice + n] = map_to_rank(slots_addr + (uint32_t)(p - owner * slice) * G * sizeof(float), owner);
@@ -397,7 +420,7 @@ __device__ __forceinline__ void kpm_mf_cluster_body(const MfArgs& a) {
 
   // The coming stage's table entries, read ahead of the wait before it: its
   // coefficients, and where its input goes (the partner's slot and mbarrier).
-  float ca[PER], cb[PER];
+  float ca[PER], cb[PER], cbi[PER];
   uint32_t slot[PER], mbar[PER];
   auto fetch = [&](int t) {
 #pragma unroll
@@ -405,6 +428,7 @@ __device__ __forceinline__ void kpm_mf_cluster_body(const MfArgs& a) {
       if (site(i) < len) {
         ca[i] = sA[t * slice + site(i)];
         cb[i] = sB[t * slice + site(i)];
+        cbi[i] = kCplx ? sBi[t * slice + site(i)] : 0.f;
         slot[i] = sSlot[t * slice + site(i)];
         mbar[i] = sMbar[t * slice + site(i)];
       }
@@ -453,9 +477,9 @@ __device__ __forceinline__ void kpm_mf_cluster_body(const MfArgs& a) {
         const float* in = slots + (size_t)b * slice * G;
         const float ckr = coef[kk];
         const float cki = kAsym ? sgn * coef[C_pad + kk] : 0.f;
-        float pa[PER], pb[PER];
+        float pa[PER], pb[PER], pbi[PER];
 #pragma unroll
-        for (int i = 0; i < PER; ++i) pa[i] = ca[i], pb[i] = cb[i];
+        for (int i = 0; i < PER; ++i) pa[i] = ca[i], pb[i] = cb[i], pbi[i] = cbi[i];
         if (more) fetch(stage_table(tb, last ? 0 : s + 1));
 #pragma unroll
         for (int i = 0; i < PER; ++i) {
@@ -464,8 +488,7 @@ __device__ __forceinline__ void kpm_mf_cluster_body(const MfArgs& a) {
             mbar_wait(mbar0 + b * mbar_buf_bytes + 8 * (site(i) / 32), (q / n_buf) & 1);
             float x[G];
             ld_row<G>(in + (size_t)site(i) * G, x);
-#pragma unroll
-            for (int g = 0; g < G; ++g) w[i][g] = pa[i] * w[i][g] + pb[i] * x[g];
+            stage_combine<G, kCplx>(w[i], x, pa[i], pb[i], pbi[i]);
             if (last) recurrence_step<G, kAsym>(w[i], tc[i], tp[i], y[i], alpha, beta, cih, ckr, cki);
           }
         }
@@ -481,7 +504,7 @@ __device__ __forceinline__ void kpm_mf_cluster_body(const MfArgs& a) {
       }
     }
   }
-  store_rows<G, PER, kAsym>(a, f, lo, len, y);
+  store_rows<G, PER, kPair>(a, f, lo, len, y);
   // no CTA leaves while a store to or from it may be in flight
   if (n_ord > 1) cl.sync();
 }
@@ -490,9 +513,10 @@ __device__ __forceinline__ void kpm_mf_cluster_body(const MfArgs& a) {
 // blockIdx.y; the whole rows ping-pong in shared memory, the tables come
 // through the read-only cache, a stage ends in __syncthreads().
 // Shared memory: rows [2][N][G] | coefficients [2][C_pad].
-template <int G, int PER, bool kAsym>
+template <int G, int PER, bool kAsym, bool kCplx>
 __device__ __forceinline__ void kpm_mf_single_body(const MfArgs& a, int rank0) {
-  static_assert(!kAsym || G % 2 == 0, "K7 carries whole vectors (re and im rows)");
+  constexpr bool kPair = kAsym || kCplx;
+  static_assert(!kPair || G % 2 == 0, "K7 and K8 carry whole vectors (re and im rows)");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const StageTables& tb = a.tb;
   const int N = tb.N, C_pad = a.C_pad;
@@ -505,7 +529,7 @@ __device__ __forceinline__ void kpm_mf_single_body(const MfArgs& a, int rank0) {
   float* coef = rows + 2 * (size_t)N * G;
 
   float tc[PER][G], tp[PER][G], y[PER][G];
-  load_rows<G, PER, kAsym>(a, f, 0, N, tc);
+  load_rows<G, PER, kPair>(a, f, 0, N, tc);
   for (int j = threadIdx.x; j < n_ord && n_ord > 1; j += blockDim.x) {
     coef[j] = cr[j];
     if (kAsym) coef[C_pad + j] = ci[j];
@@ -546,10 +570,10 @@ __device__ __forceinline__ void kpm_mf_single_body(const MfArgs& a, int rank0) {
             float w[G], x[G];
             const float ca = __ldg(tb.A + t_off + n);
             const float cb = __ldg(tb.Bc + t_off + n);
+            const float cbi = kCplx ? __ldg(tb.Bi + t_off + n) : 0.f;
             ld_row<G>(in + (size_t)__ldg(tb.P + t_off + n) * G, x);
             ld_row<G>(in + (size_t)n * G, w);
-#pragma unroll
-            for (int g = 0; g < G; ++g) w[g] = ca * w[g] + cb * x[g];
+            stage_combine<G, kCplx>(w, x, ca, cb, cbi);
             if (last) recurrence_step<G, kAsym>(w, tc[i], tp[i], y[i], alpha, beta, cih, ckr, cki);
             st_row<G>(out + (size_t)n * G, w);
           }
@@ -559,16 +583,16 @@ __device__ __forceinline__ void kpm_mf_single_body(const MfArgs& a, int rank0) {
       }
     }
   }
-  store_rows<G, PER, kAsym>(a, f, 0, N, y);
+  store_rows<G, PER, kPair>(a, f, 0, N, y);
 }
 
 // K6: G rows of one frequency per cluster (kCluster) or per CTA.
 template <int G, int PER, bool kCluster>
 __global__ void __launch_bounds__(kMaxThreads) kpm_mf_kernel(const MfArgs a, int rank0) {
   if constexpr (kCluster) {
-    kpm_mf_cluster_body<G, PER, false>(a);
+    kpm_mf_cluster_body<G, PER, false, false>(a);
   } else {
-    kpm_mf_single_body<G, PER, false>(a, rank0);
+    kpm_mf_single_body<G, PER, false, false>(a, rank0);
   }
 }
 
@@ -576,148 +600,20 @@ __global__ void __launch_bounds__(kMaxThreads) kpm_mf_kernel(const MfArgs a, int
 template <int G, int PER, bool kCluster>
 __global__ void __launch_bounds__(kCluster ? kMaxThreads : 512) kpm_mf_asym_kernel(const MfArgs a, int rank0) {
   if constexpr (kCluster) {
-    kpm_mf_cluster_body<G, PER, true>(a);
+    kpm_mf_cluster_body<G, PER, true, false>(a);
   } else {
-    kpm_mf_single_body<G, PER, true>(a, rank0);
+    kpm_mf_single_body<G, PER, true, false>(a, rank0);
   }
 }
 
-// K8's single-row tables: the checkerboard planes with S_im, and expV / half.
-struct PairTables {
-  const float* C;        // (n_colors, N)
-  const float* S;        // (n_colors, N)
-  const float* S_im;     // (n_colors, N), the pair's side sign folded in
-  const int* partner;    // (n_colors, N)
-  const float* expVih;   // (N,) expV / half
-  int N;
-  int n_colors;
-};
-
-// One sweep of the channel-mixing checkerboard over the row pair (xr, xi)
-// in shared memory, colors in order or reversed (the adjoint). On return
-// (xr, xi) point at the result and (yr, yi) at the scratch rows;
-// synchronised.
-__device__ __forceinline__ void pair_sweep(const PairTables& tb, float*& xr, float*& xi, float*& yr, float*& yi,
-                                           bool reverse) {
-  for (int i = 0; i < tb.n_colors; ++i) {
-    const int c = reverse ? tb.n_colors - 1 - i : i;
-    const float* Cc = tb.C + (size_t)c * tb.N;
-    const float* Sc = tb.S + (size_t)c * tb.N;
-    const float* Ic = tb.S_im + (size_t)c * tb.N;
-    const int* pc = tb.partner + (size_t)c * tb.N;
-    for (int n = threadIdx.x; n < tb.N; n += blockDim.x) {
-      const int p = pc[n];
-      const float pr = xr[p], pi = xi[p];
-      yr[n] = Cc[n] * xr[n] + Sc[n] * pr - Ic[n] * pi;
-      yi[n] = Cc[n] * xi[n] + Sc[n] * pi + Ic[n] * pr;
-    }
-    __syncthreads();
-    float* t = xr;
-    xr = yr;
-    yr = t;
-    t = xi;
-    xi = yi;
-    yi = t;
-  }
-}
-
-// (xr, xi) <- (Bbar / half)(xr, xi): CB (expV / half) CB^H (kSym: the colors
-// reversed, the diagonal, the colors forward) or (expV / half) CB (the colors
-// forward, the diagonal); the input must be complete in shared memory.
-template <bool kSym>
-__device__ __forceinline__ void apply_bbar_pair(const PairTables& tb, float*& xr, float*& xi, float*& yr,
-                                                float*& yi) {
-  pair_sweep(tb, xr, xi, yr, yi, /*reverse=*/kSym);
-  for (int n = threadIdx.x; n < tb.N; n += blockDim.x) {
-    xr[n] *= tb.expVih[n];
-    xi[n] *= tb.expVih[n];
-  }
-  __syncthreads();
-  if (kSym) pair_sweep(tb, xr, xi, yr, yi, false);
-}
-
-// K8: one CTA per (complex vector, frequency); blockIdx.x = rank * B + vector.
-template <int PER, bool kSym>
-__global__ void __launch_bounds__(kK8MaxThreads)
-kpm_mf_cplx_kernel(const float* __restrict__ ure, const float* __restrict__ uim, float* __restrict__ yre,
-                   float* __restrict__ yim, PairTables tb, const float* __restrict__ cre_tab,
-                   const float* __restrict__ cim_tab, const int* __restrict__ orders,
-                   const int* __restrict__ perm, float cih, int B, int F, int C_pad) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int N = tb.N;
-  float* Xr = reinterpret_cast<float*>(smem_raw);
-  float* Yr = Xr + N;
-  float* Xi = Yr + N;
-  float* Yi = Xi + N;
-  const int f = perm[blockIdx.x / B];
-  const size_t off = ((size_t)(blockIdx.x % B) * F + f) * N;
-  const float* cr = cre_tab + (size_t)f * C_pad;
-  const float* ci = cim_tab + (size_t)f * C_pad;
-  const int n_ord = orders[f];
-
-  float tcr[PER], tci[PER], tpr[PER], tpi[PER], yr[PER], yi[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int n = site(i);
-    yr[i] = (n < N) ? ure[off + n] : 0.f;
-    yi[i] = (n < N) ? uim[off + n] : 0.f;
-  }
-  // symmetric: one pass with real coefficients; asymmetric: conj(c), then c
-  // applied to the first pass's output (in y)
-  for (int pass = 0; pass < (kSym ? 1 : 2); ++pass) {
-    const float s = kSym ? 0.f : (pass == 0 ? -1.f : 1.f);
-    const float c0r = cr[0], c0i = s * ci[0];
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int n = site(i);
-      tcr[i] = yr[i];
-      tci[i] = yi[i];
-      tpr[i] = 0.f;
-      tpi[i] = 0.f;
-      // y = c t + s c_im i t, i t = (-t_im, t_re)
-      yr[i] = c0r * tcr[i] - c0i * tci[i];
-      yi[i] = c0r * tci[i] + c0i * tcr[i];
-      if (n < N) {
-        Xr[n] = tcr[i];
-        Xi[n] = tci[i];
-      }
-    }
-    __syncthreads();
-    float* xr = Xr;
-    float* xi = Xi;
-    float* sr = Yr;
-    float* si = Yi;
-    for (int k = 1; k < n_ord; ++k) {
-      apply_bbar_pair<kSym>(tb, xr, xi, sr, si);
-      const float a = (k == 1) ? 1.f : 2.f;
-      const float b = (k == 1) ? 0.f : 1.f;
-      const float ckr = cr[k], cki = s * ci[k];
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const int n = site(i);
-        if (n < N) {
-          const float nr = a * (xr[n] - cih * tcr[i]) - b * tpr[i];
-          const float ni = a * (xi[n] - cih * tci[i]) - b * tpi[i];
-          tpr[i] = tcr[i];
-          tpi[i] = tci[i];
-          tcr[i] = nr;
-          tci[i] = ni;
-          xr[n] = nr;
-          xi[n] = ni;
-          yr[i] += ckr * nr - cki * ni;
-          yi[i] += ckr * ni + cki * nr;
-        }
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int n = site(i);
-    if (n < N) {
-      yre[off + n] = yr[i];
-      yim[off + n] = yi[i];
-    }
+// K8: G / 2 complex vectors of one frequency per cluster (kCluster) or per
+// CTA; kSym: one pass with real coefficients, else K7's two passes.
+template <int G, int PER, bool kCluster, bool kSym>
+__global__ void __launch_bounds__(kCluster ? kMaxThreads : 512) kpm_mf_cplx_kernel(const MfArgs a, int rank0) {
+  if constexpr (kCluster) {
+    kpm_mf_cluster_body<G, PER, !kSym, true>(a);
+  } else {
+    kpm_mf_single_body<G, PER, !kSym, true>(a, rank0);
   }
 }
 
@@ -735,23 +631,24 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 // Rows a cluster-form CTA carries: 4 where the 2B rows divide, else 2.
 int cluster_rows(int B) { return (2 * B) % 4 == 0 ? 4 : 2; }
 
-size_t cluster_smem(int N, int n_tables, int n_stages, int C_pad, int G, int k) {
+// A, B, slot and mbarrier addresses: 16 bytes a site and table; Bi 4 more.
+size_t cluster_smem(int N, int n_tables, int n_stages, int C_pad, int G, int k, bool cplx) {
   const size_t slice = (N + k - 1) / k;
   const size_t n_buf = 2 * (size_t)n_stages;
   const size_t n_blk = (slice + 31) / 32;
   return 16 * ((n_buf * n_blk + 1) / 2) + n_buf * slice * G * sizeof(float) + 2 * (size_t)C_pad * sizeof(float) +
-         (size_t)n_tables * slice * 16;
+         (size_t)n_tables * slice * (cplx ? 20 : 16);
 }
 
 // Sites a thread of the cluster form takes at cluster size k: 1 up to 1024
 // sites a CTA (the faster), 2 up to 2048; 0 where the form does not take the
 // shape: a cluster size the card does not schedule, a slice its threads do
 // not cover, or shared memory that does not fit.
-int cluster_sites_per_thread(int B, int N, int n_tables, int n_stages, int C_pad, int k) {
+int cluster_sites_per_thread(int B, int N, int n_tables, int n_stages, int C_pad, int k, bool cplx) {
   if (k != 1 && k != 2 && k != 4 && k != kMaxClusterSize && k != 16) return 0;
   const int slice = (N + k - 1) / k;
   if (N > 65535 || slice > 2 * kMaxThreads) return 0;
-  if (cluster_smem(N, n_tables, n_stages, C_pad, cluster_rows(B), k) > kMaxSmem) return 0;
+  if (cluster_smem(N, n_tables, n_stages, C_pad, cluster_rows(B), k, cplx) > kMaxSmem) return 0;
   return slice <= kMaxThreads ? 1 : 2;
 }
 
@@ -783,120 +680,95 @@ cudaError_t launch_mf(Kernel kernel, const MfArgs& a, int rank0, int n_freq, int
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <bool kAsym, int G, int PER, bool kCluster>
+// K6 (real, symmetric), K7 (real, asymmetric), K8 (kCplx, either).
+template <bool kAsym, bool kCplx, int G, int PER, bool kCluster>
 auto mf_kernel() {
-  if constexpr (kAsym) {
+  if constexpr (kCplx) {
+    return kpm_mf_cplx_kernel<G, PER, kCluster, !kAsym>;
+  } else if constexpr (kAsym) {
     return kpm_mf_asym_kernel<G, PER, kCluster>;
   } else {
     return kpm_mf_kernel<G, PER, kCluster>;
   }
 }
 
-template <bool kAsym, int G, int PER>
+template <bool kAsym, bool kCplx, int G, int PER>
 cudaError_t launch_cluster_form(const MfArgs& a, int n_cluster, int k, cudaStream_t st) {
   const int slice = (a.tb.N + k - 1) / k;
-  return launch_mf(mf_kernel<kAsym, G, PER, true>(), a, 0, n_cluster, 2 * a.B / G, threads_for(slice, PER),
-                   cluster_smem(a.tb.N, a.tb.n_tables, a.tb.n_stages, a.C_pad, G, k), k, st);
+  return launch_mf(mf_kernel<kAsym, kCplx, G, PER, true>(), a, 0, n_cluster, 2 * a.B / G, threads_for(slice, PER),
+                   cluster_smem(a.tb.N, a.tb.n_tables, a.tb.n_stages, a.C_pad, G, k, kCplx), k, st);
 }
 
-template <bool kAsym, int G, int PER>
+template <bool kAsym, bool kCplx, int G, int PER>
 cudaError_t launch_single_form(const MfArgs& a, int rank0, cudaStream_t st) {
   const size_t smem = (2 * (size_t)a.tb.N * G + 2 * (size_t)a.C_pad) * sizeof(float);
-  return launch_mf(mf_kernel<kAsym, G, PER, false>(), a, rank0, a.F - rank0, 2 * a.B / G, threads_for(a.tb.N, PER),
-                   smem, 0, st);
+  return launch_mf(mf_kernel<kAsym, kCplx, G, PER, false>(), a, rank0, a.F - rank0, 2 * a.B / G,
+                   threads_for(a.tb.N, PER), smem, 0, st);
 }
+
+int max_sites(bool asym, bool cplx) { return asym || cplx ? kK7MaxSites : kK6MaxSites; }
 
 // The first n_cluster frequencies of the plan in the cluster form (none where
 // the shape does not fit it), the others in the one-CTA form.
-template <bool kAsym>
+template <bool kAsym, bool kCplx>
 int run_mf(const MfArgs& a, int n_cluster, int k, cudaStream_t st) {
   const int N = a.tb.N;
-  if (N > (kAsym ? kK7MaxSites : kK6MaxSites) || a.B < 1 || a.F < 1) return (int)cudaErrorInvalidValue;
-  const int per = cluster_sites_per_thread(a.B, N, a.tb.n_tables, a.tb.n_stages, a.C_pad, k);
+  if (N > max_sites(kAsym, kCplx) || a.B < 1 || a.F < 1) return (int)cudaErrorInvalidValue;
+  const int per = cluster_sites_per_thread(a.B, N, a.tb.n_tables, a.tb.n_stages, a.C_pad, k, kCplx);
   if (per == 0) n_cluster = 0;
   n_cluster = n_cluster < 0 ? 0 : (n_cluster > a.F ? a.F : n_cluster);
   cudaError_t e = cudaSuccess;
   if (n_cluster > 0) {
     const int G = cluster_rows(a.B);
-    if (G == 4 && per == 2) e = launch_cluster_form<kAsym, 4, 2>(a, n_cluster, k, st);
-    if (G == 4 && per == 1) e = launch_cluster_form<kAsym, 4, 1>(a, n_cluster, k, st);
-    if (G == 2 && per == 2) e = launch_cluster_form<kAsym, 2, 2>(a, n_cluster, k, st);
-    if (G == 2 && per == 1) e = launch_cluster_form<kAsym, 2, 1>(a, n_cluster, k, st);
+    if (G == 4 && per == 2) e = launch_cluster_form<kAsym, kCplx, 4, 2>(a, n_cluster, k, st);
+    if (G == 4 && per == 1) e = launch_cluster_form<kAsym, kCplx, 4, 1>(a, n_cluster, k, st);
+    if (G == 2 && per == 2) e = launch_cluster_form<kAsym, kCplx, 2, 2>(a, n_cluster, k, st);
+    if (G == 2 && per == 1) e = launch_cluster_form<kAsym, kCplx, 2, 1>(a, n_cluster, k, st);
     if (e != cudaSuccess) return (int)e;
   }
   if (n_cluster == a.F) return (int)cudaSuccess;
-  if constexpr (kAsym) {
-    if (N <= 4 * 512) return (int)launch_single_form<true, 2, 4>(a, n_cluster, st);
-    return (int)launch_single_form<true, 2, 16>(a, n_cluster, st);
+  if constexpr (kAsym || kCplx) {
+    if (N <= 4 * 512) return (int)launch_single_form<kAsym, kCplx, 2, 4>(a, n_cluster, st);
+    return (int)launch_single_form<kAsym, kCplx, 2, 16>(a, n_cluster, st);
   } else {
-    if (N <= 2 * kMaxThreads) return (int)launch_single_form<false, 1, 2>(a, n_cluster, st);
-    if (N <= 8 * kMaxThreads) return (int)launch_single_form<false, 1, 8>(a, n_cluster, st);
-    return (int)launch_single_form<false, 1, 16>(a, n_cluster, st);
+    if (N <= 2 * kMaxThreads) return (int)launch_single_form<false, false, 1, 2>(a, n_cluster, st);
+    if (N <= 8 * kMaxThreads) return (int)launch_single_form<false, false, 1, 8>(a, n_cluster, st);
+    return (int)launch_single_form<false, false, 1, 16>(a, n_cluster, st);
   }
-}
-
-template <int PER, bool kSym>
-int launch_k8(const float* ure, const float* uim, float* yre, float* yim, const PairTables& tb, const float* cre,
-              const float* cim, const int* orders, const int* perm, float cih, int B, int F, int C_pad,
-              cudaStream_t stream) {
-  const size_t smem = 4 * (size_t)tb.N * sizeof(float);
-  cudaError_t e = allow_smem(kpm_mf_cplx_kernel<PER, kSym>, smem);
-  if (e != cudaSuccess) return (int)e;
-  kpm_mf_cplx_kernel<PER, kSym><<<F * B, threads_for(tb.N, PER), smem, stream>>>(ure, uim, yre, yim, tb, cre, cim,
-                                                                               orders, perm, cih, B, F, C_pad);
-  return (int)cudaGetLastError();
-}
-
-template <bool kSym>
-int dispatch_k8(const float* ure, const float* uim, float* yre, float* yim, const PairTables& tb, const float* cre,
-                const float* cim, const int* orders, const int* perm, float cih, int B, int F, int C_pad,
-                cudaStream_t st) {
-  if (tb.N <= 4 * kK8MaxThreads)
-    return launch_k8<4, kSym>(ure, uim, yre, yim, tb, cre, cim, orders, perm, cih, B, F, C_pad, st);
-  if (tb.N <= 8 * kK8MaxThreads)
-    return launch_k8<8, kSym>(ure, uim, yre, yim, tb, cre, cim, orders, perm, cih, B, F, C_pad, st);
-  if (tb.N <= kK8MaxSites)
-    return launch_k8<16, kSym>(ure, uim, yre, yim, tb, cre, cim, orders, perm, cih, B, F, C_pad, st);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-extern "C" int smoqy_kpm_mf_max_sites(int symmetric) { return symmetric ? kK6MaxSites : kK7MaxSites; }
+// The largest N the kernel of this factorization and hopping type takes.
+extern "C" int smoqy_kpm_mf_max_sites(int symmetric, int cplx) { return max_sites(!symmetric, cplx != 0); }
 
 // The sites a thread takes where the cluster form takes B vectors of N sites
 // with these tables at cluster size k, else 0 (every frequency then takes the
 // one-CTA form, whatever n_cluster says).
-extern "C" int smoqy_kpm_mf_cluster_fits(int symmetric, int B, int N, int n_tables, int C_pad, int k) {
-  return cluster_sites_per_thread(B, N, n_tables, symmetric ? 2 * n_tables - 1 : n_tables, C_pad, k);
+extern "C" int smoqy_kpm_mf_cluster_fits(int symmetric, int cplx, int B, int N, int n_tables, int C_pad, int k) {
+  return cluster_sites_per_thread(B, N, n_tables, symmetric ? 2 * n_tables - 1 : n_tables, C_pad, k, cplx != 0);
 }
 
-// K6 (cim null, mirrored stages) or K7 (cim given, stages in order): the
-// first n_cluster frequencies of the plan as clusters of `cluster_size` CTAs,
-// the others one CTA each.
+// K6 (real hoppings, Bi null, symmetric: mirrored stages), K7 (real,
+// asymmetric: stages in order, cim given) or K8 (complex hoppings, Bi given;
+// cim given for the asymmetric passes): the first n_cluster frequencies of the
+// plan as clusters of `cluster_size` CTAs, the others one CTA each.
 extern "C" int smoqy_kpm_mf(const float* ure, const float* uim, float* yre, float* yim, const float* A,
-                            const float* Bc, const unsigned short* P, const float* cre, const float* cim,
-                            const int* orders, const int* perm, float cih, int B, int F, int N, int n_tables,
-                            int C_pad, int n_cluster, int cluster_size, void* stream) {
-  const bool asym = cim != nullptr;
-  if (n_tables < 1) return (int)cudaErrorInvalidValue;
+                            const float* Bc, const float* Bi, const unsigned short* P, const float* cre,
+                            const float* cim, const int* orders, const int* perm, float cih, int symmetric, int B,
+                            int F, int N, int n_tables, int C_pad, int n_cluster, int cluster_size, void* stream) {
+  const bool asym = !symmetric, cplx = Bi != nullptr;
+  if (n_tables < 1 || (asym && cim == nullptr)) return (int)cudaErrorInvalidValue;
   MfArgs a;
   a.ure = ure, a.uim = uim, a.yre = yre, a.yim = yim;
-  a.tb = StageTables{A, Bc, P, N, n_tables, asym ? n_tables : 2 * n_tables - 1, asym ? 0 : 1};
+  a.tb = StageTables{A, Bc, Bi, P, N, n_tables, asym ? n_tables : 2 * n_tables - 1, asym ? 0 : 1};
   a.cre = cre, a.cim = cim, a.orders = orders, a.perm = perm;
   a.cih = cih, a.B = B, a.F = F, a.C_pad = C_pad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return asym ? run_mf<true>(a, n_cluster, cluster_size, st) : run_mf<false>(a, n_cluster, cluster_size, st);
-}
-
-extern "C" int smoqy_kpm_mf_cplx_max_sites() { return kK8MaxSites; }
-
-extern "C" int smoqy_kpm_mf_cplx(const float* ure, const float* uim, float* yre, float* yim, const float* C,
-                                 const float* S, const float* S_im, const int* partner, const float* expVih,
-                                 const float* cre, const float* cim, const int* orders, const int* perm, float cih,
-                                 int symmetric, int B, int F, int N, int n_colors, int C_pad, void* stream) {
-  const PairTables tb{C, S, S_im, partner, expVih, N, n_colors};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (symmetric) return dispatch_k8<true>(ure, uim, yre, yim, tb, cre, cim, orders, perm, cih, B, F, C_pad, st);
-  return dispatch_k8<false>(ure, uim, yre, yim, tb, cre, cim, orders, perm, cih, B, F, C_pad, st);
+  if (cplx) {
+    return asym ? run_mf<true, true>(a, n_cluster, cluster_size, st)
+                : run_mf<false, true>(a, n_cluster, cluster_size, st);
+  }
+  return asym ? run_mf<true, false>(a, n_cluster, cluster_size, st)
+              : run_mf<false, false>(a, n_cluster, cluster_size, st);
 }

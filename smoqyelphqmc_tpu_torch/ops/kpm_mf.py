@@ -19,7 +19,7 @@ smoqyelphqmc_tpu/ops/pallas_fused.py (:1468-1651):
   im' = C im + S im[p] + S_im re[p]; one pass with real coefficients
   (symmetric) or the two conjugate passes through the i-rotation of the same
   pair (asymmetric) (K8, `csrc/kpm_mf.cu:kpm_mf_cplx_kernel`, replacing
-  `_kpm_mf_cplx_kernel`).
+  `_kpm_mf_cplx_kernel`): K6 / K7's bodies with the stages' mixing form.
 
 `kpm_mf_apply(ops, u_re, u_im)` is the dispatcher: a CPU tensor takes the
 plain version (`kpm_mf_plain` / `kpm_mf_asym_plain`, the `_mf_cheb`
@@ -29,7 +29,8 @@ raises. The static plan is the frequency order sorted by
 descending order (`build_kpm_mf_plan`): the kernels start the longest
 recurrences first.
 
-K6 and K7 apply Bbar / half as stage tables (`build_stage_tables`): a few
+The kernels apply Bbar / half as stage tables (`build_stage_tables`; for
+complex hoppings `build_stage_tables_pair`, whose B is complex): a few
 gathers x <- A x + B x[P] with the diagonal, the map's 1 / half and, for the
 symmetric form, the middle color on both sides of the diagonal folded into
 the coefficients. The plan's head, the frequencies with more than
@@ -87,24 +88,22 @@ def build_kpm_mf_plan(phi: np.ndarray) -> np.ndarray:
 class KPMMFOperands:
     """One refresh's operands of the matrix-free apply, in float32.
 
-    bbar: Bbar in float32 (the plain versions apply it); partner (n_colors, N)
-    int32, the kernels' copy of its gather table; center and inv_half the
-    affine map to Bbar' (f32 values); expVih = expV * inv_half and
-    cih = center * inv_half, the map folded into the kernels' operands as the
-    TPU kernels fold it; coefs_re / coefs_im (F, C_pad); orders (F,) int32
-    live orders (host copy `orders_host`); perm (F,) int32 the plan's sort;
-    S_im (n_colors, N) the kernels' copy of Bbar's S_im for complex hoppings
-    (complex_pair; None otherwise); stage_A, stage_B (n_tables, N) float32 and
-    stage_P (n_tables, N) 16-bit partners, K6 / K7's stage tables of
-    Bbar / half (`build_stage_tables`; None for complex hoppings);
-    perm_host the plan's host copy; launch_plans the `cluster_plan`s made so
-    far (an apply runs thousands of times per refresh)."""
+    bbar: Bbar in float32 (the plain versions apply it); center and inv_half
+    the affine map to Bbar' (f32 values); cih = center * inv_half, folded
+    into the kernels' recurrence as the TPU kernels fold it; coefs_re /
+    coefs_im (F, C_pad); orders (F,) int32 live orders (host copy
+    `orders_host`); perm (F,) int32 the plan's sort; S_im (n_colors, N)
+    Bbar's S_im for complex hoppings (complex_pair; None otherwise); stage_A,
+    stage_B (n_tables, N) float32 and stage_P (n_tables, N) 16-bit partners,
+    the kernels' stage tables of Bbar / half (`build_stage_tables`, or
+    `build_stage_tables_pair` with stage_B_im, B's imaginary part, for
+    complex hoppings; None above 65535 sites); perm_host the plan's host
+    copy; launch_plans the `cluster_plan`s made so far (an apply runs
+    thousands of times per refresh)."""
 
     bbar: AveragedPropagator
-    partner: torch.Tensor
     center: float
     inv_half: float
-    expVih: torch.Tensor
     cih: float
     coefs_re: torch.Tensor
     coefs_im: torch.Tensor
@@ -115,13 +114,14 @@ class KPMMFOperands:
     S_im: Optional[torch.Tensor] = None
     stage_A: Optional[torch.Tensor] = None
     stage_B: Optional[torch.Tensor] = None
+    stage_B_im: Optional[torch.Tensor] = None
     stage_P: Optional[torch.Tensor] = None
     perm_host: Optional[np.ndarray] = None
     launch_plans: dict = dataclasses.field(default_factory=dict)
 
     @property
     def n_sites(self) -> int:
-        return self.expVih.shape[0]
+        return self.bbar.expV.shape[0]
 
     @property
     def complex_pair(self) -> bool:
@@ -143,6 +143,44 @@ def unpack_partner16(packed: torch.Tensor) -> torch.Tensor:
     return packed.to(torch.int64) & 0xFFFF
 
 
+def _fold_stage_tables(bbar: AveragedPropagator, inv_half: float):
+    """(A, B, B_im, P, stages) of `build_stage_tables` (B_im None) or
+    `build_stage_tables_pair`."""
+    cb = bbar.cb
+    e = bbar.expV * inv_half
+    sites = torch.arange(e.shape[0], device=e.device)
+    cplx = cb.S_im is not None
+    if cb.n_colors == 0:
+        z = torch.zeros_like(e)[None]
+        return e[None].clone(), z, z.clone() if cplx else None, sites[None], [0]
+    A, B, P = cb.C.clone(), cb.S.clone(), cb.partner.clone()
+    B_im = cb.S_im.clone() if cplx else None
+    if not torch.equal(P.gather(1, P), sites.expand_as(P)):
+        raise ValueError("a checkerboard color's partner table does not pair the sites")
+    if not bbar.symmetric:
+        A[-1] *= e
+        B[-1] *= e
+        if cplx:
+            B_im[-1] *= e
+        return A, B, B_im, P, list(range(cb.n_colors))
+    C0, S0, p0 = cb.C[0], cb.S[0], cb.partner[0]
+    stages = [abs(s - (cb.n_colors - 1)) for s in range(2 * cb.n_colors - 1)]
+    if not cplx:
+        A[0] = C0 * C0 * e + S0 * S0[p0] * e[p0]
+        B[0] = C0 * S0 * e + S0 * C0[p0] * e[p0]
+        return A, B, None, P, stages
+    # s_n s_p = (S_n S_p - I_n I_p) + i (S_n I_p + I_n S_p), I the signed S_im
+    I0 = cb.S_im[0]
+    A[0] = C0 * C0 * e + (S0 * S0[p0] - I0 * I0[p0]) * e[p0]
+    A_im = (S0 * I0[p0] + I0 * S0[p0]) * e[p0]
+    if bool((A_im != 0).any()):
+        raise ValueError("complex stage tables: the middle block's diagonal is not real (a pair's S_im sides "
+                         "are not conjugate)")
+    B[0] = C0 * S0 * e + S0 * C0[p0] * e[p0]
+    B_im[0] = C0 * I0 * e + I0 * C0[p0] * e[p0]
+    return A, B, B_im, P, stages
+
+
 def build_stage_tables(bbar: AveragedPropagator, inv_half: float):
     """Bbar / half (real hoppings) as gathers x <- A_t x + B_t x[P_t]:
     (A, B, P, stages) with A, B (n_tables, N) in Bbar's dtype, P (n_tables, N)
@@ -159,29 +197,43 @@ def build_stage_tables(bbar: AveragedPropagator, inv_half: float):
     and an application takes the colors n-1 .. 1, table 0, the colors
     1 .. n-1: 2 n - 1 gathers. Every table must pair the sites (P[P[n]] = n):
     the fold and the kernels' exchange of sites between CTAs rest on it."""
-    cb = bbar.cb
-    e = bbar.expV * inv_half
-    sites = torch.arange(e.shape[0], device=e.device)
-    if cb.n_colors == 0:
-        return e[None].clone(), torch.zeros_like(e)[None], sites[None], [0]
-    A, B, P = cb.C.clone(), cb.S.clone(), cb.partner.clone()
-    if not torch.equal(P.gather(1, P), sites.expand_as(P)):
-        raise ValueError("a checkerboard color's partner table does not pair the sites")
-    if not bbar.symmetric:
-        A[-1] *= e
-        B[-1] *= e
-        return A, B, P, list(range(cb.n_colors))
-    C0, S0, p0 = cb.C[0], cb.S[0], cb.partner[0]
-    A[0] = C0 * C0 * e + S0 * S0[p0] * e[p0]
-    B[0] = C0 * S0 * e + S0 * C0[p0] * e[p0]
-    return A, B, P, [abs(s - (cb.n_colors - 1)) for s in range(2 * cb.n_colors - 1)]
+    if bbar.cb.S_im is not None:
+        raise ValueError("build_stage_tables: real hoppings only; complex hoppings take build_stage_tables_pair")
+    A, B, _, P, stages = _fold_stage_tables(bbar, inv_half)
+    return A, B, P, stages
 
 
-def apply_stage_tables(A, B, P, stages, u: torch.Tensor) -> torch.Tensor:
+def build_stage_tables_pair(bbar: AveragedPropagator, inv_half: float):
+    """Bbar / half for complex hoppings (K8) as gathers of the channel pair
+    z = re + i im, z <- A_t z + (B_t + i B_im_t) z[P_t]: (A, B, B_im, P,
+    stages), a color's s = S + i S_im carrying S_im's sign per pair side.
+
+    Asymmetric (Bbar = expV CB): the colors in order, expV / half multiplied
+    into the last. Symmetric (Bbar = CB expV CB^H, the adjoint being the
+    colors reversed with the same tables, each 2x2 block Hermitian): table 0
+    is the middle block K_0 e K_0 of color 0,
+
+        a[n] = C0[n]^2 e[n] + s[n] s[p] e[p],
+        b[n] = s[n] (C0[n] e[n] + C0[p] e[p]),
+
+    where s[p] = conj(s[n]) makes a real (checked: a complex a raises), and the
+    stages are the real form's. Every table must pair the sites."""
+    if bbar.cb.S_im is None:
+        raise ValueError("build_stage_tables_pair: complex hoppings only; real hoppings take build_stage_tables")
+    return _fold_stage_tables(bbar, inv_half)
+
+
+def apply_stage_tables(A, B, P, stages, u: torch.Tensor, B_im=None) -> torch.Tensor:
     """The stage tables applied to u (..., N) in plain PyTorch ops: what one
-    Bbar / half application of K6 / K7 computes."""
+    Bbar / half application of the kernels computes. With B_im (complex
+    hoppings) u is a channel pair (..., 2, R, N), re and im at axis -3."""
     for t in stages:
-        u = A[t] * u + B[t] * u.index_select(-1, P[t])
+        up = u.index_select(-1, P[t])
+        if B_im is None:
+            u = A[t] * u + B[t] * up
+            continue
+        re, im, pr, pi = u[..., 0, :, :], u[..., 1, :, :], up[..., 0, :, :], up[..., 1, :, :]
+        u = torch.stack([A[t] * re + B[t] * pr - B_im[t] * pi, A[t] * im + B[t] * pi + B_im[t] * pr], dim=-3)
     return u
 
 
@@ -209,17 +261,16 @@ def build_operands(pre) -> KPMMFOperands:
     center = float(np.float32(pre.center))
     inv_half = float(np.float32(1.0 / max(pre.half, 1e-12)))
     bbar = pre.bbar.to_dtype(f32)
-    stage = dict(stage_A=None, stage_B=None, stage_P=None)
-    if bbar.cb.S_im is None and bbar.expV.shape[0] <= 65535:
-        A, B, P, _ = build_stage_tables(bbar, inv_half)
-        stage = dict(stage_A=A.contiguous(), stage_B=B.contiguous(), stage_P=pack_partner16(P))
+    stage = dict(stage_A=None, stage_B=None, stage_B_im=None, stage_P=None)
+    if bbar.expV.shape[0] <= 65535:
+        A, B, B_im, P, _ = _fold_stage_tables(bbar, inv_half)
+        stage = dict(stage_A=A.contiguous(), stage_B=B.contiguous(),
+                     stage_B_im=None if B_im is None else B_im.contiguous(), stage_P=pack_partner16(P))
     perm = build_kpm_mf_plan(pre.phi)
     return KPMMFOperands(
         bbar=bbar,
-        partner=bbar.cb.partner.to(torch.int32).contiguous(),
         center=center,
         inv_half=inv_half,
-        expVih=(bbar.expV * inv_half).contiguous(),
         cih=float(np.float32(center) * np.float32(inv_half)),
         coefs_re=pre.coefs_re.to(f32).contiguous(),
         coefs_im=pre.coefs_im.to(f32).contiguous(),
@@ -309,11 +360,13 @@ def kpm_mf_cplx_plain(ops: KPMMFOperands, u_re, u_im):
 
 
 def max_sites(symmetric: bool, complex_pair: bool = False) -> int:
-    """The largest N a kernel takes (register tiles and shared memory)."""
-    lib = _build.load_library()
-    if complex_pair:
-        return int(lib.smoqy_kpm_mf_cplx_max_sites())
-    return int(lib.smoqy_kpm_mf_max_sites(int(symmetric)))
+    """The largest N a kernel takes (the one-CTA form's register tiles and
+    shared memory): K6 16384, K7 and K8 8192."""
+    return int(_build.load_library().smoqy_kpm_mf_max_sites(int(symmetric), int(complex_pair)))
+
+
+def _tag(ops: KPMMFOperands) -> str:
+    return "K8" if ops.complex_pair else ("K6" if ops.symmetric else "K7")
 
 
 def _launch_operands(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor, tag: str):
@@ -325,7 +378,7 @@ def _launch_operands(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor,
     if u_re.shape != u_im.shape or u_re.shape[-2:] != (F, N):
         raise ValueError(f"kpm_mf kernel: u planes {tuple(u_re.shape)} / {tuple(u_im.shape)}, "
                          f"expected (..., {F}, {N})")
-    if not (u_re.device == u_im.device == ops.expVih.device):
+    if not (u_re.device == u_im.device == ops.bbar.expV.device):
         raise ValueError("kpm_mf kernel: operands on different devices")
     limit = max_sites(ops.symmetric, ops.complex_pair)
     if N > limit:
@@ -338,18 +391,18 @@ def _launch_operands(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor,
 
 def cluster_plan(ops: KPMMFOperands, n_vectors: int, order_threshold: Optional[int] = None,
                  cluster_size: Optional[int] = None) -> dict:
-    """How K6 / K7 launch on these operands with `n_vectors` complex vectors:
-    {"cluster_size", "order_threshold", "sites_per_thread" (of the cluster
-    form: 1 or 2 by the slice's size, 0 where the shape does not fit it),
-    "n_cluster" (the frequencies that take the cluster form), "stages" (per
-    order step)}. The library decides the fit, by shape alone."""
+    """How K6 / K7 / K8 launch on these operands with `n_vectors` complex
+    vectors: {"cluster_size", "order_threshold", "sites_per_thread" (of the
+    cluster form: 1 or 2 by the slice's size, 0 where the shape does not fit
+    it), "n_cluster" (the frequencies that take the cluster form), "stages"
+    (per order step)}. The library decides the fit, by shape alone."""
     threshold = ORDER_THRESHOLD if order_threshold is None else int(order_threshold)
     k = cluster_size_for(ops.n_sites) if cluster_size is None else int(cluster_size)
     key = (n_vectors, threshold, k)
     if key not in ops.launch_plans:
         n_tables = ops.stage_A.shape[0]
-        per = _build.load_library().smoqy_kpm_mf_cluster_fits(int(ops.symmetric), n_vectors, ops.n_sites, n_tables,
-                                                              ops.coefs_re.shape[1], k)
+        per = _build.load_library().smoqy_kpm_mf_cluster_fits(int(ops.symmetric), int(ops.complex_pair), n_vectors,
+                                                              ops.n_sites, n_tables, ops.coefs_re.shape[1], k)
         head, _ = split_plan(ops.perm_host, ops.orders_host, threshold)
         ops.launch_plans[key] = dict(cluster_size=k, order_threshold=threshold, sites_per_thread=per,
                                      n_cluster=len(head) if per else 0,
@@ -357,43 +410,48 @@ def cluster_plan(ops: KPMMFOperands, n_vectors: int, order_threshold: Optional[i
     return ops.launch_plans[key]
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor, order_threshold, cluster_size):
+    """One launch of the library's kpm_mf entry, K6, K7 or K8 by the
+    operands; returns (y_re, y_im) shaped as u."""
+    tag = _tag(ops)
+    ure, uim, yre, yim, stream = _launch_operands(ops, u_re, u_im, tag)
+    B, F, N = ure.shape
+    plan = cluster_plan(ops, B, order_threshold, cluster_size)
+    rc = _build.load_library().smoqy_kpm_mf(
+        ure.data_ptr(), uim.data_ptr(), yre.data_ptr(), yim.data_ptr(), _ptr(ops.stage_A), _ptr(ops.stage_B),
+        _ptr(ops.stage_B_im), _ptr(ops.stage_P), ops.coefs_re.data_ptr(),
+        None if ops.symmetric else ops.coefs_im.data_ptr(), ops.orders.data_ptr(), ops.perm.data_ptr(), ops.cih,
+        int(ops.symmetric), B, F, N, ops.stage_A.shape[0], ops.coefs_re.shape[1], plan["n_cluster"],
+        plan["cluster_size"], stream)
+    _build.check(rc, f"kpm_mf kernel launch ({tag})")
+    return yre.reshape(u_re.shape), yim.reshape(u_im.shape)
+
+
 def kpm_mf_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor, order_threshold: Optional[int] = None,
                 cluster_size: Optional[int] = None):
     """Launch K6 (symmetric) or K7 (asymmetric) on CUDA tensors u_re, u_im
     (..., F, N) float32; real hoppings only. `order_threshold` and
     `cluster_size` override the module's constants (tests and measurements)."""
-    tag = "K6" if ops.symmetric else "K7"
-    _require_real(ops, f"kpm_mf kernel ({tag})")
-    ure, uim, yre, yim, stream = _launch_operands(ops, u_re, u_im, tag)
-    lib = _build.load_library()
-    B, F, N = ure.shape
-    plan = cluster_plan(ops, B, order_threshold, cluster_size)
-    rc = lib.smoqy_kpm_mf(ure.data_ptr(), uim.data_ptr(), yre.data_ptr(), yim.data_ptr(), ops.stage_A.data_ptr(),
-                          ops.stage_B.data_ptr(), ops.stage_P.data_ptr(), ops.coefs_re.data_ptr(),
-                          None if ops.symmetric else ops.coefs_im.data_ptr(), ops.orders.data_ptr(),
-                          ops.perm.data_ptr(), ops.cih, B, F, N, ops.stage_A.shape[0], ops.coefs_re.shape[1],
-                          plan["n_cluster"], plan["cluster_size"], stream)
-    _build.check(rc, f"kpm_mf kernel launch ({tag})")
+    _require_real(ops, f"kpm_mf kernel ({_tag(ops)})")
+    out = _launch(ops, u_re, u_im, order_threshold, cluster_size)
     (KPM_MF if ops.symmetric else KPM_MF_ASYM).launches += 1
-    return yre.reshape(u_re.shape), yim.reshape(u_im.shape)
+    return out
 
 
-def kpm_mf_cplx_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):
+def kpm_mf_cplx_cuda(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor,
+                     order_threshold: Optional[int] = None, cluster_size: Optional[int] = None):
     """Launch K8 on the channel pair (u_re, u_im), CUDA tensors (..., F, N)
-    float32, of complex hoppings (both factorizations)."""
+    float32, of complex hoppings (both factorizations); the overrides as for
+    `kpm_mf_cuda`."""
     if not ops.complex_pair:
         raise ValueError("kpm_mf_cplx kernel (K8): complex hoppings only")
-    ure, uim, yre, yim, stream = _launch_operands(ops, u_re, u_im, "K8")
-    cb = ops.bbar.cb
-    F, N = ure.shape[1:]
-    rc = _build.load_library().smoqy_kpm_mf_cplx(
-        ure.data_ptr(), uim.data_ptr(), yre.data_ptr(), yim.data_ptr(), cb.C.data_ptr(), cb.S.data_ptr(),
-        ops.S_im.data_ptr(), ops.partner.data_ptr(), ops.expVih.data_ptr(), ops.coefs_re.data_ptr(),
-        ops.coefs_im.data_ptr(), ops.orders.data_ptr(), ops.perm.data_ptr(), ops.cih, int(ops.symmetric),
-        ure.shape[0], F, N, cb.n_colors, ops.coefs_re.shape[1], stream)
-    _build.check(rc, "kpm_mf_cplx kernel launch")
+    out = _launch(ops, u_re, u_im, order_threshold, cluster_size)
     KPM_MF_CPLX.launches += 1
-    return yre.reshape(u_re.shape), yim.reshape(u_im.shape)
+    return out
 
 
 def kpm_mf_apply(ops: KPMMFOperands, u_re: torch.Tensor, u_im: torch.Tensor):

@@ -11,9 +11,9 @@ solutions rtol 2e-4 / atol 2e-5, both converged (tests/test_pallas.py:65,
 :96); K3's iteration counts within one of the plain version's (same bf16
 preconditioner, f32 sums in another order); the force planes of K3 and K4
 rtol 1e-4 with atol 1e-5 of their largest value (the same f32 operations,
-contracted into FMAs in another order); K6 2e-4 and K7 5e-4 relative to
-max|y| (f32 Chebyshev recurrences with the affine map folded into the
-tables, tests/test_kpm_matrix_free.py:137,192).
+contracted into FMAs in another order); K6 and K8 symmetric 2e-4, K7 and
+K8 asymmetric 5e-4 relative to max|y| (f32 Chebyshev recurrences with the
+affine map folded into the tables, tests/test_kpm_matrix_free.py:137,192).
 """
 
 import dataclasses
@@ -670,43 +670,126 @@ def test_run_updates_kpm_launches_k6_k7(cuda_device, symmetric):
         assert c.plain_calls == 0, c.name
 
 
-def _cplx_fdm(device, symmetric=True, L=8, beta=1.0, phase=0.7):
-    """The complex chain t e^{i phase} (an O(1) imaginary part)."""
+def _cplx_fdm(device, symmetric=True, L=8, beta=1.0, phase=0.7, perm_seed=None):
+    """The complex chain t e^{i phase} (an O(1) imaginary part), optionally
+    with its site labels permuted (partners anywhere on the ring)."""
     from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
 
     geo, tbm, em = complex_chain_model(L, phase=phase)
     rng = np.random.default_rng(0)
     tbp = TightBindingParameters.from_model(tbm, rng, device=device)
     elph = ElectronPhononParameters.from_model(beta, 0.1, em, tbp, rng, device=device)
-    structure = build_checkerboard_structure(tbp.neighbor_table, tbp.n_sites)
+    nt = np.asarray(tbp.neighbor_table)
+    if perm_seed is not None:
+        nt = np.random.default_rng(perm_seed).permutation(tbp.n_sites)[nt].astype(np.int32)
+    structure = build_checkerboard_structure(nt, tbp.n_sites)
     return FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph), structure, symmetric=symmetric)
 
 
-@pytest.mark.parametrize("L", [8, 1152, 3000, 8190], ids=["N-8", "N-1152", "N-3000", "N-8190"])
-@pytest.mark.parametrize("symmetric", SYM)
-def test_kpm_mf_cplx_kernel_matches_plain(cuda_device, symmetric, L):
-    """K8 against kpm_mf_cplx_plain on a complex chain's matrix-free
-    preconditioner, two complex vectors of (Ltau, N) frequency planes; the
-    sizes take each of its register tiles (4, 8 and 16 sites per thread,
-    N <= 2048, 4096 and 8192), the last two with a partly filled tile."""
-    fdm = _cplx_fdm(cuda_device, symmetric, L=L)
-    gen = torch.Generator().manual_seed(8)
+def _cplx_operands(fdm, seed=8):
+    gen = torch.Generator().manual_seed(seed)
     pre = KPMPreconditioner.build(fdm, torch.randn(2 * fdm.n_sites, generator=gen, dtype=torch.float64),
                                   matrix_free=True)
     assert pre.complex_pair and pre.active and pre.orders.max() > 1
-    ops = pre.mf_operands()
-    ure, uim = torch.randn((2, 2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float32).to(cuda_device)
+    return pre.mf_operands()
+
+
+def _check_k8(ops, device, n_vectors=2, seed=8, **launch):
+    """K8 on `n_vectors` channel pairs of (Ltau, N) frequency planes against
+    kpm_mf_cplx_plain: one launch counted, 2e-4 (symmetric) or 5e-4
+    (asymmetric) of max|y|."""
+    F, N = ops.coefs_re.shape[0], ops.n_sites
+    gen = torch.Generator().manual_seed(seed)
+    ure, uim = torch.randn((2, n_vectors, F, N), generator=gen, dtype=torch.float32).to(device)
     launches = kpm_mf.KPM_MF_CPLX.launches
-    got = kpm_mf.kpm_mf_apply(ops, ure, uim)
+    got = kpm_mf.kpm_mf_cplx_cuda(ops, ure, uim, **launch) if launch else kpm_mf.kpm_mf_apply(ops, ure, uim)
+    torch.cuda.synchronize()
     assert kpm_mf.KPM_MF_CPLX.launches == launches + 1
     ref = kpm_mf.kpm_mf_cplx_plain(ops, ure, uim)
     scale = max(float(r.abs().max()) for r in ref)
     err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
-    assert err <= (2e-4 if symmetric else 5e-4) * scale
+    assert err <= (2e-4 if ops.symmetric else 5e-4) * scale
+    return got
+
+
+K8_FORMS = {"constants": {}, "all-cluster": dict(order_threshold=0), "no-cluster": dict(order_threshold=10**6)}
+
+
+@pytest.mark.parametrize("n_vectors", [1, 2])
+@pytest.mark.parametrize("form", list(K8_FORMS))
+@pytest.mark.parametrize("L", [8, 1152, 3000, 8190], ids=["N-8", "N-1152", "N-3000", "N-8190"])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_cplx_kernel_matches_plain(cuda_device, symmetric, L, form, n_vectors):
+    """K8 against kpm_mf_cplx_plain on a complex chain's matrix-free
+    preconditioner, one and two channel pairs (row groups of 2 and 4), in the
+    cluster form, the one-CTA form (4 and 16 sites a thread) and the
+    constants' mix; the cluster form covers every frequency where the shape
+    fits it (by shape alone)."""
+    ops = _cplx_operands(_cplx_fdm(cuda_device, symmetric, L=L))
+    launch = K8_FORMS[form]
+    if launch:
+        plan = kpm_mf.cluster_plan(ops, n_vectors, **launch)
+        fits = plan["sites_per_thread"] > 0
+        assert plan["n_cluster"] == (ops.coefs_re.shape[0] if form == "all-cluster" and fits else 0)
+        assert plan["stages"] == (3 if symmetric else 2)  # the chain's 2 colors
+    _check_k8(ops, cuda_device, n_vectors=n_vectors, **launch)
+
+
+@pytest.mark.parametrize("cluster_size", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("N", [3000, 8190])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_cplx_kernel_ragged_slices(cuda_device, symmetric, N, cluster_size):
+    """K8 on chains of 3000 and 8190 sites: no multiple of the cluster size
+    or of 32, so the last CTA's slice and the last warp are partly filled;
+    every frequency in the cluster form where the shape fits it, else all in
+    the one-CTA form. The fit counts Bi's 4 bytes a site and table."""
+    ops = _cplx_operands(_cplx_fdm(cuda_device, symmetric, L=N))
+    plan = kpm_mf.cluster_plan(ops, 2, order_threshold=0, cluster_size=cluster_size)
+    n_tables, C_pad = ops.stage_A.shape[0], ops.coefs_re.shape[1]
+    n_buf = 2 * (2 * n_tables - 1 if symmetric else n_tables)
+    slice_ = -(-N // cluster_size)
+    smem = 16 * ((n_buf * -(-slice_ // 32) + 1) // 2) + n_buf * slice_ * 4 * 4 + 2 * C_pad * 4 + n_tables * slice_ * 20
+    fits = slice_ <= 2048 and smem <= 227 * 1024
+    assert plan["n_cluster"] == (ops.coefs_re.shape[0] if fits else 0)
+    assert plan["sites_per_thread"] == ((1 if slice_ <= 1024 else 2) if fits else 0)
+    _check_k8(ops, cuda_device, order_threshold=0, cluster_size=cluster_size)
+
+
+@pytest.mark.parametrize("form", ["all-cluster", "no-cluster"])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_cplx_kernel_permuted_chain(cuda_device, symmetric, form):
+    """The complex chain of 1152 sites with its site labels permuted:
+    partners in every other CTA's slice, and each pair's S_im signs on
+    relabelled sides."""
+    ops = _cplx_operands(_cplx_fdm(cuda_device, symmetric, L=1152, perm_seed=11))
+    owner = kpm_mf.unpack_partner16(ops.stage_P) // (ops.n_sites // 4)
+    assert len(torch.unique(owner[:, : ops.n_sites // 4])) == 4
+    launch = {"all-cluster": dict(order_threshold=0, cluster_size=4), "no-cluster": dict(order_threshold=10**6)}
+    _check_k8(ops, cuda_device, **launch[form])
+
+
+@pytest.mark.parametrize("form", ["all-cluster", "no-cluster"])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_cplx_kernel_orders_all_one(cuda_device, symmetric, form):
+    """Live orders all 1: y = c_0 u (asymmetric: |c_0|^2 u), no stage at all."""
+    ops = _cplx_operands(_cplx_fdm(cuda_device, symmetric, L=1152))
+    ops = dataclasses.replace(ops, orders=torch.ones_like(ops.orders), orders_host=np.ones_like(ops.orders_host),
+                              launch_plans={})
+    _check_k8(ops, cuda_device, order_threshold=0 if form == "all-cluster" else 10**6)
+
+
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_cplx_kernel_bit_identical(cuda_device, symmetric):
+    """Two launches on the same operands give the same bits (no atomics, no
+    order that changes from run to run)."""
+    ops = _cplx_operands(_cplx_fdm(cuda_device, symmetric, L=1152))
+    one, two = _check_k8(ops, cuda_device), _check_k8(ops, cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 def test_kpm_mf_cplx_kernel_refuses_large_n(cuda_device):
-    """K8 takes at most 8192 sites and says so."""
+    """K8 takes at most 8192 sites (the one-CTA form's 16-site register
+    tiles of one vector) and says so."""
     fdm = _cplx_fdm(cuda_device, True, L=8200, beta=0.2)
     gen = torch.Generator().manual_seed(9)
     pre = KPMPreconditioner.build(fdm, torch.randn(2 * fdm.n_sites, generator=gen, dtype=torch.float64),

@@ -111,7 +111,7 @@ def test_staged_recurrence_matches_plain(symmetric, perm_seed):
 
 def test_operands_carry_stage_tables():
     """build_operands: f32 tables on the operands' device, 16-bit partners
-    that unpack to Bbar's, the plan's host copy; complex hoppings get none."""
+    that unpack to Bbar's, the plan's host copy (complex hoppings: test_torch_kpm_fold_cplx.py)."""
     ops = _operands(True, None)
     n_colors = ops.bbar.cb.n_colors
     assert ops.stage_A.dtype == ops.stage_B.dtype == torch.float32 and ops.stage_P.dtype == torch.int16
