@@ -25,8 +25,9 @@ Phases, one line each:
   8. K3 (whole-solve PCG + force epilogue) on W = 8 walkers at the headline
      size against its plain version, cold and warm, with the time of each,
      us and grid syncs per iteration, its tau block and grid;
-  9. K4 (the force epilogue alone) on one channel pair against its plain
-     version;
+  9. K4 (the force planes alone) on one channel pair against its plain
+     version, want_p2 on and off, its device time beside the eager call's
+     and a line with its launch (T, grid, form) and per-phase breakdown;
  10. the walker path: `run_updates` at the headline with W = 8 walkers; every
      walker must converge, every Delta H be finite, K3 must have launched and
      no plain version may have run;
@@ -571,7 +572,9 @@ def phase_k3(results):
 
 def phase_k4(results):
     """K4 on one channel pair at the headline size (the fused_force path's
-    shape) against its plain version."""
+    shape) against its plain version: the device's time (a CUDA graph of
+    launches; the eager call's is the host's) and the timed instantiation's
+    per-phase breakdown."""
     import torch
 
     from smoqyelphqmc_tpu_torch.ops import force
@@ -583,22 +586,34 @@ def phase_k4(results):
     Lam = build_lambda(elph, elph.x, tbp.n_sites).to(torch.float32)
     psi = torch.randn((2, fdm32.Ltau, fdm32.n_sites), generator=torch.Generator().manual_seed(14),
                       dtype=torch.float32).to(dev)
-    got = force.force_planes_cuda(fdm32, Lam, psi, True)
-    ref = force.force_planes_plain(fdm32, Lam, psi, True)
-    torch.cuda.synchronize()
     err, ok = 0.0, True
-    for g, r in zip(got, ref):
-        d = (g - r).abs()
-        err = max(err, float(d.max()))
-        ok = ok and bool((d <= 1e-5 * float(r.abs().max()) + 1e-4 * r.abs()).all())
-    ms = cuda_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, True), 20)
+    for want_p2 in (True, False):
+        got = force.force_planes_cuda(fdm32, Lam, psi, want_p2)
+        ref = force.force_planes_plain(fdm32, Lam, psi, want_p2)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            d = (g - r).abs()
+            err = max(err, float(d.max()))
+            ok = ok and bool((d <= 1e-5 * float(r.abs().max()) + 1e-4 * r.abs()).all())
+    ms = graph_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, True), 100)
+    eager_ms = cuda_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, True), 20)
     plain_ms = cuda_ms(lambda: force.force_planes_plain(fdm32, Lam, psi, True), 5)
     Ltau, N, nc = fdm32.Ltau, fdm32.n_sites, fdm32.cb.n_colors
     # psi (2 planes), Lambda and expV in, P1 and P2 out
     bound_ms, bound_by = bound(6 * Ltau * N * 4 + table_bytes(N, nc, 4), {"f32": epilogue_ops(Ltau, N, nc)})
+    shape = force.launch_shape(fdm32, 1)
+    stamps = torch.zeros(force.stamp_slots(), dtype=torch.int64, device=dev)
+    force.force_planes_cuda(fdm32, Lam, psi, True, stamps=stamps)
+    torch.cuda.synchronize()
+    us = force.phase_times(stamps, force.phase_names(nc, True))
+    groups = {k: round(v, 2) for k, v in us["cta0"]["groups"].items()}
+    say(f"K4 launch: tau blocks of {shape['tau_block']} rows, grid {shape['grid']} CTAs of {shape['threads']} "
+        f"threads, form K={shape['form']}, {shape['smem']} bytes of shared memory; timed launch "
+        f"{us['kernel']:.2f} us, CTA 0 {us['cta0']['us']:.2f} us by phase group {groups}")
     say(f"K4 planes (2, {fdm32.Ltau}, {fdm32.n_sites}): max abs err {err:.3e} at max|P| "
-        f"{max(float(r.abs().max()) for r in ref):.4g} (rtol 1e-4, atol 1e-5 max|P|: {ok}); "
-        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
+        f"{max(float(r.abs().max()) for r in ref):.4g} (rtol 1e-4, atol 1e-5 max|P|, want_p2 on and off: {ok}); "
+        f"kernel {ms:.4f} ms (device; eager call {eager_ms:.4f} ms) plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"by {bound_by}")
     if not ok:
         fail("K4 disagrees with its plain version")
     results["force"] = dict(name="force", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/force.cu",

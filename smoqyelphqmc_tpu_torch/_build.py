@@ -46,7 +46,10 @@ _SIGNATURES = {
     "smoqy_pcg_force_stamps_per_iteration": [],
     "smoqy_pcg_force": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P, _P],
-    "smoqy_force": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "smoqy_force_row_ld": [_I],
+    "smoqy_force_smem_bytes": [_I, _I, _I],
+    "smoqy_force_resident": [_I, _I, _I, _I],
+    "smoqy_force": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "smoqy_kpm_mf_max_sites": [_I, _I],
     "smoqy_kpm_mf_cluster_fits": [_I, _I, _I, _I, _I, _I, _I],
     "smoqy_kpm_mf": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -28,6 +28,9 @@
 //   Y: v, then m_{j+1}, then B^T m_{j+1}). Sites a color leaves alone are
 //   pairs (n, n) with cosh 1, sinh 0, so the expV scaling rides on a color
 //   stage.
+// The pair stages, the register and memory forms and the stamps are in
+// pair_ops.cuh, shared with K4.
+//
 // - tables resident: a thread keeps the same pairs through every stage and
 //   every row of its block. With tau-independent hoppings, up to 3 colors and
 //   K <= 5 pairs a thread a color, their sites and (cosh, sinh) live in
@@ -50,302 +53,14 @@
 
 #include <cuda_runtime.h>
 
+#include "pair_ops.cuh"
 #include "row_ops.cuh"
 
 namespace {
 
+using namespace smoqy::pairs;
+
 constexpr int kMaxThreads = 512;
-constexpr int kRegColors = 3;  // colors whose tables the register form holds
-constexpr int kMaxK = 5;       // pairs a thread a color in the register form
-
-template <typename T>
-struct PairTabs {
-  const unsigned* ab;  // (n_colors, P): sites a | b << 16 of each pair; padding a = b = N
-  const T* C;          // (n_colors, rows, P) cosh of the pair's bond
-  const T* S;          // (n_colors, rows, P) sinh
-  const T* expV;       // (Ltau, ld) exp(-dtau V), 1 in the padding columns
-  int N;
-  int ld;  // row stride in shared memory and of expV: > N (site N is the padding's)
-  int Ltau;
-  int n_colors;
-  int P;         // pair slots a color: K * blockDim.x
-  int tau_tabs;  // 1: rows == Ltau (tau-dependent hoppings), 0: rows == 1
-  int symmetric;  // 1: B = CB^T D CB (applied CB^T first); 0: B = D CB, B^T = CB^T D
-};
-
-// ---- the timed instantiation's stamps ---------------------------------------
-//
-// pcg_common.cuh's stamps write CTA 0's clocks straight to memory; K1's grid
-// can run in more than one round (f64 at L=48), so it also records the last
-// CTA to finish, which keeps its clocks in shared memory until it knows.
-// Layout of the int64 stamp buffer (zeroed by the host): slots 0-3 CTA 0's
-// globaltimer and clock64 at its start and end, 4-7 the same for the last CTA
-// to finish, 8 the finish counter, 9 that CTA's index, then kMaxStamps clocks
-// of CTA 0 (one at the end of each phase) and kMaxStamps of the last CTA.
-constexpr int kStampBase = 10;
-constexpr int kMaxStamps = 64;
-
-template <bool kTimed>
-struct Stamps {
-  __device__ void start() {}
-  __device__ void mark() {}
-  __device__ void finish(unsigned long long*) {}
-};
-
-template <>
-struct Stamps<true> {
-  unsigned long long* sh;  // kMaxStamps clocks in shared memory
-  int n = 0;
-  unsigned long long g0 = 0, c0 = 0;
-
-  __device__ static unsigned long long gtime() {
-    unsigned long long g;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
-    return g;
-  }
-  __device__ void start() {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      g0 = gtime();
-      c0 = clock64();
-    }
-  }
-  __device__ void mark() {
-    __syncthreads();
-    if (threadIdx.x == 0 && n < kMaxStamps) sh[n] = clock64();
-    ++n;
-  }
-  __device__ void finish(unsigned long long* t) {
-    __syncthreads();
-    if (threadIdx.x != 0) return;
-    const unsigned long long g1 = gtime(), c1 = clock64();
-    const unsigned long long head[4] = {g0, c0, g1, c1};
-    const unsigned long long done = atomicAdd(reinterpret_cast<unsigned long long*>(t + 8), 1ull);
-    const int m = n < kMaxStamps ? n : kMaxStamps;
-    if (blockIdx.x == 0) {
-      for (int i = 0; i < 4; ++i) t[i] = head[i];
-      for (int i = 0; i < m; ++i) t[kStampBase + i] = sh[i];
-    }
-    if (done == gridDim.x - 1) {
-      for (int i = 0; i < 4; ++i) t[4 + i] = head[i];
-      t[9] = blockIdx.x;
-      for (int i = 0; i < m; ++i) t[kStampBase + kMaxStamps + i] = sh[i];
-    }
-  }
-};
-
-// ---- pair stages --------------------------------------------------------------
-//
-// A thread owns the pairs q = threadIdx.x + k blockDim.x (k < K) of every
-// color. A stage updates (u[a], u[b]) <- the bond's 2x2 block times (u[a],
-// u[b]) on each row of the block, all loads of a group of pairs before any
-// store (the compiler would not move a load above a store to the same
-// buffer). Padding slots update the spare site N of each row, which nothing
-// reads. expV rides on a stage: after the block (kAfter) or before it
-// (kBefore).
-
-enum Scale { kNone = 0, kAfter = 1, kBefore = 2 };
-
-template <typename T, int G, int SC>
-__device__ __forceinline__ void pair_group(T* u, const T* E, const unsigned* ab, const T* cv,
-                                           const T* sv) {
-  T ua[G], ub[G], ea[G], eb[G];
-#pragma unroll
-  for (int j = 0; j < G; ++j) {
-    const int a = ab[j] & 0xffffu, b = ab[j] >> 16;
-    ua[j] = u[a];
-    ub[j] = u[b];
-    if (SC != kNone) {
-      ea[j] = __ldg(E + a);
-      eb[j] = __ldg(E + b);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < G; ++j) {
-    const int a = ab[j] & 0xffffu, b = ab[j] >> 16;
-    T xa = ua[j], xb = ub[j];
-    if (SC == kBefore) {
-      xa *= ea[j];
-      xb *= eb[j];
-    }
-    T ta = cv[j] * xa + sv[j] * xb;
-    T tb = cv[j] * xb + sv[j] * xa;
-    if (SC == kAfter) {
-      ta *= ea[j];
-      tb *= eb[j];
-    }
-    u[a] = ta;
-    u[b] = tb;
-  }
-}
-
-// The register form's tables: a thread's K pairs of each of the first
-// kRegColors colors, read once a launch.
-template <typename T, int K>
-struct RegTabs {
-  unsigned ab[kRegColors][K > 0 ? K : 1];
-  T c[kRegColors][K > 0 ? K : 1];
-  T s[kRegColors][K > 0 ? K : 1];
-};
-
-template <typename T, int K>
-__device__ void load_regs(const PairTabs<T>& tb, RegTabs<T, K>& r) {
-  const unsigned spare = (unsigned)tb.N | ((unsigned)tb.N << 16);
-#pragma unroll
-  for (int c = 0; c < kRegColors; ++c) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const size_t i = (size_t)c * tb.P + threadIdx.x + k * blockDim.x;
-      const bool has = c < tb.n_colors;
-      r.ab[c][k] = has ? __ldg(tb.ab + i) : spare;
-      r.c[c][k] = has ? __ldg(tb.C + i) : T(0);
-      r.s[c][k] = has ? __ldg(tb.S + i) : T(0);
-    }
-  }
-}
-
-// Color CC (compile time, so the tables stay in registers) on nrows rows of
-// U, row i at tau (tau0 + i) mod Ltau.
-template <typename T, int K, int CC, int SC>
-__device__ __forceinline__ void reg_stage(const PairTabs<T>& tb, const RegTabs<T, K>& r, T* U,
-                                          int nrows, int tau0) {
-  constexpr int G = K <= 3 ? K : (K + 1) / 2;  // pairs whose loads go first
-  for (int i = 0; i < nrows; ++i) {
-    T* u = U + (size_t)i * tb.ld;
-    const T* E = tb.expV + (size_t)smoqy::wrap_row(tau0 + i, tb.Ltau) * tb.ld;
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += G) {
-      constexpr int kLast = K % G == 0 ? G : K % G;
-      if (k0 + G <= K) {
-        pair_group<T, G, SC>(u, E, r.ab[CC] + k0, r.c[CC] + k0, r.s[CC] + k0);
-      } else {
-        pair_group<T, kLast, SC>(u, E, r.ab[CC] + k0, r.c[CC] + k0, r.s[CC] + k0);
-      }
-    }
-  }
-}
-
-// The memory form (K = 0): any number of colors, tau-dependent tables; a
-// thread reads its pairs' sites and (cosh, sinh) once a stage (once a row
-// where they depend on tau), Km pairs of them.
-template <typename T>
-__device__ void mem_stage(const PairTabs<T>& tb, int c, int scale, T* U, int nrows, int tau0) {
-  constexpr int G = 4;
-  const int Km = tb.P / blockDim.x;
-  const int rows = tb.tau_tabs ? tb.Ltau : 1;
-  for (int k0 = 0; k0 < Km; k0 += G) {
-    unsigned ab[G];
-    T cv[G], sv[G];
-    size_t t0[G];
-    const int g = Km - k0 < G ? Km - k0 : G;
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      const int q = threadIdx.x + (j < g ? k0 + j : k0) * blockDim.x;
-      ab[j] = __ldg(tb.ab + (size_t)c * tb.P + q);
-      t0[j] = (size_t)c * rows * tb.P + q;
-      cv[j] = __ldg(tb.C + t0[j]);
-      sv[j] = __ldg(tb.S + t0[j]);
-    }
-    for (int i = 0; i < nrows; ++i) {
-      const int tau = smoqy::wrap_row(tau0 + i, tb.Ltau);
-      if (tb.tau_tabs) {
-#pragma unroll
-        for (int j = 0; j < G; ++j) {
-          cv[j] = __ldg(tb.C + t0[j] + (size_t)tau * tb.P);
-          sv[j] = __ldg(tb.S + t0[j] + (size_t)tau * tb.P);
-        }
-      }
-      T* u = U + (size_t)i * tb.ld;
-      const T* E = tb.expV + (size_t)tau * tb.ld;
-      // a short group repeats its first pair: the same values written twice
-      if (scale == kAfter) {
-        pair_group<T, G, kAfter>(u, E, ab, cv, sv);
-      } else if (scale == kBefore) {
-        pair_group<T, G, kBefore>(u, E, ab, cv, sv);
-      } else {
-        pair_group<T, G, kNone>(u, E, ab, cv, sv);
-      }
-    }
-  }
-}
-
-// One color stage of either form.
-template <typename T, int K>
-__device__ __forceinline__ void color_stage(const PairTabs<T>& tb, const RegTabs<T, K>& r, int c,
-                                            int scale, T* U, int nrows, int tau0) {
-  if constexpr (K > 0) {
-    switch (c * 3 + scale) {
-      case 0: reg_stage<T, K, 0, kNone>(tb, r, U, nrows, tau0); break;
-      case 1: reg_stage<T, K, 0, kAfter>(tb, r, U, nrows, tau0); break;
-      case 2: reg_stage<T, K, 0, kBefore>(tb, r, U, nrows, tau0); break;
-      case 3: reg_stage<T, K, 1, kNone>(tb, r, U, nrows, tau0); break;
-      case 4: reg_stage<T, K, 1, kAfter>(tb, r, U, nrows, tau0); break;
-      case 5: reg_stage<T, K, 1, kBefore>(tb, r, U, nrows, tau0); break;
-      case 6: reg_stage<T, K, 2, kNone>(tb, r, U, nrows, tau0); break;
-      case 7: reg_stage<T, K, 2, kAfter>(tb, r, U, nrows, tau0); break;
-      default: reg_stage<T, K, 2, kBefore>(tb, r, U, nrows, tau0); break;
-    }
-  } else {
-    mem_stage(tb, c, scale, U, nrows, tau0);
-  }
-}
-
-// u <- expV u on nrows rows (a B without hoppings: no color to ride on).
-template <typename T>
-__device__ void scale_rows(const PairTabs<T>& tb, T* U, int nrows, int tau0) {
-  for (int i = 0; i < nrows; ++i) {
-    const T* E = tb.expV + (size_t)smoqy::wrap_row(tau0 + i, tb.Ltau) * tb.ld;
-    for (int n = threadIdx.x; n < tb.N; n += blockDim.x) U[(size_t)i * tb.ld + n] *= E[n];
-  }
-}
-
-// B on each of nrows rows of U in place (row i: B at tau tau0 + i); U must be
-// complete (synchronised) on entry and is on return.
-template <typename T, int K, typename St>
-__device__ void apply_B(const PairTabs<T>& tb, const RegTabs<T, K>& r, T* U, int nrows, int tau0,
-                        St& st) {
-  const int nc = tb.n_colors;
-  if (nc == 0) {
-    scale_rows(tb, U, nrows, tau0);
-    __syncthreads();
-    st.mark();
-    return;
-  }
-  if (tb.symmetric) {  // CB^T (colors reversed), expV after color 0, CB
-    for (int c = nc - 1; c >= 0; --c) {
-      color_stage(tb, r, c, c == 0 ? kAfter : kNone, U, nrows, tau0);
-      __syncthreads();
-      st.mark();
-    }
-    for (int c = 0; c < nc; ++c) {
-      color_stage(tb, r, c, kNone, U, nrows, tau0);
-      __syncthreads();
-      st.mark();
-    }
-  } else {  // CB, expV after its last color
-    for (int c = 0; c < nc; ++c) {
-      color_stage(tb, r, c, c == nc - 1 ? kAfter : kNone, U, nrows, tau0);
-      __syncthreads();
-      st.mark();
-    }
-  }
-}
-
-// B^T likewise (symmetric: B itself; asymmetric: expV, then CB^T).
-template <typename T, int K, typename St>
-__device__ void apply_Bt(const PairTabs<T>& tb, const RegTabs<T, K>& r, T* U, int nrows, int tau0,
-                         St& st) {
-  const int nc = tb.n_colors;
-  if (tb.symmetric || nc == 0) {
-    apply_B(tb, r, U, nrows, tau0, st);
-    return;
-  }
-  for (int c = nc - 1; c >= 0; --c) {
-    color_stage(tb, r, c, c == nc - 1 ? kBefore : kNone, U, nrows, tau0);
-    __syncthreads();
-    st.mark();
-  }
-}
 
 // xi <- yi + s1 xi on a row, and ym <- the same where given; the loads of 4
 // elements first.
@@ -435,14 +150,6 @@ mtm_kernel(const T* __restrict__ v, T* __restrict__ out, PairTabs<T> tb, int tau
   }
   st.mark();
   st.finish(stamps);
-}
-
-// Row stride in shared memory: N + 1 sites (the padding's spare one) rounded
-// up to 16 bytes.
-template <typename T>
-int row_ld(int N) {
-  constexpr int per = 16 / sizeof(T);
-  return (N + 1 + per - 1) / per * per;
 }
 
 template <typename T>

@@ -14,8 +14,12 @@ Symmetric factorization, real hoppings, float32. psi_raw is
 (..., 2, Ltau, N) and Lambda (..., Ltau, N); a walker batch carries its
 fermion matrix's exp_nV as (W, 1, Ltau, N) (`updates.context.make_fdm`).
 `force_planes` is the dispatcher: a CPU tensor takes `force_planes_plain`, a
-CUDA tensor launches `csrc/force.cu` or raises. K3 (`ops/pcg_force.py`) runs the same epilogue
-after its solve.
+CUDA tensor launches `csrc/force.cu` or raises. K3 (`ops/pcg_force.py`) runs
+the same epilogue after its solve, one row at a time.
+
+K4 takes tau blocks of T rows a CTA with both channels in one stage, on K1's
+pair tables (csrc/force.cu, csrc/pair_ops.cuh); `force_blocked_plain` is the
+plain model of its block algebra, `tau_block_rows` its choice of T.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import torch
 
 from .. import _build
 from .fermion_det import boundary_sign
-from .mtm import KernelCounter, mtm_tables, require_real
+from .mtm import (SMEM_MAX, KernelCounter, block_form, mtm_tables, pair_index, phase_times,  # noqa: F401
+                  require_real, row_ld, stamp_slots)
 
 FORCE = KernelCounter("force")
 
@@ -74,19 +79,174 @@ def force_planes_plain(fdm32, Lam: torch.Tensor, psi_raw: torch.Tensor, want_p2:
     return planes(fdm32, Lam, psi_raw, want_p2)
 
 
-def force_planes_cuda(fdm32, Lam: torch.Tensor, psi_raw: torch.Tensor, want_p2: bool):
-    """Launch K4 on CUDA tensors."""
+def force_blocked_plain(fdm32, Lam: torch.Tensor, psi_raw: torch.Tensor, want_p2: bool, T: int):
+    """(P1, P2) as K4's tau blocks compute them, block by block of T rows in
+    plain PyTorch ops: for the rows l0 .. l0+nr-1 of a block, lam_psi on the
+    rows l0-2 .., w_l = B_l lam_psi_{l-1} for l = l0-1 .. l0+nr-1 (nr + 1 B
+    applications), A_l and sw_l, P1 from CB^T A_l and CB^{-1} sw_l, and
+    B_l^T A_l as CB (expV_l (CB^T A_l)), the half sweep of P1 carried on;
+    rows taken mod Ltau, both channels together. The plain model of the
+    kernel's algebra, for tests. Returns (P1, P2, the B applications)."""
+    require_real(fdm32, "force (K4)")
+    L, cb = fdm32.Ltau, fdm32.cb
+    x = psi_raw
+    Lam_c = Lam.unsqueeze(-3)
+    E = fdm32.exp_nV if fdm32.exp_nV.dim() == Lam_c.dim() else fdm32.exp_nV.unsqueeze(-3)
+
+    def at(t, j):  # row j (mod L) of (..., L, N)
+        return t[..., j % L, :]
+
+    def on_row(fn, u, j):
+        """fn (a plane op of the checkerboard) on the row u placed at tau j."""
+        plane = torch.zeros(u.shape[:-1] + (L, u.shape[-1]), dtype=u.dtype, device=u.device)
+        plane[..., j % L, :] = u
+        return fn(plane)[..., j % L, :]
+
+    def lam_psi(j):
+        lam1 = at(Lam_c, j + 1)
+        return lam1 * (at(x, j) / lam1)
+
+    P1 = torch.empty(x.shape[:-3] + (L, x.shape[-1]), dtype=x.dtype, device=x.device)
+    P2 = torch.zeros_like(P1)
+    n_apply = 0
+    for l0 in range(0, L, T):
+        nr = min(T, L - l0)
+        A, SW = {}, {}
+        for l in range(l0 - 1, l0 + nr):
+            w = on_row(fdm32.apply_B, lam_psi(l - 1), l)
+            SW[l] = (1.0 if l % L == 0 else -1.0) * w
+            A[l] = lam_psi(l) + SW[l]
+        n_apply += nr + 1
+        for l in range(l0, l0 + nr):
+            up = on_row(lambda t: cb.apply(t, transpose=True), A[l], l)
+            vp = on_row(lambda t: cb.apply(t, inverse=True), SW[l], l)
+            P1[..., l, :] = torch.sum(up * vp, dim=-2)
+            if want_p2:
+                BA = on_row(cb.apply, at(E, l) * up, l)
+                mta = A[l - 1] + (1.0 if (l - 1) % L == L - 1 else -1.0) * BA
+                P2[..., l, :] = torch.sum(mta * (at(x, l - 1) / at(Lam_c, l)), dim=-2)
+    return P1, P2, n_apply
+
+
+def force_pair_tables(fdm32):
+    """K4's operands of one (walker-batch) fermion matrix, cached on it: K1's
+    pair tables ordered for 8-byte values (a site's two channels), each
+    pair's cosh and sinh (n_colors, rows, P), and exp(-dtau V) as (W, Ltau,
+    ld) rows of the kernel's row stride, 1 in the padding columns."""
+    tabs = getattr(fdm32, "_force_pairs", None)
+    if tabs is None:
+        C, S, _, expV = mtm_tables(fdm32)
+        ab, gather = pair_index(fdm32.structure, C.device, 8)
+        idx = gather[:, None, :].expand(C.shape[0], C.shape[1], gather.shape[1])
+        Ltau, N = fdm32.Ltau, fdm32.n_sites
+        W = expV.numel() // (Ltau * N)
+        E = torch.ones((W, Ltau, row_ld(N, 8)), dtype=C.dtype, device=C.device)
+        E[:, :, :N] = expV.reshape(W, Ltau, N)
+        tabs = (ab, C.gather(2, idx).contiguous(), S.gather(2, idx).contiguous(), E)
+        fdm32._force_pairs = tabs
+    return tabs
+
+
+def smem_bytes(N: int, T: int, staged: bool = True) -> int:
+    """K4's dynamic shared memory for tau blocks of T rows
+    (csrc/force.cu:smem_bytes): 3T + 1 rows of row_ld(N, 8) 8-byte values,
+    and in the staged form the block's x and Lambda, 3T + 6 rows of N
+    floats."""
+    return (3 * T + 1) * row_ld(N, 8) * 8 + ((3 * T + 6) * N * 4 if staged else 0)
+
+
+def staged_form(N: int) -> bool:
+    """Whether a block of one row fits with x and Lambda staged in shared
+    memory (the faster form); above it K4 reads them from device memory."""
+    return smem_bytes(N, 1, True) <= SMEM_MAX
+
+
+def tau_block_rows(n_walkers: int, Ltau: int, N: int, resident, staged: bool = True) -> int:
+    """T, the tau rows a CTA takes: the fewest for which the n_walkers *
+    ceil(Ltau / T) blocks make one round of the resident(T) CTAs the card
+    holds at once, else the most that fit a CTA's shared memory (as K1's,
+    ops/mtm.py:tau_block_rows)."""
+    if smem_bytes(N, 1, staged) > SMEM_MAX:
+        raise ValueError(f"force kernel: a block of {N} sites does not fit a CTA's shared memory")
+    fit = 1
+    while fit < Ltau and smem_bytes(N, fit + 1, staged) <= SMEM_MAX:
+        fit += 1
+    for T in range(1, fit + 1):
+        if n_walkers * -(-Ltau // T) <= resident(T):
+            return T
+    return fit
+
+
+_LAUNCH: dict = {}
+
+
+def launch_shape(fdm32, n_walkers: int, tau_rows=None) -> dict:
+    """How K4 launches for n_walkers on this fermion matrix, cached: T, the
+    CTA's threads, the form (K of the register form, 0 the memory form),
+    whether x and Lambda are staged in shared memory, the pair slots a color,
+    the grid, the dynamic shared memory in bytes and the CTAs resident at
+    once."""
+    ab, C, _, _ = force_pair_tables(fdm32)
+    Ltau, N = fdm32.Ltau, fdm32.n_sites
+    key = (Ltau, N, C.shape[0], C.shape[1], ab.shape[1], n_walkers, tau_rows, C.device)
+    if key in _LAUNCH:
+        return _LAUNCH[key]
+    threads, K, form = block_form(ab.shape[1], C.shape[0], C.shape[1] > 1)
+    staged = staged_form(N)
+    lib = _build.load_library()
+
+    def resident(T):
+        r = lib.smoqy_force_resident(form, int(staged), threads, smem_bytes(N, T, staged))
+        if r <= 0:
+            raise RuntimeError(f"force kernel: occupancy query failed (CUDA error {-r})")
+        return r
+
+    T = tau_block_rows(n_walkers, Ltau, N, resident, staged) if tau_rows is None else int(tau_rows)
+    smem = smem_bytes(N, T, staged)
+    if not 1 <= T <= Ltau or smem > SMEM_MAX:
+        raise ValueError(f"force kernel: tau block of {T} rows (Ltau {Ltau}, N {N}, {smem} bytes)")
+    _LAUNCH[key] = dict(tau_block=T, threads=threads, K=K, form=form, staged=staged, P=ab.shape[1],
+                        grid=n_walkers * -(-Ltau // T), smem=smem, resident=resident(T))
+    return _LAUNCH[key]
+
+
+def phase_names(n_colors: int, want_p2: bool) -> list:
+    """The timed instantiation's phases of a tau block, in the order it
+    stamps them: the staging of lam_psi, B's color stages (expV rides on
+    color 0's first), A and sw, the half sweeps (CB^T A with CB^{-1} sw),
+    then P1 and the output, or P1, the forward colors of B A (expV before
+    color 0) and P2."""
+    rev, fwd = list(reversed(range(n_colors))), list(range(n_colors))
+    b = [f"c{c}+expV" if c == 0 else f"c{c}" for c in rev] + [f"c{c}" for c in fwd] if n_colors else ["expV"]
+    names = ["stage"] + [f"B.{k}:{c}" for k, c in enumerate(b)] + ["A"] + [f"H.{k}:c{c}" for k, c in enumerate(rev)]
+    if not want_p2:
+        return names + ["P1+out"]
+    f = [f"expV+c{c}" if c == 0 else f"c{c}" for c in fwd] if n_colors else ["expV"]
+    return names + ["P1"] + [f"F.{k}:{c}" for k, c in enumerate(f)] + ["P2"]
+
+
+def force_planes_cuda(fdm32, Lam: torch.Tensor, psi_raw: torch.Tensor, want_p2: bool, stamps=None,
+                      tau_rows=None):
+    """Launch K4 on CUDA tensors. `tau_rows` overrides T (`launch_shape`);
+    `stamps`, a zeroed int64 CUDA tensor of `stamp_slots()` entries, selects
+    the timed instantiation (`phase_times` with `phase_names`). The path
+    passes neither."""
     W = check_operands(fdm32, Lam, psi_raw)
     Ltau, N = fdm32.Ltau, fdm32.n_sites
     lead = psi_raw.shape[:-3]
     x = psi_raw.reshape(W, 2, Ltau, N).contiguous()
     lam = Lam.reshape(W, Ltau, N).contiguous()
-    C, S, partner, expV = mtm_tables(fdm32)
+    ab, C, S, E = force_pair_tables(fdm32)
+    shape = launch_shape(fdm32, W, tau_rows)
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != x.device
+                               or not stamps.is_contiguous() or stamps.numel() < stamp_slots()):
+        raise ValueError(f"force kernel: stamps must be a contiguous int64 tensor of {stamp_slots()} on {x.device}")
     P1 = torch.empty((W, Ltau, N), dtype=torch.float32, device=x.device)
     P2 = torch.empty_like(P1)
     rc = _build.load_library().smoqy_force(
-        x.data_ptr(), lam.data_ptr(), P1.data_ptr(), P2.data_ptr(), C.data_ptr(), S.data_ptr(),
-        partner.data_ptr(), expV.data_ptr(), W, Ltau, N, C.shape[0], C.shape[1], int(want_p2),
+        x.data_ptr(), lam.data_ptr(), P1.data_ptr(), P2.data_ptr(), ab.data_ptr(), C.data_ptr(), S.data_ptr(),
+        E.data_ptr(), W, Ltau, N, C.shape[0], shape["P"], int(C.shape[1] > 1), shape["tau_block"], shape["threads"],
+        shape["form"], int(shape["staged"]), int(want_p2), None if stamps is None else stamps.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(rc, "force kernel launch")

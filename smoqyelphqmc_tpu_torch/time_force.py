@@ -1,7 +1,7 @@
 """Time K4 (the Holstein force planes, ops/force.py) on one GPU.
 
     python smoqyelphqmc_tpu_torch/time_force.py [--reps 200] [--walkers 1 8]
-        [--package-root DIR] [--label NAME] [--tau-rows T ...]
+        [--package-root DIR] [--label NAME] [--tau-rows T ...] [--sweeps n]
 
 Builds the headline model (Holstein honeycomb L=12, beta=12, dtau=0.05,
 alpha=0.6: N=288, Ltau=240; the fused_force path's shape) from a seed in
@@ -20,7 +20,10 @@ launch's form (`launch`) and the timed instantiation's per-phase breakdown
 to finish, the mean of 10 timed launches). A package without a timed
 instantiation gives its split only as want_p2 on against off (the P2 part).
 `--tau-rows T ...` times the launch again with its tau blocks forced to each
-T (`k4_tau_rows`), where the package takes it.
+T (`k4_tau_rows`), where the package takes it. `--sweeps n` runs n sweeps
+of the fused_force path (`run_updates` at W=1 with fused_force=True, the
+headline's SimulationConfig of chip_smoke.py) and prints s/sweep, CG
+iterations per solve, acceptance, Delta H and K4's launches (`sweeps`).
 
 `--package-root DIR` imports smoqyelphqmc_tpu_torch from DIR (an unpacked
 earlier commit), so that two versions are timed by one script on one card,
@@ -61,6 +64,7 @@ def main() -> None:
     ap.add_argument("--label", default="change")
     ap.add_argument("--tau-rows", type=int, nargs="*", default=[],
                     help="also time each launch with its tau blocks forced to these row counts")
+    ap.add_argument("--sweeps", type=int, default=0, help="also run this many fused_force sweeps")
     args = ap.parse_args()
     sys.path.insert(0, args.package_root)
 
@@ -202,6 +206,20 @@ def main() -> None:
                     ms=graph_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, want_p2, tau_rows=T), args.reps),
                     max_abs_err=max(float((a - b).abs().max()) for a, b in zip(xt, ref)),
                     launch=force.launch_shape(fdm32, W, tau_rows=T))
+
+    if args.sweeps:
+        from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+
+        cfg = SimulationConfig(beta=h["beta"], dtau=h["dtau"], Nt=24, tol=1e-10, seed=1, mixed_precision=True,
+                               force_dtype="float32", fused_force=True)
+        launches = force.FORCE.launches
+        md = run_updates(tbm, em, cfg, args.sweeps, device="cuda")
+        say(kind="sweeps", path="fused_force", sweep_s=[float(t) for t in md["sweep_s"]], hmc_iters=md["hmc_iters"],
+            reflection_iters=md["reflection_iters"], swap_iters=md["swap_iters"],
+            acceptance=dict(reflection=md["reflection_acceptance_rate"], swap=md["swap_acceptance_rate"],
+                            hmc=md["hmc_acceptance_rate"]),
+            k4_launches=force.FORCE.launches - launches, all_converged=md["all_converged"],
+            delta_H=[float(d) for d in md["hmc_delta_H"]])
 
 
 if __name__ == "__main__":

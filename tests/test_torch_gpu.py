@@ -478,6 +478,103 @@ def test_force_kernel_matches_plain(cuda_device, want_p2):
     _close_planes(P1k, force.force_planes_plain(one, Lam[0], psi[0], want_p2)[0])
 
 
+def _k4_problem(device, W, beta):
+    """K4's operands: the walker batch of `_walker_problem` with psi_raw
+    from a seed; at W = 1 one channel pair (exp_nV (Ltau, N)), as the
+    fused_force path passes it."""
+    fdm32, _, Lam, b = _walker_problem(device, max(W, 2), beta)
+    psi = torch.randn(b.shape, generator=torch.Generator().manual_seed(9), dtype=torch.float32).to(device)
+    if W == 1:
+        return dataclasses.replace(fdm32, exp_nV=fdm32.exp_nV[0, 0]), Lam[0], psi[0]
+    return fdm32, Lam, psi
+
+
+@pytest.mark.parametrize("want_p2", [True, False], ids=["p2", "no-p2"])
+@pytest.mark.parametrize("T", [None, 1, 2, 3, 10], ids=["T-path", "T-1", "T-2", "T-3", "T-Ltau"])
+@pytest.mark.parametrize("beta", [1.0, 0.9], ids=["Ltau-10", "Ltau-9"])
+@pytest.mark.parametrize("W", [1, 2, 8])
+def test_force_kernel_tau_blocks(cuda_device, W, beta, T, want_p2):
+    """K4 with its tau blocks forced to 1, 2, 3 and Ltau rows (ragged where T
+    does not divide Ltau; odd Ltau) and with the path's T, one and more
+    walkers, against its plain version; two launches give the same bits."""
+    fdm32, Lam, psi = _k4_problem(cuda_device, W, beta)
+    T = None if T is None else min(T, fdm32.Ltau)
+    launches = force.FORCE.launches
+    got = force.force_planes_cuda(fdm32, Lam, psi, want_p2, tau_rows=T)
+    again = force.force_planes_cuda(fdm32, Lam, psi, want_p2, tau_rows=T)
+    torch.cuda.synchronize()
+    assert force.FORCE.launches == launches + 2
+    ref = force.force_planes_plain(fdm32, Lam, psi, want_p2)
+    _close_planes(got[0], ref[0])
+    if want_p2:
+        _close_planes(got[1], ref[1])
+    else:
+        assert not got[1].any()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    shape = force.launch_shape(fdm32, W, tau_rows=T)
+    assert shape["grid"] == W * -(-fdm32.Ltau // shape["tau_block"]) and shape["form"] > 0
+
+
+@pytest.mark.parametrize("want_p2", [True, False], ids=["p2", "no-p2"])
+def test_force_kernel_memory_form(cuda_device, want_p2):
+    """Tau-dependent hopping tables take K4's memory form (K = 0)."""
+    fdm32, Lam, psi = _k4_problem(cuda_device, 2, 1.0)
+    fdm32 = dataclasses.replace(fdm32, static_hops=False)
+    assert force.launch_shape(fdm32, 2)["form"] == 0
+    got = force.force_planes_cuda(fdm32, Lam, psi, want_p2)
+    ref = force.force_planes_plain(fdm32, Lam, psi, want_p2)
+    for g, r in zip(got, ref):
+        _close_planes(g, r)
+
+
+@pytest.mark.parametrize("want_p2", [True, False], ids=["p2", "no-p2"])
+def test_force_kernel_timed(cuda_device, want_p2):
+    """The timed instantiation gives the same bits and stamps every phase
+    (ops/force.py:phase_names) on CTA 0 and on the last CTA."""
+    fdm32, Lam, psi = _k4_problem(cuda_device, 8, 1.0)
+    one = force.force_planes_cuda(fdm32, Lam, psi, want_p2)
+    stamps = torch.zeros(force.stamp_slots(), dtype=torch.int64, device=cuda_device)
+    timed = force.force_planes_cuda(fdm32, Lam, psi, want_p2, stamps=stamps)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, timed))
+    names = force.phase_names(fdm32.cb.n_colors, want_p2)
+    us = force.phase_times(stamps, names)
+    assert us["kernel"] > 0 and list(us["cta0"]["phases"]) == names
+    assert all(v >= 0 for v in us["cta0"]["phases"].values()) and us["last"]["us"] > 0
+
+
+def test_force_smem_matches_host_mirror(cuda_device):
+    """The library's row stride and shared memory (both forms) are what
+    ops/force.py's choice of T assumes."""
+    lib = force._build.load_library()
+    for N in (18, 288, 4608):
+        assert lib.smoqy_force_row_ld(N) == mtm.row_ld(N, 8)
+        for T in (1, 2, 7):
+            for staged in (True, False):
+                assert lib.smoqy_force_smem_bytes(N, T, int(staged)) == force.smem_bytes(N, T, staged)
+
+
+@pytest.mark.parametrize("want_p2", [True, False], ids=["p2", "no-p2"])
+@pytest.mark.parametrize("L", [40, 48, 60], ids=["N-3200", "N-4608", "N-7200"])
+def test_force_kernel_large_n(cuda_device, L, want_p2):
+    """Honeycomb lattices of 3200 sites (x and Lambda staged in shared
+    memory), 4608 and 7200 (read from device memory: the staged rows do not
+    fit beside the block's) against the plain version."""
+    fdm32 = _fdm(cuda_device, True, L=L, beta=0.5).astype(torch.float32)
+    geo, tbm, em = holstein_honeycomb_model(L, 1.0, 0.4, 0.0)
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=cuda_device)
+    elph = ElectronPhononParameters.from_model(0.5, 0.1, em, tbp, rng, device=cuda_device)
+    Lam = build_lambda(elph, elph.x, tbp.n_sites).to(torch.float32)
+    psi = torch.randn((2, fdm32.Ltau, fdm32.n_sites), generator=torch.Generator().manual_seed(10),
+                      dtype=torch.float32).to(cuda_device)
+    assert force.launch_shape(fdm32, 1)["staged"] == (fdm32.n_sites <= 3300)
+    got = force.force_planes_cuda(fdm32, Lam, psi, want_p2)
+    ref = force.force_planes_plain(fdm32, Lam, psi, want_p2)
+    for g, r in zip(got, ref):
+        _close_planes(g, r)
+
+
 def test_run_updates_walkers_launch_k3(cuda_device):
     """A short W = 2 run goes through K3 (and K1, K2), never a plain version."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
