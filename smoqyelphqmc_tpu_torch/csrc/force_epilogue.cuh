@@ -1,6 +1,6 @@
 // The Holstein force epilogue: the product planes P1, P2 of one (walker, tau)
-// row from a solution psi_raw. Shared by K3 (pcg_force.cu), which runs it on
-// the solution it has just found, and K4 (force.cu), which runs it alone.
+// row from a solution psi_raw, which K3 (pcg_force.cu) runs on the solution
+// it has just found. K4 (force.cu) computes the same planes on tau blocks.
 //
 // Replaces the epilogue of `_pcg_force_kernel` and `_force_kernel`
 // (smoqyelphqmc_tpu/ops/pallas_fused.py:707-737, :959-976). For one channel
@@ -17,8 +17,8 @@
 // reads A at l-1 and l, which read lam_psi at l-2..l, i.e. x at rows l-2..l.
 // Each CTA recomputes what its row needs (three B applications and two color
 // sweeps per channel) instead of storing A and sw in scratch planes between
-// two grid-wide phases: no scratch memory, no extra grid.sync() in K3, and K4
-// stays one ordinary launch. The device-memory reads are three x rows and
+// two grid-wide phases: no scratch memory and no extra grid.sync() in K3.
+// The device-memory reads are three x rows and
 // three Lam rows per channel; the tables stay resident in L2.
 #pragma once
 

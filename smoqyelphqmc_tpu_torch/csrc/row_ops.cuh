@@ -1,5 +1,5 @@
-// Site-row operators shared by kernels K1 (mtm.cu), K2 (pcg.cu), K3
-// (pcg_force.cu) and K4 (force.cu).
+// Site-row operators shared by kernels K2 (pcg.cu) and K3 (pcg_force.cu),
+// and the asynchronous copies and row wrap that K1 and K4 use too.
 //
 // One CTA works on one (system, tau) row of N sites held in shared memory
 // (mtm_rows_block: on a block of consecutive tau rows). A

@@ -28,8 +28,8 @@ import torch
 
 from .. import _build
 from .fermion_det import boundary_sign
-from .mtm import (SMEM_MAX, KernelCounter, block_form, mtm_tables, pair_index, phase_times,  # noqa: F401
-                  require_real, row_ld, stamp_slots)
+from .mtm import (SMEM_MAX, KernelCounter, block_form, fewest_rows, mtm_tables, pair_index,  # noqa: F401
+                  phase_times, require_real, row_ld, stamp_slots)
 
 FORCE = KernelCounter("force")
 
@@ -162,19 +162,9 @@ def staged_form(N: int) -> bool:
 
 
 def tau_block_rows(n_walkers: int, Ltau: int, N: int, resident, staged: bool = True) -> int:
-    """T, the tau rows a CTA takes: the fewest for which the n_walkers *
-    ceil(Ltau / T) blocks make one round of the resident(T) CTAs the card
-    holds at once, else the most that fit a CTA's shared memory (as K1's,
-    ops/mtm.py:tau_block_rows)."""
-    if smem_bytes(N, 1, staged) > SMEM_MAX:
-        raise ValueError(f"force kernel: a block of {N} sites does not fit a CTA's shared memory")
-    fit = 1
-    while fit < Ltau and smem_bytes(N, fit + 1, staged) <= SMEM_MAX:
-        fit += 1
-    for T in range(1, fit + 1):
-        if n_walkers * -(-Ltau // T) <= resident(T):
-            return T
-    return fit
+    """K4's T: the fewest rows whose blocks make one round of the resident
+    CTAs, else the most that fit (ops/mtm.py:fewest_rows, as K1's)."""
+    return fewest_rows(n_walkers, Ltau, lambda T: smem_bytes(N, T, staged), resident, f"force kernel ({N} sites)")
 
 
 _LAUNCH: dict = {}

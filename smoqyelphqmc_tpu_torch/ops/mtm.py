@@ -246,20 +246,25 @@ def smem_bytes(N: int, T: int, es: int) -> int:
     return (2 * T + 2) * row_ld(N, es) * es
 
 
-def tau_block_rows(n_sys: int, Ltau: int, N: int, es: int, resident) -> int:
-    """T, the tau rows a CTA takes: the fewest for which the n_sys *
+def fewest_rows(n_sys: int, Ltau: int, smem, resident, what: str) -> int:
+    """T, the tau rows a CTA takes (K1, K4): the fewest for which the n_sys *
     ceil(Ltau / T) blocks make one round of the resident(T) CTAs the card
-    holds at once, else the most that fit a CTA's shared memory (fewer B
-    applications a row, fewer rounds)."""
-    if smem_bytes(N, 1, es) > SMEM_MAX:
-        raise ValueError(f"mtm kernel: a block of {N} sites does not fit a CTA's shared memory")
+    holds at once, else the most whose smem(T) bytes fit a CTA's shared
+    memory (fewer B applications a row, fewer rounds)."""
+    if smem(1) > SMEM_MAX:
+        raise ValueError(f"{what}: a block of one row does not fit a CTA's shared memory")
     fit = 1
-    while fit < Ltau and smem_bytes(N, fit + 1, es) <= SMEM_MAX:
+    while fit < Ltau and smem(fit + 1) <= SMEM_MAX:
         fit += 1
     for T in range(1, fit + 1):
         if n_sys * -(-Ltau // T) <= resident(T):
             return T
     return fit
+
+
+def tau_block_rows(n_sys: int, Ltau: int, N: int, es: int, resident) -> int:
+    """K1's T (`fewest_rows` with K1's shared memory)."""
+    return fewest_rows(n_sys, Ltau, lambda T: smem_bytes(N, T, es), resident, f"mtm kernel ({N} sites)")
 
 
 def launch_shape(fdm, n_sys: int, tau_rows=None, memory_form: bool = False) -> dict:
