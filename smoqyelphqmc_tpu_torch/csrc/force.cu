@@ -95,10 +95,10 @@ __device__ __forceinline__ void reg_half_stage(const PairTabs<float>& tb, const 
     for (int k = 0; k < K; ++k) {
       const int a = r.ab[CC][k] & 0xffffu, b = r.ab[CC][k] >> 16;
       const float c = r.c[CC][k], sn = r.s[CC][k];
-      u[a] = c * ua[k] + sn * ub[k];
-      u[b] = c * ub[k] + sn * ua[k];
-      v[a] = c * va[k] + (-sn) * vb[k];
-      v[b] = c * vb[k] + (-sn) * va[k];
+      u[a] = madd(c, ua[k], sn * ub[k]);
+      u[b] = madd(c, ub[k], sn * ua[k]);
+      v[a] = madd(c, va[k], (-sn) * vb[k]);
+      v[b] = madd(c, vb[k], (-sn) * va[k]);
     }
   }
 }

@@ -48,6 +48,12 @@ struct alignas(8) f2 {
 };
 __device__ __forceinline__ f2 operator*(float a, f2 v) { return {a * v.x, a * v.y}; }
 __device__ __forceinline__ f2 operator+(f2 a, f2 b) { return {a.x + b.x, a.y + b.y}; }
+
+// a x + y with the product fused: the stages' one rounding pattern, written
+// out so that every instantiation rounds alike (fma(cv, xa, s xb)).
+__device__ __forceinline__ float madd(float a, float x, float y) { return __fmaf_rn(a, x, y); }
+__device__ __forceinline__ double madd(double a, double x, double y) { return __fma_rn(a, x, y); }
+__device__ __forceinline__ f2 madd(float a, f2 x, f2 y) { return {__fmaf_rn(a, x.x, y.x), __fmaf_rn(a, x.y, y.y)}; }
 __device__ __forceinline__ f2& operator*=(f2& v, float a) {
   v.x *= a;
   v.y *= a;
@@ -148,8 +154,8 @@ __device__ __forceinline__ void pair_group(V* u, const T* E, const unsigned* ab,
       xa *= ea[j];
       xb *= eb[j];
     }
-    V ta = cv[j] * xa + s * xb;
-    V tb = cv[j] * xb + s * xa;
+    V ta = madd(cv[j], xa, s * xb);
+    V tb = madd(cv[j], xb, s * xa);
     if (SC == kAfter) {
       ta *= ea[j];
       tb *= eb[j];
