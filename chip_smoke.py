@@ -11,13 +11,30 @@ Phases, one line each:
      path's shape (2, 240, 4608), symmetric and asymmetric, f32 and f64, each
      on its own line with its bound;
   4. K2 (whole-solve spectral PCG) against its plain version, cold and warm,
-     with its time, us and grid syncs per iteration;
-  5. the main path: `run_updates` on the headline model (Holstein honeycomb
+     with its time, us and grid syncs per iteration; then K2 at the Green's
+     estimator refresh's shape, 2 Nrv = 20 unit-norm systems M^T R of
+     (10, 2, 240, 288) random-phase vectors at tol 2e-5, with its time per
+     launch, iterations and us per iteration beside the 2-system solve's;
+  5. the update path: `run_updates` on the headline model (Holstein honeycomb
      L=12, beta=12, dtau=0.05) for a few sweeps; every solve must converge,
      every Delta H be finite, K1 and K2 must have launched and the plain
      versions must not have run;
+  5a. the measured main path: run_simulation's loop (`driver.simulate`) on
+     the headline model with the tutorial measurement set (N_therm=2,
+     N_measurements=4, N_bins=2, Nrv=10, f32 measurements) into a fresh
+     folder, the bins in memory (the card's machine has no h5py; the HDF5
+     output is held on the CPU by tests/test_torch_simulation.py and
+     test_torch_io.py); the model summary must be written, every bin value
+     be finite except the six NaN globals, every solve converge, K1 and K2
+     launch and no plain version run; the line gives acceptance, iterations
+     per solve, s per measured sweep, the estimator refresh's share, the
+     density and the launches;
   6. the same sweeps on a small model on the GPU and on the CPU (plain
-     versions): the chains must agree;
+     versions): the chains must agree; then the measured run on that model
+     (honeycomb L=3, beta=2) on both: every sweep's accept flags equal, the
+     bins to 1e-4 of each observable's largest magnitude, and the GPU run
+     interrupted after every sweep until its first bin, then resumed, must
+     write the uninterrupted run's bins bit for bit;
   7. K5: K1 on an irregular lattice (the headline honeycomb with its site
      labels permuted, more than 8 lane-shift classes per color, where the
      JAX package takes `_mtm_kernel_mm`) against its plain version, then one
@@ -32,7 +49,8 @@ Phases, one line each:
      walker must converge, every Delta H be finite, K3 must have launched and
      no plain version may have run;
  11. the W = 1 path with fused_force: the trajectory forces through K2 + K4;
- 12. the small model at W = 2 on the GPU and on the CPU: the chains must agree;
+ 12. the small model at W = 2 on the GPU and on the CPU, then at W = 1 with
+     fused_force (K4 on the GPU): the chains must agree;
  13. K6 (matrix-free KPM apply, symmetric) against its plain version on the
      large model's tables (Holstein honeycomb L=48, N=4608, alpha=1.5,
      beta=12, Ltau=240) with live Lanczos bounds, u (2 vectors, re and im
@@ -66,8 +84,9 @@ Phases, one line each:
      spectral build; K1 and K2 launch);
  22. the complex KPM chain (N=1152, beta=1, dtau=0.1) on the GPU and on the
      CPU: the chains must agree.
-Each path (5, 7, 10, 11, 15, 16, 19, 20, 21) is driven with every kernel
-count set to 0 just before it and read just after. Then one JSON line of kernel results,
+Each path (5, 5a, 7, 10, 11, 15, 16, 19, 20, 21) is driven with every kernel
+count set to 0 just before it and read just after; the launches of K1 and K2
+in the kernels line are the measured main path's (5a). Then one JSON line of kernel results,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
 and the operations it must do over the card's peak for their type (f32
 67 TFLOP/s, f64 34 TFLOP/s, bf16 989 TFLOP/s dense; H100 SXM data sheet),
@@ -96,6 +115,9 @@ N_SWEEPS = 3
 N_WALKERS = 8
 N_WALKER_SWEEPS = 2
 N_LARGE_SWEEPS = 2
+# the measured runs (run_simulation): thermalization and measured sweeps,
+# bins, random vectors of the Green's estimator
+MEASURED = dict(N_therm=2, N_measurements=4, N_bins=2, Nrv=10)
 MAIN_DEVICE = "cuda"
 
 # H100 SXM (NVIDIA data sheet): HBM bytes/s and dense peaks (FLOP/s) by type
@@ -365,7 +387,63 @@ def phase_k2(fdm64, results, key="pcg"):
         f"each; bound {bound_ms:.4f} ms by {bound_by}")
     results[key] = dict(name="pcg", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/pcg.cu",
                           replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:495",
-                          max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                          max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          iters=int(rows[0][3]))
+
+
+def phase_k2_estimator(results):
+    """K2 at the estimator refresh's shape: the 2 Nrv = 20 systems M^T R of
+    (Nrv, 2, 240, 288) random-phase vectors R, each scaled to unit norm as
+    SpectralPCG scales them, at the refresh's tolerance 2e-5, against its
+    plain version; its time per launch beside the 2-system solve's."""
+    import math
+
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops import mtm, pcg
+    from smoqyelphqmc_tpu_torch.ops.spectral_precond import build_spectral
+
+    fdm64 = headline_fdm(torch.device("cuda"))
+    pre = build_spectral(fdm64)
+    fdm32 = fdm64.astype(torch.float32)
+    Nrv, Ltau, N, nc = MEASURED["Nrv"], fdm32.Ltau, fdm32.n_sites, fdm32.cb.n_colors
+    gen = torch.Generator(device="cpu").manual_seed(20)
+    theta = 2.0 * math.pi * torch.rand((Nrv, Ltau, N), generator=gen, dtype=torch.float64)
+    R = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1).to("cuda", torch.float32)
+    b = fdm32.mul_Mt(R).reshape(2 * Nrv, Ltau, N)
+    bu = (b / torch.linalg.vector_norm(b, dim=(1, 2), keepdim=True)).contiguous()
+    tol, maxiter = 2e-5, 10_000
+    xk, ek, ik = pcg.pcg_cuda(fdm32, pre, bu, tol, maxiter)
+    xp, ep, ip = pcg.pcg_plain(fdm32, pre, bu, tol, maxiter)
+    torch.cuda.synchronize()
+    conv_k, conv_p = (bool(torch.isfinite(x_).all()) and bool((e_ < tol).all()) for x_, e_ in ((xk, ek), (xp, ep)))
+    res_k, res_p = (float((torch.linalg.vector_norm(bu - mtm.mtm_plain(fdm32, xx), dim=(1, 2))).max())
+                    for xx in (xk, xp))
+    # two solves that stop on the residual tolerance 2e-5 part by what that
+    # tolerance leaves free, which at this shape's conditioning is far above
+    # the elementwise bound phase_k2 applies at 1e-5 to normal right-hand
+    # sides: held per system, relative in the 2-norm, to 25 tol
+    rel = float((torch.linalg.vector_norm(xk - xp, dim=(1, 2)) / torch.linalg.vector_norm(xp, dim=(1, 2))).max())
+    ok = rel <= 25 * tol
+    ms = cuda_ms(lambda: pcg.pcg_cuda(fdm32, pre, bu, tol, maxiter), 5)
+    plain_ms = cuda_ms(lambda: pcg.pcg_plain(fdm32, pre, bu, tol, maxiter), 1)
+    f32_it, bf16_it = pcg_iteration_ops(Ltau, N, nc)
+    n_it = int(ik) * bu.shape[0]
+    bound_ms, bound_by = bound(4 * (2 * bu.numel() + Ltau * N) + precond_bytes(Ltau, N) + table_bytes(N, nc, 4),
+                               {"f32": n_it * f32_it, "bf16": n_it * bf16_it})
+    two = results["pcg"]
+    say(f"K2 estimator refresh ({2 * Nrv}, {Ltau}, {N}) f32, tol {tol:g}: converged kernel {conv_k} plain {conv_p}; "
+        f"iters kernel {int(ik)} plain {int(ip)}; true residual kernel {res_k:.3e} plain {res_p:.3e}; per-system "
+        f"|x_kernel - x_plain| / |x_plain| max {rel:.3e} (tol {25 * tol:g}: {ok}); kernel "
+        f"{ms:.3f} ms per launch, {1e3 * ms / max(int(ik), 1):.2f} us per iteration (2 systems: {two['ms']:.3f} ms, "
+        f"{two['iters']} iterations, {1e3 * two['ms'] / max(two['iters'], 1):.2f} us each) plain {plain_ms:.3f} ms; "
+        f"bound {bound_ms:.4f} ms by {bound_by}")
+    if not (conv_k and conv_p):
+        fail(f"K2 at the estimator's shape did not converge (kernel {conv_k}, plain {conv_p})")
+    if not ok:
+        fail("K2 at the estimator's shape: kernel and plain solutions differ beyond the tolerance")
+    if not res_k <= max(2 * tol, 2 * res_p):
+        fail(f"K2 at the estimator's shape: true residual {res_k:.3e} exceeds the plain one's")
 
 
 def all_counters():
@@ -445,12 +523,14 @@ def rounded(v, nd=6):
     return [rounded(u, nd) for u in v] if isinstance(v, list) else round(v, nd)
 
 
-def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral", complex_chain=False):
+def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral", complex_chain=False,
+                          fused_force=False):
     """The same chain on a small model on the GPU (kernels) and the CPU (plain
     versions): the accept decisions must match and the fields agree to 1e-4
     relative (the f32 force solves stop at 1e-5 relative in both, with sums in
     another order, so forces may differ at that level). The model is the
-    honeycomb, or the complex chain of L sites."""
+    honeycomb, or the complex chain of L sites; fused_force takes the W = 1
+    trajectory forces through K4 on the GPU."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
     from smoqyelphqmc_tpu_torch.models.library import complex_chain_model, holstein_honeycomb_model
 
@@ -459,7 +539,8 @@ def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral",
         geo, tbm, em = complex_chain_model(L, 1.0, h["phase"], h["mu"], h["Omega"], h["alpha"])
     else:
         geo, tbm, em = holstein_honeycomb_model(L, 1.0, 0.6, 0.0)
-    cfg = SimulationConfig(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner=preconditioner, n_walkers=n_walkers)
+    cfg = SimulationConfig(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner=preconditioner, n_walkers=n_walkers,
+                           fused_force=fused_force)
     t0 = time.perf_counter()
     gpu = run_updates(tbm, em, cfg, 3, device="cuda")
     t1 = time.perf_counter()
@@ -469,7 +550,7 @@ def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral",
     err = float((xg - xc).abs().max() / xc.abs().max())
     same = all(gpu[f"{k}_acceptance_rate"] == cpu[f"{k}_acceptance_rate"] for k in ("reflection", "swap", "hmc"))
     kpm = {d: md.get("kpm_active") for d, md in (("gpu", gpu), ("cpu", cpu))}
-    model = "complex chain" if complex_chain else "honeycomb"
+    model = ("complex chain" if complex_chain else "honeycomb") + (", fused_force" if fused_force else "")
     say(f"small-model reference ({model} L={L}, N={gpu['n_sites']}, beta={beta}, {preconditioner}, W={n_walkers}): "
         f"GPU vs "
         f"CPU field max rel err {err:.3e}; same acceptance {same}; dH gpu {rounded(gpu['hmc_delta_H'])} "
@@ -480,6 +561,175 @@ def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral",
              f"{preconditioner}, W={n_walkers})")
     if preconditioner == "kpm" and kpm != {"gpu": True, "cpu": True}:
         fail(f"the KPM preconditioner of the GPU-vs-CPU chain deactivated: {kpm}")
+
+
+NAN_GLOBALS = {"sgndetGup", "sgndetGdn", "logdetGup", "logdetGdn", "action_fermionic", "action_total"}
+
+
+def simulate_in_memory(sim_info, tbm, em, spec, cfg, device):
+    """Drive `driver.simulate` (run_simulation's loop: sweeps, estimator
+    refreshes, measurement passes, bins, checkpoints) to its end with the bins
+    kept in memory: the card's machine has no h5py, so run_simulation's HDF5
+    writing and post-processing are held on the CPU by the tests. Returns
+    ({bin index: bin tree}, metadata, finished)."""
+    from smoqyelphqmc_tpu_torch.driver import simulate
+
+    bins = {}
+    run = simulate(sim_info, tbm, em, spec, cfg, device=device)
+    while True:
+        try:
+            k, avg = next(run)
+        except StopIteration as done:
+            return bins, *done.value
+        bins[k] = avg
+
+
+def bin_leaves(bins):
+    """{(bin index, category, name): complex values} of in-memory bins."""
+    import numpy as np
+
+    return {(k, cat, name): np.asarray(re) + 1j * np.asarray(im)
+            for k, tree in bins.items() for cat, d in tree.items() for name, (re, im) in d.items()}
+
+
+def check_bins(bins, n_bins, tag):
+    """Fail unless n_bins bins came out and every value is finite except the
+    six NaN globals. Returns bin_leaves(bins)."""
+    import numpy as np
+
+    leaves = bin_leaves(bins)
+    bad = [k for k, v in leaves.items() if not (np.all(np.isnan(v.real)) if k[2] in NAN_GLOBALS
+                                                else np.all(np.isfinite(v)))]
+    if sorted(bins) != list(range(n_bins)) or bad:
+        fail(f"{tag}: bins {sorted(bins)} of {n_bins}, values not finite (or a NaN global not NaN): {bad[:5]}")
+    return leaves
+
+
+def measured_config(h=HEADLINE, **kw):
+    return headline_config(h, measurement_dtype="float32", **{**MEASURED, **kw})
+
+
+def phase_measured(results, card):
+    """The measured main path: run_simulation's loop (`simulate`) on the
+    headline model with the tutorial measurement set (Nrv=10, f32
+    measurements) into a fresh folder, the bins in memory; K1 and K2 must
+    launch and no plain version run."""
+    import tempfile
+
+    from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
+    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model, holstein_honeycomb_spec
+
+    h = HEADLINE
+    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    spec = holstein_honeycomb_spec(geo)
+    cfg = measured_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        info = SimulationInfo(filepath=tmp, datafolder_prefix="measured", sID=1)
+        t0 = time.perf_counter()
+        (bins, md, finished), counts = drive_path(lambda: simulate_in_memory(info, tbm, em, spec, cfg, MAIN_DEVICE),
+                                                  ("mtm_f32", "mtm_f64", "pcg"))
+        wall = time.perf_counter() - t0
+        summary = os.path.exists(os.path.join(info.datafolder, "model_summary.toml"))
+    check_bins(bins, cfg.N_bins, "the measured main path")
+    for k in ("mtm_f32", "mtm_f64", "pcg"):
+        results[k]["launches"] = counts[k][0]
+    n_meas = md["n_measure_timed"]
+    density = [round(float(bins[k]["global"]["density"][0]), 6) for k in sorted(bins)]
+    say(f"measured main path on {card}: simulate L={h['L']} beta={h['beta']} N_therm={cfg.N_therm} "
+        f"N_measurements={cfg.N_measurements} N_bins={cfg.N_bins} Nrv={cfg.Nrv} f32 measurements; acceptance refl "
+        f"{md['reflection_acceptance_rate']:.3f} swap {md['swap_acceptance_rate']:.3f} hmc "
+        f"{md['hmc_acceptance_rate']:.3f}; iters/solve refl {md['reflection_iters']:.2f} swap {md['swap_iters']:.2f} "
+        f"hmc {md['hmc_iters']:.2f} measurement {md['measurement_iters']:.2f}; s per measured sweep "
+        f"{md['t_measure_s'] / n_meas:.4f} (first {md['t_first_measured_sweep_s']:.3f}, {n_meas} sweeps "
+        f"{md['t_measure_s']:.3f} s; thermalization {md['t_therm_s']:.3f} s for {md['n_therm_timed']}); estimator "
+        f"refresh {md['t_refresh_s']:.4f} s, share {md['t_refresh_s'] / md['t_measure_s']:.4f}; measurement passes "
+        f"{md['t_measurements_s']:.4f} s, share {md['t_measurements_s'] / md['t_measure_s']:.4f}; density per bin "
+        f"{density}; all converged {md['all_converged']}; wall {wall:.2f} s; launches/plain calls {counts}")
+    if not (finished and summary and md["all_converged"]):
+        fail(f"the measured main path did not finish, write its model summary or converge ({finished}, {summary}, "
+             f"{md['all_converged']})")
+
+
+class SweepSpy:
+    """Records the accept flags (reflection, swap, HMC) of every sweep the
+    driver runs, by wrapping `driver.sweep` while the block runs."""
+
+    def __enter__(self):
+        from smoqyelphqmc_tpu_torch import driver
+
+        self.flags, self._orig = [], driver.sweep
+
+        def spy(*args):
+            state, st = self._orig(*args)
+            self.flags.append(tuple(bool(s.accepted) for s in st))
+            return state, st
+
+        driver.sweep = spy
+        return self
+
+    def __exit__(self, *exc):
+        from smoqyelphqmc_tpu_torch import driver
+
+        driver.sweep = self._orig
+
+
+def phase_measured_small_reference(L=3, beta=2.0):
+    """The measured run (`simulate`, bins in memory) on a small honeycomb on
+    the GPU and on the CPU (plain versions): the accept flags of every sweep
+    must be equal and the bins agree to 1e-4 of each observable's largest
+    magnitude; then the GPU run interrupted after every sweep until its first
+    bin is out (runtime limit 0: one sweep and a checkpoint a call), and
+    resumed to the end, must give the uninterrupted run's bins bit for bit."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig
+    from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
+    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model, holstein_honeycomb_spec
+
+    geo, tbm, em = holstein_honeycomb_model(L, 1.0, 0.6, 0.0)
+    spec = holstein_honeycomb_spec(geo)
+    cfg = SimulationConfig(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner="spectral", **MEASURED)
+    with tempfile.TemporaryDirectory() as tmp:
+        def info(prefix):
+            return SimulationInfo(filepath=tmp, datafolder_prefix=prefix, sID=1)
+
+        t0 = time.perf_counter()
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            with SweepSpy() as spy:
+                bins, md, _ = simulate_in_memory(info(dev), tbm, em, spec, cfg, dev)
+            runs[dev] = (md, spy.flags, check_bins(bins, cfg.N_bins, f"the small measured run ({dev})"))
+        t1 = time.perf_counter()
+        stop = dataclasses.replace(cfg, runtime_limit_hours=0.0)
+        resumed, n_runs, finished = {}, 0, False
+        while not resumed and n_runs < cfg.N_therm + cfg.N_measurements:
+            bins, _, finished = simulate_in_memory(info("interrupted"), tbm, em, spec, stop, "cuda")
+            resumed.update(bins)
+            n_runs += 1
+        bins, _, finished = simulate_in_memory(info("interrupted"), tbm, em, spec, cfg, "cuda")
+        resumed.update(bins)
+        t2 = time.perf_counter()
+    (gmd, gflags, gleaves), (cmd, cflags, cleaves) = runs["cuda"], runs["cpu"]
+    worst = 0.0
+    for k, ref in cleaves.items():
+        if k[2] not in NAN_GLOBALS:
+            worst = max(worst, float(np.max(np.abs(gleaves[k] - ref)) / max(float(np.max(np.abs(ref))), 1e-300)))
+    rleaves = bin_leaves(resumed)
+    same_bits = set(rleaves) == set(gleaves) and all(np.array_equal(rleaves[k], v, equal_nan=True)
+                                                      for k, v in gleaves.items())
+    say(f"measured small reference (honeycomb L={L}, N={2 * L * L}, beta={beta}, Nrv={cfg.Nrv}): accept flags gpu "
+        f"{gflags} cpu {cflags}; bins max rel diff {worst:.3e} (tol 1e-4); measurement iters gpu "
+        f"{gmd['measurement_iters']:.2f} cpu {cmd['measurement_iters']:.2f}; interrupted {n_runs} times until the "
+        f"first bin, resumed bins bit-identical {same_bits}; {t1 - t0:.1f} s GPU + CPU, {t2 - t1:.1f} s resume")
+    if gflags != cflags or not gflags:
+        fail("the measured GPU chain's accept flags differ from the CPU reference's")
+    if not (worst <= 1e-4 and gmd["all_converged"] and cmd["all_converged"]):
+        fail("the measured GPU run's bins disagree with the CPU reference (or a solve did not converge)")
+    if not (finished and n_runs > 1 and same_bits):
+        fail("the resumed GPU run's bins are not bit-identical to the uninterrupted run's")
 
 
 def phase_k3(results):
@@ -1018,14 +1268,18 @@ def main() -> None:
     phase_k1(fdm64, results)
     phase_k1_large()
     phase_k2(fdm64, results)
+    phase_k2_estimator(results)
     phase_main(results, card)
+    phase_measured(results, card)
     phase_small_reference()
+    phase_measured_small_reference()
     phase_k5(results, card)
     phase_k3(results)
     phase_k4(results)
     phase_walkers(results, card)
     phase_fused_force(results, card)
     phase_small_reference(n_walkers=2)
+    phase_small_reference(fused_force=True)
     phase_kpm_kernel(results, symmetric=True)
     phase_kpm_kernel(results, symmetric=False)
     phase_large_path(results, card, symmetric=True, n_sweeps=N_LARGE_SWEEPS)

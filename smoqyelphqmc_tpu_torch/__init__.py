@@ -1,11 +1,11 @@
-"""smoqyelphqmc_tpu_torch: the PyTorch + CUDA port of smoqyelphqmc_tpu.
+"""smoqyelphqmc_tpu_torch: the PyTorch + CUDA port of the JAX package beside it.
 
 The JAX package beside this one is the reference; this package computes the same
 functions on one NVIDIA H100 (sm_90a), with hand-written CUDA kernels where the
 JAX package has Pallas kernels:
 
 - K1 `ops/mtm.py` + `csrc/mtm.cu`: the M^T M matvec (f32 and f64), replacing
-  `_mtm_kernel_roll` (smoqyelphqmc_tpu/ops/pallas_fused.py);
+  `_mtm_kernel_roll` (the JAX package's ops/pallas_fused.py);
 - K2 `ops/pcg.py` + `csrc/pcg.cu`: the whole-solve spectral PCG, replacing
   `_pcg_kernel` (same file);
 - K3 `ops/pcg_force.py` + `csrc/pcg_force.cu`: the same solve with an
@@ -30,7 +30,7 @@ Policy (the JAX package turns x64 on globally; torch defaults to f32):
 - TF32 is off for matmuls and cuDNN: the dense Bbar build and the EFA / Fourier
   paths rely on plain f32 / f64 products.
 
-The package imports neither `jax` nor `smoqyelphqmc_tpu`.
+The package imports neither `jax` nor the JAX package.
 """
 
 import torch

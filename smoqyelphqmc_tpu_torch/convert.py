@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .measure.greens_estimator import GreensEstimator
 from .models.electron_phonon import ElectronPhononParameters
 from .models.fermion_path_integral import FermionPathIntegral
 from .models.tight_binding import TightBindingParameters
@@ -165,3 +166,12 @@ def fallback_controller(state: dict, ratio: float = 1.5, retry_every: int = 32,
     c = PrecondFallbackController(ratio=ratio, retry_every=retry_every, enabled=enabled)
     c.load_state(state)
     return c
+
+
+def greens_estimator(est, device="cuda") -> GreensEstimator:
+    """A Green's-function estimator carrying R and GR (Nrv, 2, Ltau, N) in
+    the estimator's dtype, so that both packages measure the same fields."""
+    dt = {"float32": torch.float32, "float64": torch.float64}[str(est.dtype)]
+    return GreensEstimator(R=_t(est.R, device, dt), GR=_t(est.GR, device, dt), Nrv=int(est.Nrv),
+                           Ltau=int(est.Ltau), n_orb=int(est.n_orb), L=tuple(int(v) for v in est.L),
+                           dtype=str(est.dtype))

@@ -1,6 +1,6 @@
 // Kernel K4: the Holstein force planes P1 and P2 from a given psi_raw.
 //
-// Replaces `_force_kernel` (smoqyelphqmc_tpu/ops/pallas_fused.py:934, its
+// Replaces `_force_kernel` (the JAX package's ops/pallas_fused.py:934, its
 // pallas_call in FusedForce.__call__ at :1004). For one walker's channel pair
 // x = psi_raw (2, Ltau, N) and its shift matrix Lam (Ltau, N), symmetric
 // factorization (B = CB^T D CB = B^T):

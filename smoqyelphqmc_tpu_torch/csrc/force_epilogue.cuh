@@ -3,7 +3,7 @@
 // it has just found. K4 (force.cu) computes the same planes on tau blocks.
 //
 // Replaces the epilogue of `_pcg_force_kernel` and `_force_kernel`
-// (smoqyelphqmc_tpu/ops/pallas_fused.py:707-737, :959-976). For one channel
+// (the JAX package's ops/pallas_fused.py:707-737, :959-976). For one channel
 // pair x = psi_raw (2, Ltau, N) and the shift matrix Lam (Ltau, N):
 //
 //   psi = roll(x, +1) / Lam,  lam_psi = roll(Lam psi, -1)

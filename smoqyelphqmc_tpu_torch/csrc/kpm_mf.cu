@@ -3,7 +3,7 @@
 // with Bbar the tau-averaged propagator applied through its checkerboard.
 //
 // K6 (`kpm_mf_kernel`) replaces `_kpm_mf_kernel`
-// (smoqyelphqmc_tpu/ops/pallas_fused.py:1186, its pallas_call at :1450):
+// (the JAX package's ops/pallas_fused.py:1186, its pallas_call at :1450):
 // symmetric factorization, real coefficients, the re and im planes of each
 // complex vector independent rows. K7 (`kpm_mf_asym_kernel`) replaces
 // `_kpm_mf_asym_kernel` (:1243, pallas_call at :1427): asymmetric

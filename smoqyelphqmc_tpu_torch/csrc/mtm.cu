@@ -1,6 +1,6 @@
 // Kernel K1: the M^T M matvec of the fermion determinant matrix, f32 and f64.
 //
-// Replaces `_mtm_kernel_roll` (smoqyelphqmc_tpu/ops/pallas_fused.py:121, its
+// Replaces `_mtm_kernel_roll` (the JAX package's ops/pallas_fused.py:121, its
 // pallas_call at :250) and, through the same code, `_mtm_kernel_mm` (:165):
 // the TPU kernels decomposed the checkerboard gather into lane rolls or
 // permutation matmuls; here any partner table is read as a list of pairs.

@@ -1,6 +1,6 @@
 // Kernel K2: the whole spectral-preconditioned CG solve in one launch.
 //
-// Replaces `_pcg_kernel` (smoqyelphqmc_tpu/ops/pallas_fused.py:495, its
+// Replaces `_pcg_kernel` (the JAX package's ops/pallas_fused.py:495, its
 // pallas_call at :579). It solves [M^T M] x = b for B independent systems
 // whose right-hand sides arrive scaled to unit norm, so the per-system
 // stopping test |r| < tol is absolute; it returns x, the per-system eps and

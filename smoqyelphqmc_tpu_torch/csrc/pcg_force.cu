@@ -1,7 +1,7 @@
 // Kernel K3: the whole spectral-preconditioned CG solve with an in-kernel warm
 // start, followed by the Holstein force epilogue, for W walkers in one launch.
 //
-// Replaces `_pcg_force_kernel` (smoqyelphqmc_tpu/ops/pallas_fused.py:620, its
+// Replaces `_pcg_force_kernel` (the JAX package's ops/pallas_fused.py:620, its
 // pallas_call in _pcg_force_call at :770), which ran one (re, im) channel pair
 // per grid step and was vmapped over walkers. Here the B = 2W channel systems
 // of all walkers share one cooperative grid:

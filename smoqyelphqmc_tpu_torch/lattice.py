@@ -1,4 +1,4 @@
-"""Lattice geometry layer (host-side, NumPy); a copy of smoqyelphqmc_tpu/lattice.py.
+"""Lattice geometry layer (host-side, NumPy); a copy of the JAX package's lattice.py.
 
 Provides the capability surface of LatticeUtilities as consumed by the reference
 (see SmoQyElPhQMC.jl tutorials/holstein_honeycomb.jl:146-185 and SURVEY.md section 2b):

@@ -1,1 +1,1 @@
-"""models of the PyTorch port (module names mirror smoqyelphqmc_tpu/models)."""
+"""models of the PyTorch port (module names mirror the JAX package's models)."""

@@ -1,6 +1,6 @@
 """Electron-phonon model definition and lattice-expanded parameters.
 
-Port of smoqyelphqmc_tpu/models/electron_phonon.py for the couplings of this
+Port of the JAX package's models/electron_phonon.py for the couplings of this
 slice: phonon modes (with disorder, anharmonic Omega4 and frozen modes) and
 Holstein couplings. SSH and dispersion couplings are not ported yet (ROADMAP
 Queue 1, item 15). Layouts are the JAX package's: type-major
@@ -79,6 +79,10 @@ class ElectronPhononModel:
         self.tight_binding_model = tight_binding_model
         self.phonon_modes: List[PhononMode] = []
         self.holstein_couplings: List[HolsteinCoupling] = []
+        # the JAX model's SSH and dispersion registries, empty until those
+        # couplings are ported (ROADMAP Queue 1, item 15); model_summary reads them
+        self.ssh_couplings: list = []
+        self.dispersion_couplings: list = []
 
     def add_phonon_mode(self, phonon_mode: PhononMode) -> int:
         self.phonon_modes.append(phonon_mode)

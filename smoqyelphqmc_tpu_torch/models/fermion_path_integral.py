@@ -1,6 +1,6 @@
 """Fermion path integral: V(tau, site) and t(tau, hop) as a pure function of x.
 
-Port of smoqyelphqmc_tpu/models/fermion_path_integral.py (Holstein couplings;
+Port of the JAX package's models/fermion_path_integral.py (Holstein couplings;
 without SSH couplings the hoppings carry no tau dependence, `static_hops`).
 Complex hoppings carry their imaginary parts in `t_im` (None for real ones);
 the SSH dressing of the imaginary part waits with the SSH couplings (ROADMAP

@@ -1,5 +1,5 @@
-"""Model definitions used by the port's smoke run and tests, mirroring the
-JAX package's examples/_common.py."""
+"""Model definitions and the tutorial measurement set used by the port's
+smoke run and tests, mirroring the JAX package's examples/_common.py."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ import numpy as np
 from ..lattice import Bond, Lattice, ModelGeometry, UnitCell
 from .electron_phonon import ElectronPhononModel, HolsteinCoupling, PhononMode
 from .tight_binding import TightBindingModel
+from ..measure.container import MeasurementSpec
 
 
 def holstein_honeycomb_model(L: int, Omega: float, alpha: float, mu: float, t: float = 1.0):
@@ -33,6 +34,28 @@ def holstein_honeycomb_model(L: int, Omega: float, alpha: float, mu: float, t: f
     em.add_holstein_coupling(HolsteinCoupling(p1, 0, [0, 0], alpha, ph_sym_form=True))
     em.add_holstein_coupling(HolsteinCoupling(p2, 1, [0, 0], alpha, ph_sym_form=True))
     return geo, tbm, em
+
+
+def holstein_honeycomb_spec(geo) -> MeasurementSpec:
+    """Measurement set of the holstein honeycomb tutorial
+    (examples/_common.py:holstein_honeycomb_spec): greens and phonon greens
+    time-displaced, density, pair and spin_z integrated, the tr_greens and
+    cdw composites."""
+    spec = MeasurementSpec(geometry=geo)
+    spec.add_correlation("greens", [(0, 0), (1, 1), (0, 1)], time_displaced=True)
+    spec.add_correlation("phonon_greens", [(0, 0), (1, 1), (0, 1)], time_displaced=True)
+    spec.add_correlation("density", [(0, 0), (1, 1)], integrated=True)
+    spec.add_correlation("pair", [(0, 0), (1, 1)], integrated=True)
+    spec.add_correlation("spin_z", [(0, 0), (1, 1)], integrated=True)
+    spec.add_composite_correlation(
+        "tr_greens", "greens", id_pairs=[(0, 0), (1, 1)], coefficients=[1.0, 1.0],
+        time_displaced=True,
+    )
+    spec.add_composite_correlation(
+        "cdw", "density", ids=[0, 1], coefficients=[1.0, -1.0],
+        displacement_vecs=[[0.0, 0.0], [0.0, 0.0]], integrated=True,
+    )
+    return spec
 
 
 def complex_chain_model(L: int, t: float = 1.0, phase: float = 0.7, mu: float = 0.1, Omega: float = 1.0,

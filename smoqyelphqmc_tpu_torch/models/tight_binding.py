@@ -1,6 +1,6 @@
 """Tight-binding model definition and lattice-expanded parameters.
 
-Port of smoqyelphqmc_tpu/models/tight_binding.py. The host-side expansion is the
+Port of the JAX package's models/tight_binding.py. The host-side expansion is the
 same NumPy code driven by the same `np.random.Generator`, so the expanded arrays
 are bit-identical; they are then placed on `device` as float64 tensors.
 Complex hopping amplitudes keep their imaginary parts in `t0_im` (None for a

@@ -1,1 +1,1 @@
-"""ops of the PyTorch port (module names mirror smoqyelphqmc_tpu/ops)."""
+"""ops of the PyTorch port (module names mirror the JAX package's ops)."""

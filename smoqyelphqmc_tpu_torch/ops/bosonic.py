@@ -1,5 +1,5 @@
 """Bosonic (phonon) action and its derivatives (port of
-smoqyelphqmc_tpu/ops/bosonic.py for models without dispersion couplings):
+the JAX package's ops/bosonic.py for models without dispersion couplings):
 
   S_b = sum_p sum_l [ M_p / (2 dtau) (x_{p,l+1} - x_{p,l})^2
                       + dtau ( (1/2) M_p Omega_p^2 x_{p,l}^2 + Omega4_p x_{p,l}^4 ) ]

@@ -1,4 +1,4 @@
-"""Batched preconditioned conjugate gradient (port of smoqyelphqmc_tpu/ops/cg.py).
+"""Batched preconditioned conjugate gradient (port of the JAX package's ops/cg.py).
 
 One CG drives many right-hand sides at once (every leading axis of a
 (..., Ltau, N) tensor is an independent system; with sys_ndim = 3 the

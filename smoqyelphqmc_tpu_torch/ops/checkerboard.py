@@ -1,6 +1,6 @@
 """Checkerboard propagator application as gather + elementwise passes.
 
-Port of smoqyelphqmc_tpu/ops/checkerboard.py. One color is
+Port of the JAX package's ops/checkerboard.py. One color is
 
     u <- C_c (.) u + S_c (.) u[..., partner_c]
 

@@ -1,6 +1,6 @@
 """Fermion-matrix derivative forces, Holstein couplings: force[p, l] +=
 nu * Re <u | dM/dx_{p,l} | v> (port of the Holstein parts of
-smoqyelphqmc_tpu/ops/derivatives.py). The SSH color walk waits (ROADMAP
+the JAX package's ops/derivatives.py). The SSH color walk waits (ROADMAP
 Queue 1, item 15).
 
 u, v carry a leading complex-channel axis (2, Ltau, N); with real couplings
@@ -96,7 +96,7 @@ def holstein_force_from_planes(
     plan: ForcePlan,
 ) -> torch.Tensor:
     """dS_f/dx (..., n_phonon, Ltau) from the planes P1, P2 (..., Ltau, N) of
-    kernels K3 / K4 (smoqyelphqmc_tpu/ops/derivatives.py:215-256): P1 carries
+    kernels K3 / K4 (the JAX package's ops/derivatives.py:215-256): P1 carries
     the M-derivative site products, P2 the Lambda-derivative ones; x is
     (..., n_phonon, Ltau) and Lam (..., Ltau, N) with the same leading axes."""
     force = torch.zeros(x.shape[:-2] + (elph.n_phonon, elph.Ltau), dtype=P1.dtype, device=P1.device)

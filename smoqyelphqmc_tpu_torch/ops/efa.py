@@ -1,6 +1,6 @@
 """Exact Fourier accelerator: analytic harmonic evolution of the phonon field.
 
-Port of smoqyelphqmc_tpu/ops/efa.py on torch.fft. HMC momenta carry per-mode
+Port of the JAX package's ops/efa.py on torch.fft. HMC momenta carry per-mode
 masses m_k = M ((4/dtau) sin^2(pi k/Ltau) + dtau (Omega^2 + eta^2)), so the
 harmonic part rotates (x_k, p_k) exactly. The trajectory carries (x, p) as
 (re, im) pairs in the unnormalised forward-DFT convention (omega space); the

@@ -1,6 +1,6 @@
 """Matrix-free fermion determinant matrix M and its products.
 
-Port of smoqyelphqmc_tpu/ops/fermion_det.py. M is the block-bidiagonal
+Port of the JAX package's ops/fermion_det.py. M is the block-bidiagonal
 space-time matrix (I on the diagonal, -B_l on the subdiagonal, +B_0 in the
 corner) applied to (..., Ltau, N) fields. Propagators:
 
@@ -180,7 +180,7 @@ def solve_MtM(
     mixed: bool = False,
     x0: Optional[torch.Tensor] = None,
 ):
-    """[M^T M]^{-1} rhs (smoqyelphqmc_tpu/ops/fermion_det.py:solve_MtM).
+    """[M^T M]^{-1} rhs (the JAX package's ops/fermion_det.py:solve_MtM).
 
     For real hoppings with the spectral preconditioner every f32 solve, and
     every f32 inner solve of the mixed-precision defect correction, runs

@@ -2,7 +2,7 @@
 
 From the solution psi_raw of [M^T M] psi_raw = Lambda^{-T} Phi, the two
 site-product planes P1, P2 (Ltau, N) that `derivatives.holstein_force_from_planes`
-contracts into dS_f/dx (smoqyelphqmc_tpu/ops/pallas_fused.py:934-976,
+contracts into dS_f/dx (the JAX package's ops/pallas_fused.py:934-976,
 `FusedForce`):
 
     psi = roll(x, +1) / Lambda,  lam_psi = roll(Lambda psi, -1)

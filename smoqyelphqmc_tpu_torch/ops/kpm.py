@@ -1,5 +1,5 @@
 """KPM (Chebyshev) preconditioner for the M^T M solves (port of
-smoqyelphqmc_tpu/ops/kpm.py).
+the JAX package's ops/kpm.py).
 
 P^{-1} = [Mbar^T Mbar]^{-1}, where Mbar replaces every propagator by the
 tau-averaged Bbar. In the antiperiodic frequency basis Mbar is block diagonal

@@ -5,7 +5,7 @@ frequency-space vectors u = (u_re, u_im) of shape (..., F, N), with
 Bbar' = (Bbar - center) / half applied through the tau-averaged checkerboard
 and each frequency's recurrence running to its own live order (coefficients
 beyond it are zero). The port's counterpart of the KPM part of
-smoqyelphqmc_tpu/ops/pallas_fused.py (:1468-1651):
+the JAX package's ops/pallas_fused.py (:1468-1651):
 
 - symmetric factorization: real coefficients, one pass; the re and im planes
   are independent rows (K6, `csrc/kpm_mf.cu:kpm_mf_kernel`, replacing
@@ -23,7 +23,7 @@ smoqyelphqmc_tpu/ops/pallas_fused.py (:1468-1651):
 
 `kpm_mf_apply(ops, u_re, u_im)` is the dispatcher: a CPU tensor takes the
 plain version (`kpm_mf_plain` / `kpm_mf_asym_plain`, the `_mf_cheb`
-recurrence of smoqyelphqmc_tpu/ops/kpm.py:611-656, or `kpm_mf_cplx_plain`,
+recurrence of the JAX package's ops/kpm.py:611-656, or `kpm_mf_cplx_plain`,
 its `_mf_cheb_pair` at :659-700), a CUDA tensor launches the kernel or
 raises. The static plan is the frequency order sorted by
 descending order (`build_kpm_mf_plan`): the kernels start the longest

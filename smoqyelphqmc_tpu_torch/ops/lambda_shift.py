@@ -1,6 +1,6 @@
 """Holstein shift matrix Lambda and its products.
 
-Port of smoqyelphqmc_tpu/ops/lambda_shift.py: Lambda is diagonal per site with
+Port of the JAX package's ops/lambda_shift.py: Lambda is diagonal per site with
 a one-slice tau shift,
 
   Lambda[l, n] = s_l * exp(+dtau (alpha x_{p,l} + alpha3 x_{p,l}^3) / 2),

@@ -5,7 +5,7 @@
 tensor launches `csrc/mtm.cu` (f32 or f64, the dtype of the fermion matrix) or
 raises. K1 takes real hoppings only: a complex fermion matrix raises here
 (its M^dag M is FermionDetMatrix.mul_MtM's plain path). The kernel replaces
-`_mtm_kernel_roll` (smoqyelphqmc_tpu/ops/pallas_fused.py:121); its design
+`_mtm_kernel_roll` (the JAX package's ops/pallas_fused.py:121); its design
 note is in the source.
 """
 

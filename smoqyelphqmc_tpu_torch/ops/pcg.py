@@ -1,7 +1,7 @@
 """Kernel K2: the whole-solve spectral-preconditioned CG, with its plain version.
 
 `SpectralPCG(fdm, pre)(b, x0, tol, maxiter)` keeps the host-side semantics of
-`FusedPCG.__call__` (smoqyelphqmc_tpu/ops/pallas_fused.py:851-904): each system
+`FusedPCG.__call__` (the JAX package's ops/pallas_fused.py:851-904): each system
 is scaled to unit norm so the solve's absolute stopping test is the
 b-relative one, a warm start x0 becomes a cold solve for the correction
 against b - M^T M x0 (that matvec is kernel K1), `iters` is the solve's loop

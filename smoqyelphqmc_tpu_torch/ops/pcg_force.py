@@ -2,7 +2,7 @@
 Holstein force epilogue, for W walkers at once, with its plain version.
 
 `solve_force(fdm, pre, b, Lam, x0, tol, maxiter, want_p2)` is the port of
-`FusedPCG.solve_force` (smoqyelphqmc_tpu/ops/pallas_fused.py:823-849) with a
+`FusedPCG.solve_force` (the JAX package's ops/pallas_fused.py:823-849) with a
 leading walker axis: b and x0 are (..., 2, Ltau, N), Lam is (..., Ltau, N),
 the fermion matrix carries one exp_nV plane per walker (`make_fdm` on a walker
 batch) and the spectral preconditioner is shared. Unlike K2's host side

@@ -1,4 +1,4 @@
-"""Pseudofermion fields, action and forces (port of smoqyelphqmc_tpu/ops/pff.py).
+"""Pseudofermion fields, action and forces (port of the JAX package's ops/pff.py).
 
 S_f = Phi^dag [Lambda^dag M^dag M Lambda]^{-1} Phi with Phi a complex field
 carried as a (2, Ltau, N) channel pair; one CG solve of
@@ -106,7 +106,7 @@ def fermionic_action_and_force(
     solve and the force planes as kernel K3 (spectral preconditioner; Phi, x
     and the fermion matrix may then carry a leading walker axis, and the
     stats are per walker) and fused_force=True runs the K2 solve and then
-    kernel K4 for the planes (smoqyelphqmc_tpu/ops/pff.py:157-227). Complex
+    kernel K4 for the planes (the JAX package's ops/pff.py:157-227). Complex
     hoppings take the plain chain on channel pairs."""
     if solve_dtype != "float64":
         dt = {"float32": torch.float32}[solve_dtype]

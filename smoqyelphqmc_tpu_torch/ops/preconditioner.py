@@ -1,5 +1,5 @@
 """Preconditioner interface: build / refresh (port of
-smoqyelphqmc_tpu/ops/preconditioner.py).
+the JAX package's ops/preconditioner.py).
 
 The KPM preconditioner's Lanczos iteration starts from a vector the caller
 draws (`v0`, shape (N,), or (2N,) for complex hoppings); the spectral

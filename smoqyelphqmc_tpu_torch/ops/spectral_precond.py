@@ -1,6 +1,6 @@
 """Spectral preconditioner: exact [Mbar^T Mbar]^{-1} via an eigendecomposition.
 
-Port of smoqyelphqmc_tpu/ops/spectral_precond.py. Bbar = CB Dbar CB^T =
+Port of the JAX package's ops/spectral_precond.py. Bbar = CB Dbar CB^T =
 Q diag(lam) Q^T is diagonalised once per refresh, and
 
     P^{-1} u = F^dag Q diag(1 / (lam^2 - 2 lam cos(phi_w) + 1)) Q^T F u
@@ -63,7 +63,7 @@ class SpectralPreconditioner:
 
     def pcg_operands(self):
         """Operands of kernel K2's preconditioner, built as
-        `build_fused_pcg` builds them (smoqyelphqmc_tpu/ops/pallas_fused.py:
+        `build_fused_pcg` builds them (the JAX package's ops/pallas_fused.py:
         1136-1148): W = [Wre; Wim] (2 Lh, Ltau) bf16, the first Lh rows of the
         antiperiodic DFT; Q in bf16; filt[:Lh] in f32 with the conjugate-pair
         factor 2 folded in. Lh = Ltau / 2 for even Ltau (half spectrum), else

@@ -1,1 +1,1 @@
-"""parallel of the PyTorch port: walker batching (module names mirror smoqyelphqmc_tpu/parallel)."""
+"""parallel of the PyTorch port: walker batching (module names mirror the JAX package's parallel)."""

@@ -1,5 +1,5 @@
 """Walker batching: W independent Markov chains on one device (port of
-smoqyelphqmc_tpu/parallel/walkers.py without the device mesh).
+the JAX package's parallel/walkers.py without the device mesh).
 
 The JAX package vmaps one traced sweep over a leading walker axis. Here the
 axis is written out: the field is (W, n_phonon, Ltau); reflection and swap,

@@ -1,1 +1,1 @@
-"""updates of the PyTorch port (module names mirror smoqyelphqmc_tpu/updates)."""
+"""updates of the PyTorch port (module names mirror the JAX package's updates)."""

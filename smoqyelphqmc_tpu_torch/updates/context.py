@@ -1,5 +1,5 @@
 """Simulation context and Markov-chain state (port of
-smoqyelphqmc_tpu/updates/context.py).
+the JAX package's updates/context.py).
 
 `QMCContext` holds what stays constant along the chain; `QMCState` is the
 phonon field and the carried preconditioner. The JAX state also carries a PRNG

@@ -1,5 +1,5 @@
 """Global phonon-field moves: reflection and swap (port of
-smoqyelphqmc_tpu/updates/global_updates.py; the radial update waits, ROADMAP
+the JAX package's updates/global_updates.py; the radial update waits, ROADMAP
 Queue 1, item 17).
 
 Both sample fresh pseudofermions (initial action exactly |R|^2), propose a

@@ -1,4 +1,4 @@
-"""EFA-PFF-HMC update of the phonon fields (port of smoqyelphqmc_tpu/updates/hmc.py).
+"""EFA-PFF-HMC update of the phonon fields (port of the JAX package's updates/hmc.py).
 
 Leapfrog with the harmonic part integrated exactly in omega space, fresh
 pseudofermions at trajectory start, warm-started f32 force solves (quadratic

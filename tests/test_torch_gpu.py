@@ -13,7 +13,10 @@ preconditioner, f32 sums in another order); the force planes of K3 and K4
 rtol 1e-4 with atol 1e-5 of their largest value (the same f32 operations,
 contracted into FMAs in another order); K6 and K8 symmetric 2e-4, K7 and
 K8 asymmetric 5e-4 relative to max|y| (f32 Chebyshev recurrences with the
-affine map folded into the tables, tests/test_kpm_matrix_free.py:137,192).
+affine map folded into the tables, tests/test_kpm_matrix_free.py:137,192);
+the measurement pass on the card against the CPU from the same estimator to
+1e-5 (f32: cuFFT against pocketfft, f32 sums in another order) and 1e-10
+(f64) of each output's largest magnitude; a resumed run's bins bit for bit.
 """
 
 import dataclasses
@@ -919,3 +922,131 @@ def test_run_updates_complex_kpm_launches_k8(cuda_device, symmetric):
     for c in counters:
         assert c.plain_calls == 0, c.name
         assert c.launches == 0 or c is kpm_mf.KPM_MF_CPLX, c.name
+
+
+# ----------------------------------------------------------------------
+# the measured path: K2 at the estimator's shape, measurements, run_simulation
+# ----------------------------------------------------------------------
+
+
+def _estimator_rhs(fdm32, Nrv, seed):
+    """The refresh's unit-norm systems: M^T R of random-phase vectors R
+    (Nrv, 2, Ltau, N) as 2 Nrv systems."""
+    gen = torch.Generator().manual_seed(seed)
+    theta = 2.0 * np.pi * torch.rand((Nrv, fdm32.Ltau, fdm32.n_sites), generator=gen, dtype=torch.float64)
+    R = torch.stack([torch.cos(theta), torch.sin(theta)], dim=1).to(fdm32.device, torch.float32)
+    b = fdm32.mul_Mt(R).reshape(2 * Nrv, fdm32.Ltau, fdm32.n_sites)
+    return (b / torch.linalg.vector_norm(b, dim=(1, 2), keepdim=True)).contiguous()
+
+
+@pytest.mark.parametrize("L,beta", [(3, 1.0), (12, 1.0), (4, 0.9)], ids=["N-18", "N-288", "N-32-odd-Ltau"])
+def test_pcg_kernel_estimator_systems(cuda_device, L, beta):
+    """K2 on the 2 Nrv = 20 systems of one estimator refresh at its tolerance
+    2e-5, against its plain version."""
+    fdm = _fdm(cuda_device, L=L, beta=beta)
+    pre = build_spectral(fdm)
+    fdm32 = fdm.astype(torch.float32)
+    b = _estimator_rhs(fdm32, 10, 11)
+    xk, ek, ik = pcg.pcg_cuda(fdm32, pre, b, 2e-5, 10_000)
+    xp, ep, ip = pcg.pcg_plain(fdm32, pre, b, 2e-5, 10_000)
+    assert bool((ek < 2e-5).all()) and bool((ep < 2e-5).all()) and bool(torch.isfinite(xk).all())
+    torch.testing.assert_close(xk, xp, rtol=2e-4, atol=2e-5 * float(xp.abs().max()))
+
+
+def _estimator_pair(device, dtype):
+    """A refreshed estimator on a small honeycomb (CPU, plain versions) and
+    its copy on `device`, with the context on both."""
+    from smoqyelphqmc_tpu_torch.measure.greens_estimator import build_greens_estimator, update_greens_estimator
+    from smoqyelphqmc_tpu_torch.updates.context import initialize_qmc, make_fdm
+
+    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.5, 0.0)
+    out = []
+    for dev in ("cpu", device):
+        rng = np.random.default_rng(0)
+        tbp = TightBindingParameters.from_model(tbm, rng, device=dev)
+        elph = ElectronPhononParameters.from_model(1.0, 0.1, em, tbp, rng, device=dev)
+        out.append(initialize_qmc(tbp, elph))
+    (cctx, cstate), (gctx, gstate) = out
+    est = build_greens_estimator(cctx.Ltau, 2, geo.L, Nrv=4, dtype=dtype, device="cpu")
+    theta = 2.0 * np.pi * torch.rand((4, cctx.Ltau, cctx.n_sites), generator=torch.Generator().manual_seed(4),
+                                     dtype=torch.float64)
+    est = update_greens_estimator(est, make_fdm(cctx, cstate.x), theta, precond=cstate.precond, mixed=True,
+                                  solve_dtype="float32" if dtype == "float32" else None).estimator
+    gest = dataclasses.replace(est, R=est.R.to(device), GR=est.GR.to(device))
+    return geo, (cctx, cstate, est), (gctx, gstate, gest)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("float64", 1e-10)], ids=["f32", "f64"])
+def test_make_measurements_on_gpu_matches_cpu(cuda_device, dtype, tol):
+    """The measurement pass of the tutorial set plus bond and current
+    correlations on the card (cuFFT) against the CPU (pocketfft) from the
+    same R and GR: every leaf's dtype, and its values to `tol` of its largest
+    magnitude."""
+    from smoqyelphqmc_tpu_torch.measure.container import make_measurements
+    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_spec
+
+    geo, (cctx, cstate, cest), (gctx, gstate, gest) = _estimator_pair(cuda_device, dtype)
+    spec = holstein_honeycomb_spec(geo)
+    spec.add_correlation("bond", [(2, 2)], integrated=True)
+    spec.add_correlation("current", [(2, 2)], integrated=True)
+    cout = make_measurements(cctx, spec, cest, cstate.x)
+    gout = make_measurements(gctx, spec, gest, gstate.x)
+    for cat in cout:
+        for name, (cr, ci) in cout[cat].items():
+            gr, gi = gout[cat][name]
+            assert gr.device.type == "cuda" and gr.dtype == cr.dtype, (cat, name)
+            ref = torch.complex(cr.double(), ci.double())
+            got = torch.complex(gr.double(), gi.double()).cpu()
+            if torch.isnan(ref.real).all():
+                assert bool(torch.isnan(got.real).all()), name
+                continue
+            assert float((got - ref).abs().max()) <= tol * max(float(ref.abs().max()), 1e-300), (cat, name)
+
+
+def test_simulate_on_gpu(cuda_device, tmp_path):
+    """run_simulation's loop (`simulate`, the bins in memory: the GPU machine
+    has no h5py) on the card: K1 and K2 launch, no plain version runs, every
+    bin value is finite (the DQMC-only globals NaN), and a run interrupted
+    after its first sweep resumes to the uninterrupted run's bins bit for
+    bit."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, simulate
+    from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
+    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_spec
+
+    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.6, 0.0)
+    spec = holstein_honeycomb_spec(geo)
+    cfg = SimulationConfig(beta=1.0, dtau=0.1, N_therm=2, N_measurements=4, N_bins=2, Nt=8, Nrv=10, seed=2)
+
+    def run(prefix, c):
+        out = simulate(SimulationInfo(filepath=str(tmp_path), datafolder_prefix=prefix, sID=1), tbm, em, spec, c,
+                       device=cuda_device)
+        leaves = {}
+        while True:
+            try:
+                k, tree = next(out)
+            except StopIteration as done:
+                return leaves, *done.value
+            for cat, d in tree.items():
+                for name, (re, im) in d.items():
+                    leaves[(k, cat, name)] = np.asarray(re) + 1j * np.asarray(im)
+
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG)
+    for c in counters:
+        c.reset()
+    ref, md, finished = run("gpu", cfg)
+    for c in counters:
+        assert c.launches > 0 and c.plain_calls == 0, c.name
+    assert finished and md["all_converged"] and {k[0] for k in ref} == {0, 1}
+    for (_, cat, name), v in ref.items():
+        if name in ("sgndetGup", "sgndetGdn", "logdetGup", "logdetGdn", "action_fermionic", "action_total"):
+            assert np.all(np.isnan(v.real))
+        else:
+            assert np.all(np.isfinite(v)), (cat, name)
+    stop = dataclasses.replace(cfg, runtime_limit_hours=0.0, checkpoint_freq_hours=0.0)
+    got, _, finished = run("resumed", stop)
+    assert not finished and not got
+    more, _, finished = run("resumed", cfg)
+    got.update(more)
+    assert finished and set(got) == set(ref)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=str(k))
