@@ -48,6 +48,21 @@ Phases, one line each:
  10. the walker path: `run_updates` at the headline with W = 8 walkers; every
      walker must converge, every Delta H be finite, K3 must have launched and
      no plain version may have run;
+ 10a. the measured walker path: `simulate` at the headline with W = 8
+     walkers and the tutorial measurement set (N_therm=2, N_measurements=4,
+     N_bins=2, Nrv=10), the bins in memory, one bin stream a walker; the
+     line gives s per measured W = 8 sweep, walker-measured-sweeps/s, the
+     estimator refreshes' and measurement passes' shares, iterations,
+     precond_fallback_sweeps, each walker's density per bin; K1 f64, K2 and
+     K3 must launch and no plain version run;
+ 10b. the same with the sampler options (radial updates, Omelyan with Nt=8,
+     target_acceptance=0.7, target_density=0.9): each walker's mu after every
+     tuner update, dt after every thermalization sweep, the acceptances;
+ 10c. the measured run at W = 2 with those options on honeycomb L=3, beta=2
+     on the GPU and on the CPU: every sweep's accept flags equal, the bins
+     to 1e-4 of each observable's largest magnitude, and the GPU run
+     interrupted after every sweep until its first bins, then resumed, must
+     repeat its bins, final mu and dt bit for bit;
  11. the W = 1 path with fused_force: the trajectory forces through K2 + K4;
  12. the small model at W = 2 on the GPU and on the CPU, then at W = 1 with
      fused_force (K4 on the GPU): the chains must agree;
@@ -84,9 +99,10 @@ Phases, one line each:
      spectral build; K1 and K2 launch);
  22. the complex KPM chain (N=1152, beta=1, dtau=0.1) on the GPU and on the
      CPU: the chains must agree.
-Each path (5, 5a, 7, 10, 11, 15, 16, 19, 20, 21) is driven with every kernel
-count set to 0 just before it and read just after; the launches of K1 and K2
-in the kernels line are the measured main path's (5a). Then one JSON line of kernel results,
+Each path (5, 5a, 7, 10, 10a, 10b, 11, 15, 16, 19, 20, 21) is driven with
+every kernel count set to 0 just before it and read just after; the
+launches of K1 and K2 in the kernels line are the measured main path's
+(5a), K3's the measured walker path's (10a). Then one JSON line of kernel results,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
 and the operations it must do over the card's peak for their type (f32
 67 TFLOP/s, f64 34 TFLOP/s, bf16 989 TFLOP/s dense; H100 SXM data sheet),
@@ -571,37 +587,39 @@ def simulate_in_memory(sim_info, tbm, em, spec, cfg, device):
     refreshes, measurement passes, bins, checkpoints) to its end with the bins
     kept in memory: the card's machine has no h5py, so run_simulation's HDF5
     writing and post-processing are held on the CPU by the tests. Returns
-    ({bin index: bin tree}, metadata, finished)."""
+    ({bin key: bin tree}, metadata, finished); a bin's key is its index at
+    W = 1 and (pID, index) for each walker at W >= 2."""
     from smoqyelphqmc_tpu_torch.driver import simulate
 
     bins = {}
     run = simulate(sim_info, tbm, em, spec, cfg, device=device)
     while True:
         try:
-            k, avg = next(run)
+            item = next(run)
         except StopIteration as done:
             return bins, *done.value
-        bins[k] = avg
+        bins[item[0] if len(item) == 2 else item[:2]] = item[-1]
 
 
 def bin_leaves(bins):
-    """{(bin index, category, name): complex values} of in-memory bins."""
+    """{(bin key, category, name): complex values} of in-memory bins."""
     import numpy as np
 
     return {(k, cat, name): np.asarray(re) + 1j * np.asarray(im)
             for k, tree in bins.items() for cat, d in tree.items() for name, (re, im) in d.items()}
 
 
-def check_bins(bins, n_bins, tag):
-    """Fail unless n_bins bins came out and every value is finite except the
-    six NaN globals. Returns bin_leaves(bins)."""
+def check_bins(bins, n_bins, tag, n_walkers=1):
+    """Fail unless n_bins bins (of each walker) came out and every value is
+    finite except the six NaN globals. Returns bin_leaves(bins)."""
     import numpy as np
 
     leaves = bin_leaves(bins)
     bad = [k for k, v in leaves.items() if not (np.all(np.isnan(v.real)) if k[2] in NAN_GLOBALS
                                                 else np.all(np.isfinite(v)))]
-    if sorted(bins) != list(range(n_bins)) or bad:
-        fail(f"{tag}: bins {sorted(bins)} of {n_bins}, values not finite (or a NaN global not NaN): {bad[:5]}")
+    want = list(range(n_bins)) if n_walkers == 1 else [(p, b) for p in range(n_walkers) for b in range(n_bins)]
+    if sorted(bins) != want or bad:
+        fail(f"{tag}: bins {sorted(bins)} of {want}, values not finite (or a NaN global not NaN): {bad[:5]}")
     return leaves
 
 
@@ -651,35 +669,45 @@ def phase_measured(results, card):
 
 
 class SweepSpy:
-    """Records the accept flags (reflection, swap, HMC) of every sweep the
-    driver runs, by wrapping `driver.sweep` while the block runs."""
+    """Records the accept flags of every sweep the driver runs, in the order
+    the updates ran (W = 1: `driver.sweep`; W >= 2: `driver.walker_sweep`,
+    one tuple a walker), by wrapping both while the block runs."""
 
     def __enter__(self):
         from smoqyelphqmc_tpu_torch import driver
 
-        self.flags, self._orig = [], driver.sweep
+        self.flags, self._orig = [], (driver.sweep, driver.walker_sweep)
+        one, walkers = self._orig
 
-        def spy(*args):
-            state, st = self._orig(*args)
+        def spy_one(*args, **kw):
+            state, st = one(*args, **kw)
             self.flags.append(tuple(bool(s.accepted) for s in st))
             return state, st
 
-        driver.sweep = spy
+        def spy_walkers(*args, **kw):
+            states, st = walkers(*args, **kw)
+            self.flags.append(tuple(tuple(bool(u.accepted) for u in ups) for ups in st))
+            return states, st
+
+        driver.sweep, driver.walker_sweep = spy_one, spy_walkers
         return self
 
     def __exit__(self, *exc):
         from smoqyelphqmc_tpu_torch import driver
 
-        driver.sweep = self._orig
+        driver.sweep, driver.walker_sweep = self._orig
 
 
-def phase_measured_small_reference(L=3, beta=2.0):
+def phase_measured_small_reference(L=3, beta=2.0, tol=1e-4, **kw):
     """The measured run (`simulate`, bins in memory) on a small honeycomb on
     the GPU and on the CPU (plain versions): the accept flags of every sweep
-    must be equal and the bins agree to 1e-4 of each observable's largest
+    must be equal and the bins agree to `tol` of each observable's largest
     magnitude; then the GPU run interrupted after every sweep until its first
-    bin is out (runtime limit 0: one sweep and a checkpoint a call), and
-    resumed to the end, must give the uninterrupted run's bins bit for bit."""
+    bins are out (runtime limit 0: one sweep and a checkpoint a call), and
+    resumed to the end, must give the uninterrupted run's bins bit for bit.
+    `kw` sets config fields (n_walkers and the sampler options); with mu
+    tuning and dt targeting the resumed run's final mu and dt must be the
+    uninterrupted run's too."""
     import dataclasses
     import tempfile
 
@@ -691,7 +719,8 @@ def phase_measured_small_reference(L=3, beta=2.0):
 
     geo, tbm, em = holstein_honeycomb_model(L, 1.0, 0.6, 0.0)
     spec = holstein_honeycomb_spec(geo)
-    cfg = SimulationConfig(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner="spectral", **MEASURED)
+    cfg = SimulationConfig(**{**dict(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner="spectral"), **MEASURED, **kw})
+    W = cfg.n_walkers
     with tempfile.TemporaryDirectory() as tmp:
         def info(prefix):
             return SimulationInfo(filepath=tmp, datafolder_prefix=prefix, sID=1)
@@ -701,7 +730,7 @@ def phase_measured_small_reference(L=3, beta=2.0):
         for dev in ("cuda", "cpu"):
             with SweepSpy() as spy:
                 bins, md, _ = simulate_in_memory(info(dev), tbm, em, spec, cfg, dev)
-            runs[dev] = (md, spy.flags, check_bins(bins, cfg.N_bins, f"the small measured run ({dev})"))
+            runs[dev] = (md, spy.flags, check_bins(bins, cfg.N_bins, f"the small measured run ({dev})", W))
         t1 = time.perf_counter()
         stop = dataclasses.replace(cfg, runtime_limit_hours=0.0)
         resumed, n_runs, finished = {}, 0, False
@@ -709,7 +738,7 @@ def phase_measured_small_reference(L=3, beta=2.0):
             bins, _, finished = simulate_in_memory(info("interrupted"), tbm, em, spec, stop, "cuda")
             resumed.update(bins)
             n_runs += 1
-        bins, _, finished = simulate_in_memory(info("interrupted"), tbm, em, spec, cfg, "cuda")
+        bins, rmd, finished = simulate_in_memory(info("interrupted"), tbm, em, spec, cfg, "cuda")
         resumed.update(bins)
         t2 = time.perf_counter()
     (gmd, gflags, gleaves), (cmd, cflags, cleaves) = runs["cuda"], runs["cpu"]
@@ -720,16 +749,92 @@ def phase_measured_small_reference(L=3, beta=2.0):
     rleaves = bin_leaves(resumed)
     same_bits = set(rleaves) == set(gleaves) and all(np.array_equal(rleaves[k], v, equal_nan=True)
                                                       for k, v in gleaves.items())
-    say(f"measured small reference (honeycomb L={L}, N={2 * L * L}, beta={beta}, Nrv={cfg.Nrv}): accept flags gpu "
-        f"{gflags} cpu {cflags}; bins max rel diff {worst:.3e} (tol 1e-4); measurement iters gpu "
-        f"{gmd['measurement_iters']:.2f} cpu {cmd['measurement_iters']:.2f}; interrupted {n_runs} times until the "
-        f"first bin, resumed bins bit-identical {same_bits}; {t1 - t0:.1f} s GPU + CPU, {t2 - t1:.1f} s resume")
+    controls = [k for k in ("final_mu", "final_mu_per_walker", "hmc_dt_final") if k in gmd]
+    same_controls = all(rmd.get(k) == gmd[k] for k in controls)
+    opts = {k: v for k, v in kw.items()}
+    say(f"measured small reference (honeycomb L={L}, N={2 * L * L}, beta={beta}, Nrv={cfg.Nrv}, {opts}): accept "
+        f"flags gpu {gflags} cpu {cflags}; bins max rel diff {worst:.3e} (tol {tol:g}); measurement iters gpu "
+        f"{gmd['measurement_iters']:.2f} cpu {cmd['measurement_iters']:.2f}; "
+        + "".join(f"{k} gpu {rounded(gmd[k], 8)} cpu {rounded(cmd[k], 8)}; " for k in controls)
+        + f"interrupted {n_runs} times until the first bins, resumed bins bit-identical {same_bits}, "
+        f"{', '.join(controls) or 'no controls'} identical {same_controls}; {t1 - t0:.1f} s GPU + CPU, "
+        f"{t2 - t1:.1f} s resume")
     if gflags != cflags or not gflags:
         fail("the measured GPU chain's accept flags differ from the CPU reference's")
-    if not (worst <= 1e-4 and gmd["all_converged"] and cmd["all_converged"]):
+    if not (worst <= tol and gmd["all_converged"] and cmd["all_converged"]):
         fail("the measured GPU run's bins disagree with the CPU reference (or a solve did not converge)")
-    if not (finished and n_runs > 1 and same_bits):
-        fail("the resumed GPU run's bins are not bit-identical to the uninterrupted run's")
+    if not (finished and n_runs > 1 and same_bits and same_controls):
+        fail("the resumed GPU run's bins (or its final mu / dt) are not bit-identical to the uninterrupted run's")
+
+
+def phase_measured_walkers(results, card, tag, **kw):
+    """The measured walker path: `simulate` at W = N_WALKERS on the headline
+    with the tutorial measurement set (Nrv=10, f32 measurements), the bins in
+    memory; K1 f64, K2 and K3 must launch and no plain version run. `kw`
+    sets the sampler options; with them the line gives each walker's mu and
+    the shared dt after every tuner / timestep update. Returns the path's
+    launch counts."""
+    import csv
+    import math
+    import tempfile
+
+    from smoqyelphqmc_tpu_torch import driver
+    from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
+    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model, holstein_honeycomb_spec
+
+    h = HEADLINE
+    W = N_WALKERS
+    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    spec = holstein_honeycomb_spec(geo)
+    cfg = measured_config(n_walkers=W, **kw)
+    dts, law = [], driver.dt_law
+
+    def spy_law(*args):
+        dts.append(law(*args))
+        return dts[-1]
+
+    driver.dt_law = spy_law
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            info = SimulationInfo(filepath=tmp, datafolder_prefix="measured_walkers", sID=1)
+            t0 = time.perf_counter()
+            (bins, md, finished), counts = drive_path(
+                lambda: simulate_in_memory(info, tbm, em, spec, cfg, MAIN_DEVICE), ("mtm_f64", "pcg", "pcg_force"))
+            wall = time.perf_counter() - t0
+            mus = []
+            for w in range(W):
+                path = os.path.join(info.datafolder, f"density_tuning_profile_pID-{w}.csv")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        mus.append([round(float(r["mu"]), 5) for r in csv.DictReader(f, delimiter=" ")])
+    finally:
+        driver.dt_law = law
+    check_bins(bins, cfg.N_bins, f"the measured walker path ({tag})", W)
+    n_meas = md["n_measure_timed"]
+    per_sweep = md["t_measure_s"] / n_meas
+    density = [[round(float(bins[(w, b)]["global"]["density"][0]), 5) for b in range(cfg.N_bins)] for w in range(W)]
+    controls = ""
+    if kw:
+        controls = (f"; mu per walker after each tuner update {mus}; dt after each thermalization sweep "
+                    f"{[round(d, 6) for d in dts]} (dt0 {math.pi / (2 * cfg.Nt):.6f}, final {md.get('hmc_dt_final')}); "
+                    f"acceptance radial {md['radial_acceptance_rate']:.3f}")
+    say(f"measured walker path ({tag}) on {card}: simulate W={W} L={h['L']} beta={h['beta']} N_therm={cfg.N_therm} "
+        f"N_measurements={cfg.N_measurements} N_bins={cfg.N_bins} Nrv={cfg.Nrv} Nt={cfg.Nt} {cfg.hmc_integrator}; "
+        f"s per measured W={W} sweep {per_sweep:.4f}, walker-measured-sweeps/s {W / per_sweep:.3f} (first "
+        f"{md['t_first_measured_sweep_s']:.3f}, {n_meas} sweeps {md['t_measure_s']:.3f} s; thermalization "
+        f"{md['t_therm_s']:.3f} s for {md['n_therm_timed']}); estimator refreshes {md['t_refresh_s']:.4f} s, share "
+        f"{md['t_refresh_s'] / md['t_measure_s']:.4f}; measurement passes {md['t_measurements_s']:.4f} s, share "
+        f"{md['t_measurements_s'] / md['t_measure_s']:.4f}; acceptance refl {md['reflection_acceptance_rate']:.3f} "
+        f"swap {md['swap_acceptance_rate']:.3f} hmc {md['hmc_acceptance_rate']:.3f}; iters/solve refl "
+        f"{md['reflection_iters']:.2f} swap {md['swap_iters']:.2f} hmc {md['hmc_iters']:.2f} measurement "
+        f"{md['measurement_iters']:.2f}; precond_fallback_sweeps {md['precond_fallback_sweeps']}; density per walker "
+        f"and bin {density}; all converged {md['all_converged']}{controls}; wall {wall:.2f} s; launches/plain calls "
+        f"{counts}")
+    if not (finished and md["all_converged"]):
+        fail(f"the measured walker path ({tag}) did not finish or converge ({finished}, {md['all_converged']})")
+    if kw.get("target_density") is not None and len(mus) != W:
+        fail(f"the measured walker path ({tag}) wrote {len(mus)} density-tuning profiles for {W} walkers")
+    return counts
 
 
 def phase_k3(results):
@@ -1277,6 +1382,12 @@ def main() -> None:
     phase_k3(results)
     phase_k4(results)
     phase_walkers(results, card)
+    counts = phase_measured_walkers(results, card, "main")
+    results["pcg_force"]["launches"] = counts["pcg_force"][0]
+    phase_measured_walkers(results, card, "options", use_radial_updates=True, hmc_integrator="omelyan", Nt=8,
+                           target_acceptance=0.7, target_density=0.9)
+    phase_measured_small_reference(n_walkers=2, use_radial_updates=True, hmc_integrator="omelyan", Nt=4,
+                                   target_acceptance=0.7, target_density=0.9)
     phase_fused_force(results, card)
     phase_small_reference(n_walkers=2)
     phase_small_reference(fused_force=True)

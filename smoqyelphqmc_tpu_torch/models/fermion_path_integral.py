@@ -50,11 +50,17 @@ def build_path_integral(
 ) -> FermionPathIntegral:
     """V[l, i] = eps_i - mu + sum_{holstein c -> i} sum_k alpha_k x_{p_c, l}^k,
     t[l, h] = t0_h (and t_im[l, h] = t0_im_h for complex hoppings). A field x
-    (W, n_phonon, Ltau) gives V (W, Ltau, N)."""
+    (W, n_phonon, Ltau) gives V (W, Ltau, N); so does a walker batch's
+    chemical potentials, tbp.mu of shape (W,), with or without Holstein
+    couplings."""
     if x is None:
         x = elph.x
     Ltau, n_sites = elph.Ltau, tbp.n_sites
-    V = ((tbp.eps - tbp.mu)[None, :]).expand(Ltau, n_sites)
+    mu = tbp.mu
+    if mu.dim() == 1:  # one mu a walker
+        V = (tbp.eps[None, :] - mu[:, None])[:, None, :].expand(mu.shape[0], Ltau, n_sites)
+    else:
+        V = ((tbp.eps - mu)[None, :]).expand(Ltau, n_sites)
     if elph.n_holstein > 0:
         vals = holstein_potential(elph, x)
         V_sc = torch.zeros(x.shape[:-2] + (n_sites, Ltau), dtype=vals.dtype, device=vals.device)

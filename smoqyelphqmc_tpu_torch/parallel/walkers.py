@@ -2,12 +2,19 @@
 the JAX package's parallel/walkers.py without the device mesh).
 
 The JAX package vmaps one traced sweep over a leading walker axis. Here the
-axis is written out: the field is (W, n_phonon, Ltau); reflection and swap,
-each a Metropolis decision on f64 solves (K1 / K2), run walker by walker; with
-one shared preconditioner the HMC trajectories of all walkers run together
-in one `updates.hmc.hmc_update`, every leapfrog step's W force solves in one
-launch of kernel K3. Draws are per walker (`WalkerDraws`), so a
-walker's chain does not depend on W.
+axis is written out: the field is (W, n_phonon, Ltau); reflection, swap and
+radial moves, each a Metropolis decision on f64 solves (K1 / K2), run walker
+by walker; with one shared preconditioner the HMC trajectories of all
+walkers run together in one `updates.hmc.hmc_update`, every kick's W force
+solves in one launch of kernel K3. Each walker may carry its own chemical
+potential (`mus`): its moves, its trajectory's fermion matrix (K3 reads the
+walkers' exp_nV planes with a walker stride) and its measurements use it,
+and the shared refresh uses the walker-mean mu. Draws are per walker
+(`WalkerDraws`), so a walker's chain does not depend on W.
+
+`walker_measure` refreshes each walker's Green's estimator (one K2 launch of
+2 Nrv systems at that walker's fermion matrix: K2 takes one fermion matrix a
+launch) and takes its measurement pass.
 """
 
 from __future__ import annotations
@@ -18,13 +25,18 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..measure.container import make_measurements
+from ..measure.greens_estimator import EstimatorUpdate, GreensEstimator, draw_theta, update_greens_estimator
 from ..ops.preconditioner import refresh_preconditioner
-from ..updates.context import QMCContext, QMCState, make_fdm
+from ..updates.context import QMCContext, QMCState, make_fdm, with_mu
 from ..updates.global_updates import (
+    RadialDraws,
     ReflectionDraws,
     SwapDraws,
+    draw_radial,
     draw_reflection,
     draw_swap,
+    radial_update,
     reflection_update,
     swap_update,
 )
@@ -46,16 +58,45 @@ class WalkerStates:
 
 @dataclasses.dataclass
 class WalkerDraws:
-    """One walker's draws for one sweep."""
+    """One walker's draws for one sweep (at W = 1, the chain's): theta
+    (Nrv, Ltau, N) for the estimator refresh of a measured or tuning sweep,
+    radial for a sweep with radial updates."""
 
     reflection: ReflectionDraws
     swap: SwapDraws
     hmc: HMCDraws
+    theta: Optional[torch.Tensor] = None
+    radial: Optional[RadialDraws] = None
 
 
-def draw_walker(gen: torch.Generator, ctx: QMCContext) -> WalkerDraws:
-    """A sweep's draws from one walker's generator, in the W = 1 sweep's order."""
-    return WalkerDraws(draw_reflection(gen, ctx), draw_swap(gen, ctx), draw_hmc(gen, ctx))
+def draw_walker(gen: torch.Generator, ctx: QMCContext, precond=None, params: Optional[HMCParams] = None,
+                est: Optional[GreensEstimator] = None, radial: bool = False) -> WalkerDraws:
+    """A sweep's draws from one generator, in the order the sweep runs:
+    reflection, swap, radial (only when on), HMC, then, with an estimator,
+    the phases of its refresh. With every option off these are the draws of
+    a reflection + swap + HMC sweep alone."""
+    r = draw_reflection(gen, ctx, precond=precond)
+    s = draw_swap(gen, ctx, precond=precond)
+    rad = draw_radial(gen, ctx, precond) if radial else None
+    h = draw_hmc(gen, ctx, precond, params)
+    theta = draw_theta(gen, est, ctx.device) if est is not None else None
+    return WalkerDraws(r, s, h, theta=theta, radial=rad)
+
+
+class SweepStats(tuple):
+    """A sweep's update stats in the order the updates ran: (reflection,
+    swap, hmc), with radial after swap when the sweep ran one; each entry one
+    stats tuple at W = 1, a list over walkers from walker_sweep."""
+
+    def __new__(cls, reflection, swap, hmc, radial=None):
+        self = super().__new__(cls, (reflection, swap) + (() if radial is None else (radial,)) + (hmc,))
+        self.reflection, self.swap, self.hmc, self.radial = reflection, swap, hmc, radial
+        return self
+
+    @property
+    def converged(self) -> bool:
+        """Every update converged (at W = 1)."""
+        return all(s.converged for s in self)
 
 
 def init_walker_states(ctx: QMCContext, base_state: QMCState, noise: torch.Tensor) -> WalkerStates:
@@ -68,9 +109,10 @@ def init_walker_states(ctx: QMCContext, base_state: QMCState, noise: torch.Tenso
 
 def shared_precond_refresh(ctx: QMCContext, states: WalkerStates) -> WalkerStates:
     """Refresh the preconditioner once from the walker-mean fermion matrix
-    (the mean of the walkers' exp(-dtau V) planes) and give it to every
-    walker. Preconditioner quality moves only iteration counts, never the
-    sampled distribution."""
+    (the mean of the walkers' exp(-dtau V) planes at the context's mu: the
+    walker sweep passes the walker-mean mu) and give it to every walker.
+    Preconditioner quality moves only iteration counts, never the sampled
+    distribution."""
     if states.precond[0] is None:
         return states
     fdm = make_fdm(ctx, states.x)
@@ -150,37 +192,73 @@ class PrecondFallbackController:
 
 
 def walker_sweep(ctx: QMCContext, states: WalkerStates, params: HMCParams, draws: Sequence[WalkerDraws],
-                 shared_precond: bool = True):
-    """One (reflection + swap + HMC) sweep of every walker, walker w with
-    draws[w]. With shared_precond the preconditioner is refreshed once per
-    sweep from the walker-mean fermion matrix and the W trajectories run as
-    one batch, at W >= 2 with fused_step_force (every force solve through K3,
-    as the JAX package's walker_sweep sets it); otherwise each walker
-    refreshes its own preconditioner at trajectory start and runs its own
-    trajectory (the JAX package drops K3 in that mode). Returns
-    (states, (reflection stats, swap stats, HMC stats)), each a list over
-    walkers."""
+                 shared_precond: bool = True, mus: Optional[torch.Tensor] = None, recenter=None):
+    """One (reflection + swap [+ radial] + HMC) sweep of every walker, walker
+    w with draws[w] (radial where draws[w].radial is set) and, with mus (W,)
+    float64, at chemical potential mus[w]. With shared_precond the
+    preconditioner is refreshed once per sweep from the walker-mean fermion
+    matrix at the walker-mean mu and the W trajectories run as one batch, at
+    W >= 2 with fused_step_force (every force solve through K3, as the JAX
+    package's walker_sweep sets it); otherwise each walker refreshes its own
+    preconditioner at trajectory start and runs its own trajectory (the JAX
+    package drops K3 in that mode). `recenter` acts on each walker's field
+    after every drift. Returns (states, SweepStats of lists over walkers)."""
     W = states.n_walkers
     shared = shared_precond and states.precond[0] is not None
+    ctxs = [ctx if mus is None else with_mu(ctx, mus[w]) for w in range(W)]
     if shared:
-        states = shared_precond_refresh(ctx, states)
+        if ctx.refresh_precond_global or params.refresh_precond_every_step:
+            raise ValueError("a walker batch shares one preconditioner, refreshed once a sweep: "
+                             "refresh_precond_global and refresh_precond_every_step need shared_precond=False")
+        states = shared_precond_refresh(ctx if mus is None else with_mu(ctx, mus.mean()), states)
         params = dataclasses.replace(params, refresh_precond_at_start=False)
         if W >= 2:
             params = dataclasses.replace(params, fused_step_force=True)
-    xs, pres, rs, ss = [], [], [], []
+    xs, pres, rs, ss, rads = [], [], [], [], []
     for w in range(W):
-        st, r = reflection_update(ctx, states.walker(w), draws[w].reflection)
-        st, s = swap_update(ctx, st, draws[w].swap)
+        st, r = reflection_update(ctxs[w], states.walker(w), draws[w].reflection)
+        st, s = swap_update(ctxs[w], st, draws[w].swap)
+        if draws[w].radial is not None:
+            st, rad = radial_update(ctxs[w], st, draws[w].radial)
+            rads.append(rad)
         xs.append(st.x)
         pres.append(st.precond)
         rs.append(r)
         ss.append(s)
+    rads = rads or None
     if shared:
-        st, hs = hmc_update(ctx, QMCState(x=torch.stack(xs), precond=pres[0]), params, [d.hmc for d in draws])
-        return WalkerStates(x=st.x, precond=[st.precond] * W), (rs, ss, hs)
+        batch_ctx = ctx if mus is None else with_mu(ctx, mus)
+        st, hs = hmc_update(batch_ctx, QMCState(x=torch.stack(xs), precond=pres[0]), params,
+                            [d.hmc for d in draws], recenter=recenter)
+        return WalkerStates(x=st.x, precond=[st.precond] * W), SweepStats(rs, ss, hs, rads)
     hs = []
     for w in range(W):
-        st, h = hmc_update(ctx, QMCState(x=xs[w], precond=pres[w]), params, draws[w].hmc)
+        st, h = hmc_update(ctxs[w], QMCState(x=xs[w], precond=pres[w]), params, draws[w].hmc, recenter=recenter)
         xs[w], pres[w] = st.x, st.precond
         hs.append(h)
-    return WalkerStates(x=torch.stack(xs), precond=pres), (rs, ss, hs)
+    return WalkerStates(x=torch.stack(xs), precond=pres), SweepStats(rs, ss, hs, rads)
+
+
+def walker_refresh(ctx: QMCContext, states: WalkerStates, est: GreensEstimator, thetas: Sequence[torch.Tensor],
+                   mus: Optional[torch.Tensor] = None, **solve) -> List[EstimatorUpdate]:
+    """Each walker's estimator refresh from the one template `est` with its
+    own phases thetas[w], at its own field, mu and preconditioner: one K2
+    launch of 2 Nrv systems a walker with f32 solves. `solve` goes to
+    update_greens_estimator (tol, maxiter, mixed, solve_dtype)."""
+    out = []
+    for w in range(states.n_walkers):
+        c = ctx if mus is None else with_mu(ctx, mus[w])
+        out.append(update_greens_estimator(est, make_fdm(c, states.x[w]), thetas[w], precond=states.precond[w],
+                                           **solve))
+    return out
+
+
+def walker_measure(ctx: QMCContext, spec, states: WalkerStates, est: GreensEstimator, thetas: Sequence[torch.Tensor],
+                   mus: Optional[torch.Tensor] = None, **solve):
+    """Refresh each walker's estimator (walker_refresh) and take its
+    measurement pass with its own context. Returns (the measurement trees,
+    the estimator updates), lists over walkers."""
+    upds = walker_refresh(ctx, states, est, thetas, mus, **solve)
+    outs = [make_measurements(ctx if mus is None else with_mu(ctx, mus[w]), spec, u.estimator, states.x[w])
+            for w, u in enumerate(upds)]
+    return outs, upds

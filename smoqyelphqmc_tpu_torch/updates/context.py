@@ -39,6 +39,10 @@ class QMCContext:
     maxiter: int
     mixed_precision: bool = False
     force_dtype: str = "float64"
+    # refresh the carried preconditioner at the proposal of every reflection,
+    # swap and radial move (the JAX package's option; off by default: one
+    # mode of n_phonon barely moves the tau- and site-averaged Bbar)
+    refresh_precond_global: bool = False
 
     @property
     def Ltau(self) -> int:
@@ -60,6 +64,19 @@ class QMCContext:
     def lanczos_dim(self) -> int:
         """Length of a KPM Lanczos start vector: N, or 2N for complex hoppings."""
         return 2 * self.n_sites if self.complex_hops else self.n_sites
+
+
+def with_mu(ctx: QMCContext, mu) -> QMCContext:
+    """The context at chemical potential mu: a float, a 0-dim tensor, or a
+    walker batch's (W,) values (the fermion matrix of a (W, n_phonon, Ltau)
+    field then carries each walker's mu in its exp_nV planes)."""
+    mu = torch.as_tensor(mu, dtype=torch.float64).to(ctx.device)
+    return dataclasses.replace(ctx, tbp=dataclasses.replace(ctx.tbp, mu=mu))
+
+
+def walker_context(ctx: QMCContext, w: int) -> QMCContext:
+    """Walker w's context: its own mu when the context carries one a walker."""
+    return with_mu(ctx, ctx.tbp.mu[w]) if ctx.tbp.mu.dim() == 1 else ctx
 
 
 @dataclasses.dataclass
@@ -101,6 +118,7 @@ def initialize_qmc(
     mixed_precision: bool = False,
     force_dtype: str = "float64",
     lanczos_v0: Optional[torch.Tensor] = None,
+    refresh_precond_global: bool = False,
 ) -> tuple[QMCContext, QMCState]:
     """Context and initial state on the device of `elph` (preconditioner:
     'auto' by default, 'spectral', 'kpm', or None). A KPM preconditioner's
@@ -119,6 +137,7 @@ def initialize_qmc(
         maxiter=maxiter,
         mixed_precision=mixed_precision,
         force_dtype=force_dtype,
+        refresh_precond_global=refresh_precond_global,
     )
     x0 = elph.x.clone()
     precond = None

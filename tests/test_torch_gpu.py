@@ -1050,3 +1050,157 @@ def test_simulate_on_gpu(cuda_device, tmp_path):
     assert finished and set(got) == set(ref)
     for k, v in ref.items():
         np.testing.assert_array_equal(got[k], v, err_msg=str(k))
+
+
+# ----------------------------------------------------------------------
+# the measured walker path and the sampler options on the card
+# ----------------------------------------------------------------------
+
+
+def _mu_walker_problem(device, mus, beta=1.0, seed=5):
+    """_walker_problem with a chemical potential a walker: the walkers'
+    fermion matrix from the context at mus (W,)."""
+    from smoqyelphqmc_tpu_torch.updates.context import initialize_qmc, make_fdm, with_mu
+
+    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.4, 0.0)
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=device)
+    elph = ElectronPhononParameters.from_model(beta, 0.1, em, tbp, rng, device=device)
+    ctx, state = initialize_qmc(tbp, elph, preconditioner="spectral")
+    W = len(mus)
+    gen = torch.Generator().manual_seed(seed)
+    xs = elph.x[None] + 0.1 * torch.randn((W,) + tuple(elph.x.shape), generator=gen, dtype=torch.float64).to(device)
+    fdm32 = make_fdm(with_mu(ctx, torch.tensor(mus, dtype=torch.float64)), xs, dtype="float32")
+    Lam = build_lambda(elph, xs, tbp.n_sites).to(torch.float32)
+    Phi = torch.randn((W, 2, elph.Ltau, tbp.n_sites), generator=gen, dtype=torch.float32).to(device)
+    return fdm32, state.precond, Lam, ldiv_lambda_T(Lam[:, None], Phi).contiguous()
+
+
+def test_pcg_force_kernel_per_walker_mu(cuda_device):
+    """K3 with each walker's own mu in its exp_nV plane (mu = (0, 0.1))
+    against its plain version; walker 1's solution is not the mu = 0 one."""
+    fdm32, pre, Lam, b = _mu_walker_problem(cuda_device, [0.0, 0.1])
+    assert fdm32.exp_nV.shape[0] == 2 and not torch.equal(fdm32.exp_nV[0], fdm32.exp_nV[1])
+    x0 = torch.zeros_like(b)
+    launches = pcg_force.PCG_FORCE.launches
+    got = pcg_force.pcg_force_cuda(fdm32, pre, b, x0, Lam, 1e-5, 200, True)
+    assert pcg_force.PCG_FORCE.launches == launches + 1
+    _check_k3(got, pcg_force.pcg_force_plain(fdm32, pre, b, x0, Lam, 1e-5, 200, True))
+    fdm_zero = _mu_walker_problem(cuda_device, [0.0, 0.0])[0]
+    zero = pcg_force.pcg_force_plain(fdm_zero, pre, b, x0, Lam, 1e-5, 200, True)[0]
+    torch.testing.assert_close(got[0][0], zero[0], rtol=2e-4, atol=2e-5)
+    assert float((got[0][1] - zero[1]).abs().max()) > 1e-3 * float(zero[1].abs().max())
+
+
+def _omelyan_batch(device, Nt):
+    """One W = 2 Omelyan trajectory batch through K3 (mu = (0, 0.1), the
+    shared preconditioner) on `device`, its draws from a seeded CPU
+    generator."""
+    from smoqyelphqmc_tpu_torch.updates.context import QMCState, initialize_qmc, with_mu
+    from smoqyelphqmc_tpu_torch.updates.hmc import HMCParams, draw_hmc, hmc_update
+
+    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.6, 0.0)
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=device)
+    elph = ElectronPhononParameters.from_model(2.0, 0.1, em, tbp, rng, device=device)
+    ctx, state = initialize_qmc(tbp, elph, mixed_precision=True, force_dtype="float32", preconditioner="spectral")
+    gen = torch.Generator().manual_seed(11)
+    xs = elph.x[None] + 0.1 * torch.randn((2,) + tuple(elph.x.shape), generator=gen, dtype=torch.float64).to(device)
+    draws = [draw_hmc(gen, ctx) for _ in range(2)]
+    params = HMCParams(Nt=Nt, integrator="omelyan", refresh_precond_at_start=False, fused_step_force=True)
+    return hmc_update(with_mu(ctx, torch.tensor([0.0, 0.1], dtype=torch.float64)),
+                      QMCState(x=xs, precond=state.precond), params, draws)
+
+
+def test_omelyan_through_k3_matches_plain(cuda_device):
+    """A W = 2 Omelyan batch (both kicks of each step through K3, 2 Nt
+    launches, no plain version) against the same batch on the CPU (K3's
+    plain version): the same accept flags, fields to 1e-4 relative (the GPU
+    chains' bound) and iterations per solve within one."""
+    Nt = 4
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE)
+    for c in counters:
+        c.reset()
+    gst, gstats = _omelyan_batch(cuda_device, Nt)
+    assert pcg_force.PCG_FORCE.launches == 2 * Nt and all(c.plain_calls == 0 for c in counters)
+    cst, cstats = _omelyan_batch(torch.device("cpu"), Nt)
+    for g, c in zip(gstats, cstats):
+        assert g.converged and c.converged and g.accepted == c.accepted
+        assert abs(g.iters_avg - c.iters_avg) <= 1.0
+    xg, xc = gst.x.cpu(), cst.x
+    assert float((xg - xc).abs().max()) <= 1e-4 * float(xc.abs().max())
+
+
+def _walker_options_config(**kw):
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig
+
+    opts = dict(beta=1.0, dtau=0.1, N_therm=2, N_measurements=4, N_bins=2, Nt=4, Nrv=10, seed=2, n_walkers=2,
+                use_radial_updates=True, hmc_integrator="omelyan", target_acceptance=0.7, target_density=0.9)
+    return SimulationConfig(**{**opts, **kw})
+
+
+def test_simulate_walkers_with_options_on_gpu_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """simulate at W = 2 with radial updates, Omelyan, dt targeting and mu
+    tuning on the card and on the CPU: every sweep's accept flags equal, the
+    bins to 1e-4 of each observable's largest magnitude, K1 f64, K2 and K3
+    launch with no plain version on the card; then the card's run interrupted after
+    every sweep until its first bins are out resumes to its bins bit for
+    bit."""
+    from smoqyelphqmc_tpu_torch import driver
+    from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
+    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_spec
+
+    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.6, 0.0)
+    spec = holstein_honeycomb_spec(geo)
+    flags = []
+    orig = driver.walker_sweep
+
+    def spy(*args, **kw):
+        states, st = orig(*args, **kw)
+        flags.append(tuple(tuple(bool(u.accepted) for u in ups) for ups in st))
+        return states, st
+
+    monkeypatch.setattr(driver, "walker_sweep", spy)
+
+    def run(prefix, cfg, device):
+        out = driver.simulate(SimulationInfo(filepath=str(tmp_path), datafolder_prefix=prefix, sID=1), tbm, em, spec,
+                              cfg, device=device)
+        leaves = {}
+        while True:
+            try:
+                p, k, tree = next(out)
+            except StopIteration as done:
+                return leaves, *done.value
+            for cat, d in tree.items():
+                for name, (re, im) in d.items():
+                    leaves[(p, k, cat, name)] = np.asarray(re) + 1j * np.asarray(im)
+
+    cfg = _walker_options_config()
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE)
+    for c in counters:
+        c.reset()
+    gpu, gmd, finished = run("gpu", cfg, cuda_device)
+    gflags, flags[:] = list(flags), []
+    # K1 f32 launches only in per-walker fallback sweeps (their K2 warm starts)
+    for c in counters:
+        assert c.plain_calls == 0 and (c.launches > 0 or c is mtm.MTM[torch.float32]), c.name
+    cpu, cmd, _ = run("cpu", cfg, "cpu")
+    assert finished and gmd["all_converged"] and cmd["all_converged"] and gflags == flags and len(gflags) == 6
+    assert set(gpu) == set(cpu) and {k[:2] for k in gpu} == {(p, b) for p in (0, 1) for b in (0, 1)}
+    for k, ref in cpu.items():
+        if np.all(np.isnan(ref.real)):
+            assert np.all(np.isnan(gpu[k].real)), k
+            continue
+        assert float(np.max(np.abs(gpu[k] - ref))) <= 1e-4 * max(float(np.max(np.abs(ref))), 1e-300), k
+    stop = dataclasses.replace(cfg, runtime_limit_hours=0.0)
+    got, n_runs = {}, 0
+    while not got and n_runs < cfg.N_therm + cfg.N_measurements:
+        more, _, finished = run("resumed", stop, cuda_device)
+        got.update(more)
+        n_runs += 1
+    more, md, finished = run("resumed", cfg, cuda_device)
+    got.update(more)
+    assert finished and n_runs > 1 and set(got) == set(gpu)
+    for k, v in gpu.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=str(k))
+    assert md["final_mu_per_walker"] == gmd["final_mu_per_walker"] and md["hmc_dt_final"] == gmd["hmc_dt_final"]
