@@ -69,6 +69,8 @@ from .parallel.walkers import (
     WalkerDraws,
     draw_walker,
     init_walker_states,
+    sync_device,
+    walker_measure,
     walker_refresh,
     walker_sweep,
 )
@@ -158,11 +160,6 @@ def walker_seed(seed: int, w: int) -> int:
     return int(np.random.SeedSequence([seed, w]).generate_state(1)[0])
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def fold_kpm_diagnostics(metadata: Dict, precond) -> None:
     """Record a KPM preconditioner's self-diagnostics in the metadata
     (the JAX package's driver.py:fold_kpm_diagnostics): whether it is active
@@ -193,12 +190,6 @@ def dt_law(dt: float, accepted: float, target: float, dt0: float) -> float:
 # ----------------------------------------------------------------------
 # One sweep at W = 1
 # ----------------------------------------------------------------------
-
-# one W = 1 sweep's draws are a walker's (parallel.walkers.draw_walker):
-# reflection, swap, HMC, theta for a measured (or tuning) sweep's estimator
-# refresh, radial when on
-SweepDraws = WalkerDraws
-
 
 def sweep(ctx: QMCContext, state: QMCState, params: HMCParams, draws: WalkerDraws,
           recenter=None) -> tuple[QMCState, SweepStats]:
@@ -237,14 +228,14 @@ def measured_sweep(ctx: QMCContext, state: QMCState, params: HMCParams, draws: W
     """A sweep, the estimator refresh at the new field with draws.theta, and
     the measurement pass (the JAX package's measured_step at k = 1)."""
     state, stats = sweep(ctx, state, params, draws, recenter)
-    _sync(ctx.device)
+    sync_device(ctx.device)
     t0 = time.perf_counter()
     upd = update_greens_estimator(est, make_fdm(ctx, state.x), draws.theta, precond=state.precond,
                                   **_solve_opts(cfg))
-    _sync(ctx.device)
+    sync_device(ctx.device)
     t1 = time.perf_counter()
     out = make_measurements(ctx, spec, upd.estimator, state.x)
-    _sync(ctx.device)
+    sync_device(ctx.device)
     return MeasuredSweep(state, stats, upd, out, t1 - t0, time.perf_counter() - t1)
 
 
@@ -269,7 +260,7 @@ def _init_chain(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg
         use_preconditioner=cfg.use_preconditioner, preconditioner=cfg.preconditioner,
         mixed_precision=cfg.mixed_precision, force_dtype=cfg.force_dtype, lanczos_v0=v0,
     )
-    _sync(device)
+    sync_device(device)
     return gen, ctx, state, time.perf_counter() - t0
 
 
@@ -371,15 +362,8 @@ class _Chains:
             self.state = m.state
             return _Pass(_as_lists(m.stats), [m.update], [m.out], m.t_refresh_s, m.t_measurements_s)
         thetas, stats = self.sweep(est)
-        dev = self.ctx.device
-        _sync(dev)
-        t0 = time.perf_counter()
-        upds = self.refresh(est, thetas)
-        _sync(dev)
-        t1 = time.perf_counter()
-        outs = [make_measurements(self.context(w), spec, u.estimator, self.states.x[w]) for w, u in enumerate(upds)]
-        _sync(dev)
-        return _Pass(stats, upds, outs, t1 - t0, time.perf_counter() - t1)
+        m = walker_measure(self.ctx, spec, self.states, est, thetas, self.mu, **_solve_opts(self.cfg))
+        return _Pass(stats, m.updates, m.outs, m.t_refresh_s, m.t_measurements_s)
 
     def state_dict(self) -> Dict:
         """The chains' checkpoint: fields, preconditioner(s), generator
@@ -441,17 +425,16 @@ def _expand(tight_binding_model, electron_phonon_model, cfg: SimulationConfig, d
 
 
 def run_updates(tight_binding_model, electron_phonon_model, cfg: SimulationConfig, n_sweeps: int,
-                device="cuda", recenter=None) -> Dict:
+                device="cuda") -> Dict:
     """Run `n_sweeps` update sweeps on `device` (the card unless the caller
     asks for the CPU); returns the metadata dict
     (acceptance rates and CG iterations per solve, averaged over sweeps, as
     run_simulation reports them) with per-sweep lists and timings."""
-    return run_sweeps(*_expand(tight_binding_model, electron_phonon_model, cfg, torch.device(device)), cfg, n_sweeps,
-                      recenter=recenter)
+    return run_sweeps(*_expand(tight_binding_model, electron_phonon_model, cfg, torch.device(device)), cfg, n_sweeps)
 
 
 def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg: SimulationConfig,
-               n_sweeps: int, recenter=None) -> Dict:
+               n_sweeps: int) -> Dict:
     """`run_updates` from expanded parameters, on the device of `elph` (for a
     caller with tables of its own, such as relabelled sites). Each sweep runs
     inside a profiler range named "sweep". The timestep law of
@@ -465,7 +448,7 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     device = elph.device
     gen, ctx, state, t_init = _init_chain(tbp, elph, cfg)
     params = _hmc_params(cfg)
-    chains = _Chains(ctx, state, gen, cfg, params, recenter)
+    chains = _Chains(ctx, state, gen, cfg, params)
     W = cfg.n_walkers
     dt0 = chains.dt
     meta: Dict = {
@@ -488,7 +471,7 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
         t0 = time.perf_counter()
         with torch.profiler.record_function("sweep"):
             _, st = chains.sweep()
-            _sync(device)
+            sync_device(device)
         sweep_s.append(time.perf_counter() - t0)
         _record_sweep(meta, st)
         if cfg.target_acceptance is not None:
@@ -700,7 +683,7 @@ def simulate(
         meas_done += 1
         n_timed += 1
         if n_timed == 1:
-            _sync(device)
+            sync_device(device)
             metadata["t_first_measured_sweep_s"] = round(time.time() - t_phase, 3)
             metadata["n_first_measured_batch"] = 1
         if meas_done % bin_size == 0:
@@ -717,7 +700,7 @@ def simulate(
             fold_kpm_diagnostics(metadata, chains.precond)
             return metadata, False
     if n_timed:
-        _sync(device)
+        sync_device(device)
         metadata["t_measure_s"] = round(time.time() - t_phase, 3)
         metadata["n_measure_timed"] = n_timed
 

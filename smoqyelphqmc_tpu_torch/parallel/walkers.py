@@ -20,7 +20,8 @@ launch) and takes its measurement pass.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+import time
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -253,12 +254,30 @@ def walker_refresh(ctx: QMCContext, states: WalkerStates, est: GreensEstimator, 
     return out
 
 
+def sync_device(device: torch.device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class WalkerMeasurement(NamedTuple):
+    outs: List[Dict]  # the measurement trees, one a walker
+    updates: List[EstimatorUpdate]  # the refreshed estimators, their iterations and convergence
+    t_refresh_s: float  # host clock around the W refreshes, synchronised
+    t_measurements_s: float  # host clock around the W measurement passes, synchronised
+
+
 def walker_measure(ctx: QMCContext, spec, states: WalkerStates, est: GreensEstimator, thetas: Sequence[torch.Tensor],
-                   mus: Optional[torch.Tensor] = None, **solve):
+                   mus: Optional[torch.Tensor] = None, **solve) -> WalkerMeasurement:
     """Refresh each walker's estimator (walker_refresh) and take its
-    measurement pass with its own context. Returns (the measurement trees,
-    the estimator updates), lists over walkers."""
+    measurement pass with its own context: the measured half of the driver's
+    W >= 2 measured sweep."""
+    sync_device(ctx.device)
+    t0 = time.perf_counter()
     upds = walker_refresh(ctx, states, est, thetas, mus, **solve)
+    sync_device(ctx.device)
+    t1 = time.perf_counter()
     outs = [make_measurements(ctx if mus is None else with_mu(ctx, mus[w]), spec, u.estimator, states.x[w])
             for w, u in enumerate(upds)]
-    return outs, upds
+    sync_device(ctx.device)
+    return WalkerMeasurement(outs, upds, t1 - t0, time.perf_counter() - t1)

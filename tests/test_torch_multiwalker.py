@@ -124,8 +124,9 @@ def test_measured_walker_sweeps_match_jax_draws():
         pstates, st = walkers.walker_sweep(pctx, pstates, HMCParams(Nt=Nt), draws, mus=pmus)
         assert pcg_force.PCG_FORCE.plain_calls == k3 + Nt
         first = first if len(first) == 3 else first + [pstates.x]
-        outs, upds = walkers.walker_measure(pctx, pspec, pstates, pest, thetas, pmus, tol=tol, maxiter=10_000,
-                                            mixed=True, solve_dtype="float32")
+        m = walkers.walker_measure(pctx, pspec, pstates, pest, thetas, pmus, tol=tol, maxiter=10_000, mixed=True,
+                                   solve_dtype="float32")
+        outs, upds = m.outs, m.updates
         for w in range(W):
             assert [s[w].accepted for s in st] == [bool(f) for f in np.asarray(jflags[w])]
             assert all(s[w].converged for s in st) and bool(upds[w].converged)
@@ -214,10 +215,19 @@ def test_run_simulation_walkers_writes_output_set(tmp_path):
 
 def test_simulate_walkers_yields_per_walker_bins(tmp_path):
     """simulate at W = 2 yields (pID, bin index, tree) for each walker and
-    bin; a walker's bins hold its own tuned chemical potential."""
+    bin; a walker's bins hold its own tuned chemical potential. A `recenter`
+    passed to simulate acts on one walker's field after every drift: Nt + 1
+    calls a walker and leapfrog trajectory."""
     tbm, em, spec = _model()
     info = SimulationInfo(filepath=str(tmp_path), datafolder_prefix="mw_sim", sID=1)
-    run = simulate(info, tbm, em, spec, _config(use_radial_updates=False, hmc_integrator="leapfrog"), device="cpu")
+    cfg = _config(use_radial_updates=False, hmc_integrator="leapfrog")
+    seen = []
+
+    def recenter(x):
+        seen.append(tuple(x.shape))
+        return x - 0.1 * x.mean()
+
+    run = simulate(info, tbm, em, spec, cfg, device="cpu", recenter=recenter)
     items = []
     while True:
         try:
@@ -228,6 +238,8 @@ def test_simulate_walkers_yields_per_walker_bins(tmp_path):
     assert finished and [(p, b) for p, b, _ in items] == [(0, 0), (1, 0), (0, 1), (1, 1)]
     mus = {p: float(tree["global"]["chemical_potential"][0]) for p, b, tree in items if b == 1}
     assert mus[0] != mus[1] and md["radial_acceptance_rate"] == md["reflection_acceptance_rate"]
+    assert len(seen) == (cfg.N_therm + cfg.N_measurements) * cfg.n_walkers * (cfg.Nt + 1)
+    assert len(set(seen)) == 1 and len(seen[0]) == 2 and seen[0][1] == round(cfg.beta / cfg.dtau)
 
 
 @pytest.mark.parametrize("interrupts", ["once", "every-sweep"])

@@ -185,12 +185,14 @@ def test_radial_update_rejects_empty_selection():
 # ----------------------------------------------------------------------
 
 
+# the mean over the whole of one walker's field: applied to a walker batch
+# at once instead of walker by walker, it would mix the walkers
 def _jax_recenter(x):
-    return x - 0.1 * jnp.mean(x, axis=-1, keepdims=True)
+    return x - 0.1 * jnp.mean(x)
 
 
 def _torch_recenter(x):
-    return x - 0.1 * x.mean(dim=-1, keepdim=True)
+    return x - 0.1 * x.mean()
 
 
 TRAJECTORIES = [
@@ -244,17 +246,20 @@ def test_omelyan_warm_starts_cut_iterations():
     assert counts["warm"] < counts["cold"]
 
 
-def test_omelyan_walker_sweep_matches_jax_draws(fused_env):
+@pytest.mark.parametrize("recenter", [False, True], ids=["omelyan", "omelyan-recenter"])
+def test_omelyan_walker_sweep_matches_jax_draws(recenter, fused_env):
     """One W = 2 walker sweep with Omelyan (shared refresh, both kicks of each
     step through K3's plain version: 2 Nt calls) from each walker's JAX
-    draws: the same flags, Delta H (1e-8 of H0), iterations per solve
-    (within 1) and end fields (1e-6 relative)."""
+    draws, with and without a recenter (walker by walker in the port, vmapped
+    in the JAX package): the same flags, Delta H (1e-8 of H0), iterations per
+    solve (within 1) and end fields (1e-6 relative)."""
     from test_torch_walkers import _both_walker_chains
 
     W, Nt = 2, 3
     jctx, jstates, pctx, pstates = _both_walker_chains(W, 2, L=2, beta=1.0, alpha=0.5)
     jp = jhmc.HMCParams(Nt=Nt, integrator="omelyan")
-    jout, (jr, js, jh) = jax.jit(lambda s: jwalkers.walker_sweep(jctx, s, jp))(jstates)
+    jrc, prc = (_jax_recenter, _torch_recenter) if recenter else (None, None)
+    jout, (jr, js, jh) = jax.jit(lambda s: jwalkers.walker_sweep(jctx, s, jp, recenter=jrc))(jstates)
     n_cands, n_pairs = len(_candidate_modes(pctx, None)), len(_type_pairs(pctx, None))
     L, N, n_ph, n_cells = pctx.Ltau, pctx.n_sites, pctx.elph.n_phonon, pctx.elph.n_cells
     from test_torch_hmc import _swap_draws
@@ -266,7 +271,7 @@ def test_omelyan_walker_sweep_matches_jax_draws(fused_env):
         hd, key = _hmc_draws(key, n_ph, L, N)
         draws.append(walkers.WalkerDraws(rd, sd, hd))
     plain = pcg_force.PCG_FORCE.plain_calls
-    pout, st = walkers.walker_sweep(pctx, pstates, HMCParams(Nt=Nt, integrator="omelyan"), draws)
+    pout, st = walkers.walker_sweep(pctx, pstates, HMCParams(Nt=Nt, integrator="omelyan"), draws, recenter=prc)
     assert pcg_force.PCG_FORCE.plain_calls == plain + 2 * Nt
     xj = np64(jout.x)
     for w in range(W):

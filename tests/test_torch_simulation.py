@@ -33,7 +33,7 @@ from smoqyelphqmc_tpu.measure import greens_estimator as jge
 from smoqyelphqmc_tpu.updates import global_updates as jglobal
 from smoqyelphqmc_tpu.updates import hmc as jhmc
 from smoqyelphqmc_tpu.updates.context import make_fdm as jmake_fdm
-from smoqyelphqmc_tpu_torch.driver import SimulationConfig, SweepDraws, measured_sweep, run_simulation
+from smoqyelphqmc_tpu_torch.driver import SimulationConfig, measured_sweep, run_simulation
 from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
 from smoqyelphqmc_tpu_torch.measure.container import MeasurementAccumulator
 from smoqyelphqmc_tpu_torch.measure.greens_estimator import build_greens_estimator
@@ -41,6 +41,7 @@ from smoqyelphqmc_tpu_torch.measure.local_measurements import measure_dispersion
 from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model, holstein_honeycomb_spec
 from smoqyelphqmc_tpu_torch.ops.mtm import MTM
 from smoqyelphqmc_tpu_torch.ops.pcg import PCG
+from smoqyelphqmc_tpu_torch.parallel.walkers import WalkerDraws
 from smoqyelphqmc_tpu_torch.updates.global_updates import _candidate_modes, _type_pairs
 from smoqyelphqmc_tpu_torch.updates.hmc import HMCParams
 
@@ -97,7 +98,7 @@ def test_measured_sweeps_match_jax_draws():
         _, sub = jax.random.split(key_host)
         theta = t64(np64(jax.random.uniform(sub, (Nrv, L, N), maxval=2.0 * np.pi)))
         jstate, jest, key_host, jout, jflags = jax_measured(jstate, jest, key_host)
-        m = measured_sweep(pctx, pstate, HMCParams(Nt=Nt), SweepDraws(rd, sd, hd, theta), pest, pspec, cfg)
+        m = measured_sweep(pctx, pstate, HMCParams(Nt=Nt), WalkerDraws(rd, sd, hd, theta), pest, pspec, cfg)
         pstate, pest = m.state, m.update.estimator
         assert [st.accepted for st in m.stats] == [bool(f) for f in np.asarray(jflags)]
         assert m.stats.converged and bool(m.update.converged)
