@@ -98,15 +98,41 @@ Phases, one line each:
      tables, then 1 asymmetric headline sweep with 'auto' (the half-angle
      spectral build; K1 and K2 launch);
  22. the complex KPM chain (N=1152, beta=1, dtau=0.1) on the GPU and on the
-     CPU: the chains must agree.
-Each path (5, 5a, 7, 10, 10a, 10b, 11, 15, 16, 19, 20, 21) is driven with
-every kernel count set to 0 just before it and read just after; the
-launches of K1 and K2 in the kernels line are the measured main path's
-(5a), K3's the measured walker path's (10a). Then one JSON line of kernel results,
+     CPU: the chains must agree;
+ 23. SSH tables (the optical-SSH honeycomb L=12, beta=12, alpha=0.5 at its
+     initial field, whose C / S rows differ across tau): K1 f32 and f64
+     (also with T = 2 and a ragged T = 7) and K2 cold and warm against their
+     plain versions, with times and bounds (`mtm_tau_f32`, `pcg_tau`), and K2
+     at the estimator refresh's 20 systems on these tables; then
+     the table forms' own cost on the headline Holstein values, one row
+     against Ltau replicated rows (K1 register / memory form, K2 at equal
+     iterations);
+ 24. the measured SSH path: `simulate` on that model with the SSH examples'
+     configuration (radial updates, Nt=24, the package defaults) and
+     `basic_spec`, N_therm=2, N_measurements=4, N_bins=2, Nrv=10, at W=1;
+     every solve converged and Delta H finite, K1 and K2 launched and K3,
+     K4, the KPM kernels and every plain version not; the line gives s per
+     measured sweep, the shares, iterations, acceptances (HMC, reflection,
+     swap, radial), Delta H and ssh_energy per bin;
+ 25. the same at W=8 (walker by walker trajectories, the shared refresh from
+     the walker mean of every factor), with walker-measured-sweeps/s and
+     precond_fallback_sweeps;
+ 26. GPU against CPU on small SSH models: the optical-SSH honeycomb L=3,
+     beta=2 measured at W=1 and W=2, each interrupted and resumed bit for
+     bit; the bond-SSH square L=4 with a dispersion coupling and the
+     complex-SSH chain (0.4 + 0.25i on real hoppings, 'auto'), update paths
+     at W=1.
+Each path (5, 5a, 7, 10, 10a, 10b, 11, 15, 16, 19, 20, 21, 24, 25) is
+driven with every kernel count set to 0 just before it and read just
+after; the launches of K1 and K2 in the kernels line are the measured main
+path's (5a), K3's the measured walker path's (10a), those of the
+tau-table entries the measured SSH path's (24). Then one JSON line of kernel results,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
 and the operations it must do over the card's peak for their type (f32
 67 TFLOP/s, f64 34 TFLOP/s, bf16 989 TFLOP/s dense; H100 SXM data sheet),
-counted from this run's shapes, iteration counts and live orders. As the
+counted from this run's shapes, iteration counts and live orders (the
+hopping tables as the values of each hop, one row or Ltau rows, and its
+two int32 sites). As the
 last line {"ok": true, "device": {...}}. Any failure exits nonzero without
 that line.
 """
@@ -121,12 +147,19 @@ import sys
 import time
 from pathlib import Path
 
-HEADLINE = dict(L=12, beta=12.0, dtau=0.05, alpha=0.6, Omega=1.0, mu=0.0, Nt=24, tol=1e-10)
+# A model is a dict: "model" names a function of this script or of
+# models.library that takes (L, Omega, alpha, mu), "spec" its measurement set
+HEADLINE = dict(L=12, beta=12.0, dtau=0.05, alpha=0.6, Omega=1.0, mu=0.0, Nt=24, tol=1e-10, name="honeycomb",
+                model="holstein_honeycomb_model", spec="holstein_honeycomb_spec")
+# the optical-SSH honeycomb (examples/ossh_honeycomb.py:13-30) at the
+# headline's (Ltau, N): 288 phonon modes, 432 SSH couplings
+SSH = dict(HEADLINE, alpha=0.5, name="optical-SSH honeycomb", model="ossh_honeycomb_model", spec="basic_spec")
 # the JAX package's whole-driver large-N record (scripts/e2e_scaling.py:62,68-71)
 LARGE = dict(HEADLINE, L=48, alpha=1.5)
 # the complex chain of the JAX package's K8 record (scripts/kpm_cplx_ab.py:8,49,69;
 # tests/test_complex_hoppings.py:32): t e^{0.7 i}, N = 1152 > 1024 sites
-COMPLEX = dict(L=1152, beta=12.0, dtau=0.05, phase=0.7, alpha=0.5, Omega=1.0, mu=0.1, Nt=24, tol=1e-10)
+COMPLEX = dict(L=1152, beta=12.0, dtau=0.05, phase=0.7, alpha=0.5, Omega=1.0, mu=0.1, Nt=24, tol=1e-10,
+               name="complex chain", model="complex_chain")
 N_SWEEPS = 3
 N_WALKERS = 8
 N_WALKER_SWEEPS = 2
@@ -222,16 +255,24 @@ def b_flops(n_colors: int, symmetric: bool) -> int:
     return (2 if symmetric else 1) * 3 * n_colors + 1
 
 
-def table_bytes(N: int, n_colors: int, es: int) -> int:
-    """The single-row checkerboard tables: C, S (es bytes) and the int32 partners."""
-    return n_colors * N * (2 * es + 4)
+def table_bytes(fdm, es: int) -> int:
+    """The hopping data a checkerboard product needs: each hop's cosh and
+    sinh (and the sinh of its imaginary part for complex hoppings) in es
+    bytes, one row, or Ltau rows for tau-dependent hoppings (SSH), and the
+    neighbour table's two int32 sites a hop. The kernels' per-site tables
+    hold each hop's values once for each of its sites; that layout is not
+    counted."""
+    rows = 1 if fdm.static_hops else fdm.Ltau
+    n_vals = 2 if fdm.cb.S_im is None else 3
+    return fdm.structure.n_hops * (n_vals * es * rows + 2 * 4)
 
 
-def mtm_bound(n_sys, Ltau, N, n_colors, es):
-    """K1 (and K5): v in, out once; two B applications and four multiply-adds
-    per site of each row."""
-    ops = n_sys * Ltau * N * (2 * b_flops(n_colors, True) + 4)
-    nbytes = es * (2 * n_sys * Ltau * N + Ltau * N) + table_bytes(N, n_colors, es)
+def mtm_bound(fdm, n_sys, es):
+    """K1 (and K5): v in, out once, expV and the hopping data; two B
+    applications and four multiply-adds per site of each row."""
+    Ltau, N = fdm.Ltau, fdm.n_sites
+    ops = n_sys * Ltau * N * (2 * b_flops(fdm.cb.n_colors, True) + 4)
+    nbytes = es * (2 * n_sys * Ltau * N + Ltau * N) + table_bytes(fdm, es)
     return bound(nbytes, {"f32" if es == 4 else "f64": ops})
 
 
@@ -256,15 +297,32 @@ def epilogue_ops(Ltau, N, n_colors):
     return 2 * Ltau * N * (2 * b_flops(n_colors, True) + 6 * n_colors + 10)
 
 
+def model_of(h, L=None):
+    """(geometry, tbm, em) of model h at L (h's own L by default)."""
+    from smoqyelphqmc_tpu_torch.models import library
+
+    make_model = globals().get(h["model"]) or getattr(library, h["model"])
+    return make_model(h["L"] if L is None else L, h["Omega"], h["alpha"], h["mu"])
+
+
+def spec_of(h, geo, tbm):
+    """Model h's measurement set: the Holstein tutorial's, or the SSH
+    examples' `basic_spec` on the model's bonds."""
+    from smoqyelphqmc_tpu_torch.models import library
+
+    if h["spec"] == "basic_spec":
+        return library.basic_spec(geo, bond_ids=list(tbm.bond_ids))
+    return getattr(library, h["spec"])(geo)
+
+
 def headline_model(device, h=HEADLINE):
-    """A model's expanded parameters (seed 0): (tbp, elph)."""
+    """Model h's expanded parameters (seed 0): (tbp, elph)."""
     import numpy as np
 
     from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononParameters
-    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
     from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingParameters
 
-    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    geo, tbm, em = model_of(h)
     rng = np.random.default_rng(0)
     tbp = TightBindingParameters.from_model(tbm, rng, device=device)
     return tbp, ElectronPhononParameters.from_model(h["beta"], h["dtau"], em, tbp, rng, device=device)
@@ -307,7 +365,7 @@ def phase_k1(fdm64, results, tag="K1", names=("mtm_f32", "mtm_f64"),
         ms = graph_ms(lambda: mtm.mtm_cuda(fdm, v), 50)
         eager_ms = cuda_ms(lambda: mtm.mtm_cuda(fdm, v), 50)
         plain_ms = cuda_ms(lambda: mtm.mtm_plain(fdm, v), 20)
-        bound_ms, bound_by = mtm_bound(v.shape[0], fdm.Ltau, fdm.n_sites, fdm.cb.n_colors, v.element_size())
+        bound_ms, bound_by = mtm_bound(fdm, v.shape[0], v.element_size())
         shape = mtm.launch_shape(fdm, v.shape[0])
         say(f"{tag} {name or str(dtype).split('.')[-1]} ({'symmetric' if fdm.symmetric else 'asymmetric'}): shape "
             f"{tuple(v.shape)} max_rel_err {rel:.3e} (tol {tol:g}) kernel {ms:.4f} ms (eager call {eager_ms:.4f}) "
@@ -348,7 +406,7 @@ def phase_k2(fdm64, results, key="pcg"):
         n = torch.sqrt(torch.sum(rhs * rhs, dim=(1, 2), keepdim=True))
         return (rhs / n).contiguous(), n
 
-    tag = "K2" if fdm32.symmetric else "K2 asymmetric"
+    tag = ("K2" if fdm32.symmetric else "K2 asymmetric") + ("" if fdm32.static_hops else " SSH tables")
     rows = []
     bu, nb = unit(b)
     xk, ek, ik = pcg.pcg_cuda(fdm32, pre, bu, tol, maxiter)
@@ -396,22 +454,25 @@ def phase_k2(fdm64, results, key="pcg"):
     Ltau, N, nc = fdm32.Ltau, fdm32.n_sites, fdm32.cb.n_colors
     f32_it, bf16_it = pcg_iteration_ops(Ltau, N, nc, fdm32.symmetric)
     n_it = int(rows[0][3]) * bu.shape[0]
-    bound_ms, bound_by = bound(4 * (2 * bu.numel() + Ltau * N) + precond_bytes(Ltau, N) + table_bytes(N, nc, 4),
+    bound_ms, bound_by = bound(4 * (2 * bu.numel() + Ltau * N) + precond_bytes(Ltau, N)
+                               + table_bytes(fdm32, 4),
                                {"f32": n_it * f32_it, "bf16": n_it * bf16_it})
     say(f"{tag} cold solve time: kernel {ms:.3f} ms plain {plain_ms:.3f} ms (grid {lib_grid} CTAs); "
         f"{int(rows[0][3])} iterations, {1e3 * ms / max(int(rows[0][3]), 1):.2f} us each, {syncs} grid syncs "
         f"each; bound {bound_ms:.4f} ms by {bound_by}")
-    results[key] = dict(name="pcg", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/pcg.cu",
+    results[key] = dict(name=key, route="cuda", source="smoqyelphqmc_tpu_torch/csrc/pcg.cu",
                           replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:495",
                           max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                           iters=int(rows[0][3]))
 
 
-def phase_k2_estimator(results):
+def phase_k2_estimator(results, h=HEADLINE, two="pcg"):
     """K2 at the estimator refresh's shape: the 2 Nrv = 20 systems M^T R of
     (Nrv, 2, 240, 288) random-phase vectors R, each scaled to unit norm as
     SpectralPCG scales them, at the refresh's tolerance 2e-5, against its
-    plain version; its time per launch beside the 2-system solve's."""
+    plain version, on the tables of model h at its initial field (with SSH
+    couplings, Ltau rows that differ); its time per launch beside the
+    2-system solve's (results[two])."""
     import math
 
     import torch
@@ -419,9 +480,10 @@ def phase_k2_estimator(results):
     from smoqyelphqmc_tpu_torch.ops import mtm, pcg
     from smoqyelphqmc_tpu_torch.ops.spectral_precond import build_spectral
 
-    fdm64 = headline_fdm(torch.device("cuda"))
+    fdm64 = headline_fdm(torch.device("cuda"), h=h)
     pre = build_spectral(fdm64)
     fdm32 = fdm64.astype(torch.float32)
+    tag = "K2 estimator refresh" + ("" if fdm32.static_hops else " SSH tables")
     Nrv, Ltau, N, nc = MEASURED["Nrv"], fdm32.Ltau, fdm32.n_sites, fdm32.cb.n_colors
     gen = torch.Generator(device="cpu").manual_seed(20)
     theta = 2.0 * math.pi * torch.rand((Nrv, Ltau, N), generator=gen, dtype=torch.float64)
@@ -445,21 +507,21 @@ def phase_k2_estimator(results):
     plain_ms = cuda_ms(lambda: pcg.pcg_plain(fdm32, pre, bu, tol, maxiter), 1)
     f32_it, bf16_it = pcg_iteration_ops(Ltau, N, nc)
     n_it = int(ik) * bu.shape[0]
-    bound_ms, bound_by = bound(4 * (2 * bu.numel() + Ltau * N) + precond_bytes(Ltau, N) + table_bytes(N, nc, 4),
+    bound_ms, bound_by = bound(4 * (2 * bu.numel() + Ltau * N) + precond_bytes(Ltau, N) + table_bytes(fdm32, 4),
                                {"f32": n_it * f32_it, "bf16": n_it * bf16_it})
-    two = results["pcg"]
-    say(f"K2 estimator refresh ({2 * Nrv}, {Ltau}, {N}) f32, tol {tol:g}: converged kernel {conv_k} plain {conv_p}; "
+    two = results[two]
+    say(f"{tag} ({2 * Nrv}, {Ltau}, {N}) f32, tol {tol:g}: converged kernel {conv_k} plain {conv_p}; "
         f"iters kernel {int(ik)} plain {int(ip)}; true residual kernel {res_k:.3e} plain {res_p:.3e}; per-system "
         f"|x_kernel - x_plain| / |x_plain| max {rel:.3e} (tol {25 * tol:g}: {ok}); kernel "
         f"{ms:.3f} ms per launch, {1e3 * ms / max(int(ik), 1):.2f} us per iteration (2 systems: {two['ms']:.3f} ms, "
         f"{two['iters']} iterations, {1e3 * two['ms'] / max(two['iters'], 1):.2f} us each) plain {plain_ms:.3f} ms; "
         f"bound {bound_ms:.4f} ms by {bound_by}")
     if not (conv_k and conv_p):
-        fail(f"K2 at the estimator's shape did not converge (kernel {conv_k}, plain {conv_p})")
+        fail(f"{tag} did not converge (kernel {conv_k}, plain {conv_p})")
     if not ok:
-        fail("K2 at the estimator's shape: kernel and plain solutions differ beyond the tolerance")
+        fail(f"{tag}: kernel and plain solutions differ beyond the tolerance")
     if not res_k <= max(2 * tol, 2 * res_p):
-        fail(f"K2 at the estimator's shape: true residual {res_k:.3e} exceeds the plain one's")
+        fail(f"{tag}: true residual {res_k:.3e} exceeds the plain one's")
 
 
 def all_counters():
@@ -511,10 +573,9 @@ def phase_main(results, card):
     import math
 
     from smoqyelphqmc_tpu_torch.driver import run_updates
-    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
 
     h = HEADLINE
-    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    geo, tbm, em = model_of(h)
     md, counts = drive_path(lambda: run_updates(tbm, em, headline_config(), N_SWEEPS, device=MAIN_DEVICE),
                             ("mtm_f32", "mtm_f64", "pcg"))
     for k in ("mtm_f32", "mtm_f64", "pcg"):
@@ -536,25 +597,20 @@ def phase_main(results, card):
 
 
 def rounded(v, nd=6):
+    if isinstance(v, dict):
+        return {k: rounded(u, nd) for k, u in v.items()}
     return [rounded(u, nd) for u in v] if isinstance(v, list) else round(v, nd)
 
 
-def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral", complex_chain=False,
-                          fused_force=False):
-    """The same chain on a small model on the GPU (kernels) and the CPU (plain
+def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral", fused_force=False, h=HEADLINE):
+    """The same chain on model h at L on the GPU (kernels) and the CPU (plain
     versions): the accept decisions must match and the fields agree to 1e-4
     relative (the f32 force solves stop at 1e-5 relative in both, with sums in
-    another order, so forces may differ at that level). The model is the
-    honeycomb, or the complex chain of L sites; fused_force takes the W = 1
-    trajectory forces through K4 on the GPU."""
+    another order, so forces may differ at that level); fused_force takes the
+    W = 1 trajectory forces through K4 on the GPU."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
-    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model, holstein_honeycomb_model
 
-    if complex_chain:
-        h = COMPLEX
-        geo, tbm, em = complex_chain_model(L, 1.0, h["phase"], h["mu"], h["Omega"], h["alpha"])
-    else:
-        geo, tbm, em = holstein_honeycomb_model(L, 1.0, 0.6, 0.0)
+    geo, tbm, em = model_of(h, L)
     cfg = SimulationConfig(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner=preconditioner, n_walkers=n_walkers,
                            fused_force=fused_force)
     t0 = time.perf_counter()
@@ -566,7 +622,7 @@ def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral",
     err = float((xg - xc).abs().max() / xc.abs().max())
     same = all(gpu[f"{k}_acceptance_rate"] == cpu[f"{k}_acceptance_rate"] for k in ("reflection", "swap", "hmc"))
     kpm = {d: md.get("kpm_active") for d, md in (("gpu", gpu), ("cpu", cpu))}
-    model = ("complex chain" if complex_chain else "honeycomb") + (", fused_force" if fused_force else "")
+    model = h["name"] + (", fused_force" if fused_force else "")
     say(f"small-model reference ({model} L={L}, N={gpu['n_sites']}, beta={beta}, {preconditioner}, W={n_walkers}): "
         f"GPU vs "
         f"CPU field max rel err {err:.3e}; same acceptance {same}; dH gpu {rounded(gpu['hmc_delta_H'])} "
@@ -635,11 +691,10 @@ def phase_measured(results, card):
     import tempfile
 
     from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
-    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model, holstein_honeycomb_spec
 
     h = HEADLINE
-    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
-    spec = holstein_honeycomb_spec(geo)
+    geo, tbm, em = model_of(h)
+    spec = spec_of(h, geo, tbm)
     cfg = measured_config()
     with tempfile.TemporaryDirectory() as tmp:
         info = SimulationInfo(filepath=tmp, datafolder_prefix="measured", sID=1)
@@ -671,22 +726,25 @@ def phase_measured(results, card):
 class SweepSpy:
     """Records the accept flags of every sweep the driver runs, in the order
     the updates ran (W = 1: `driver.sweep`; W >= 2: `driver.walker_sweep`,
-    one tuple a walker), by wrapping both while the block runs."""
+    one tuple a walker), and each sweep's HMC Delta H (one a walker), by
+    wrapping both while the block runs."""
 
     def __enter__(self):
         from smoqyelphqmc_tpu_torch import driver
 
-        self.flags, self._orig = [], (driver.sweep, driver.walker_sweep)
+        self.flags, self.dH, self._orig = [], [], (driver.sweep, driver.walker_sweep)
         one, walkers = self._orig
 
         def spy_one(*args, **kw):
             state, st = one(*args, **kw)
             self.flags.append(tuple(bool(s.accepted) for s in st))
+            self.dH.append(st.hmc.delta_H)
             return state, st
 
         def spy_walkers(*args, **kw):
             states, st = walkers(*args, **kw)
             self.flags.append(tuple(tuple(bool(u.accepted) for u in ups) for ups in st))
+            self.dH.append([h.delta_H for h in st.hmc])
             return states, st
 
         driver.sweep, driver.walker_sweep = spy_one, spy_walkers
@@ -698,7 +756,7 @@ class SweepSpy:
         driver.sweep, driver.walker_sweep = self._orig
 
 
-def phase_measured_small_reference(L=3, beta=2.0, **kw):
+def phase_measured_small_reference(L=3, beta=2.0, h=HEADLINE, **kw):
     """The measured run (`simulate`, bins in memory) on a small honeycomb on
     the GPU and on the CPU (plain versions): the accept flags of every sweep
     must be equal and the bins agree to 1e-4 of each observable's largest
@@ -707,7 +765,8 @@ def phase_measured_small_reference(L=3, beta=2.0, **kw):
     resumed to the end, must give the uninterrupted run's bins bit for bit.
     `kw` sets config fields (n_walkers and the sampler options); with mu
     tuning and dt targeting the resumed run's final mu and dt must be the
-    uninterrupted run's too."""
+    uninterrupted run's too. h is the model (the Holstein honeycomb with
+    the tutorial set by default) and its measurement set."""
     import dataclasses
     import tempfile
 
@@ -715,10 +774,9 @@ def phase_measured_small_reference(L=3, beta=2.0, **kw):
 
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig
     from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
-    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model, holstein_honeycomb_spec
 
-    geo, tbm, em = holstein_honeycomb_model(L, 1.0, 0.6, 0.0)
-    spec = holstein_honeycomb_spec(geo)
+    geo, tbm, em = model_of(h, L)
+    spec = spec_of(h, geo, tbm)
     cfg = SimulationConfig(**{**dict(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner="spectral"), **MEASURED, **kw})
     W = cfg.n_walkers
     with tempfile.TemporaryDirectory() as tmp:
@@ -752,7 +810,7 @@ def phase_measured_small_reference(L=3, beta=2.0, **kw):
     controls = [k for k in ("final_mu", "final_mu_per_walker", "hmc_dt_final") if k in gmd]
     same_controls = all(rmd.get(k) == gmd[k] for k in controls)
     opts = {k: v for k, v in kw.items()}
-    say(f"measured small reference (honeycomb L={L}, N={2 * L * L}, beta={beta}, Nrv={cfg.Nrv}, {opts}): accept "
+    say(f"measured small reference ({h['name']} L={L}, N={geo.n_sites}, beta={beta}, Nrv={cfg.Nrv}, {opts}): accept "
         f"flags gpu {gflags} cpu {cflags}; bins max rel diff {worst:.3e} (tol 1e-4); measurement iters gpu "
         f"{gmd['measurement_iters']:.2f} cpu {cmd['measurement_iters']:.2f}; "
         + "".join(f"{k} gpu {rounded(gmd[k], 8)} cpu {rounded(cmd[k], 8)}; " for k in controls)
@@ -780,12 +838,11 @@ def phase_measured_walkers(results, card, tag, **kw):
 
     from smoqyelphqmc_tpu_torch import driver
     from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
-    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model, holstein_honeycomb_spec
 
     h = HEADLINE
     W = N_WALKERS
-    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
-    spec = holstein_honeycomb_spec(geo)
+    geo, tbm, em = model_of(h)
+    spec = spec_of(h, geo, tbm)
     cfg = measured_config(n_walkers=W, **kw)
     dts, law = [], driver.dt_law
 
@@ -913,7 +970,7 @@ def phase_k3(results):
     n_it = 2 * sum(iters["cold"])
     plane = W * Ltau * N * 4
     bound_ms, bound_by = bound(2 * 2 * plane + 2 * plane + 2 * plane + 2 * plane + precond_bytes(Ltau, N)
-                               + table_bytes(N, nc, 4),
+                               + table_bytes(fdm32, 4),
                                {"f32": n_it * f32_it + W * epilogue_ops(Ltau, N, nc), "bf16": n_it * bf16_it})
     cold_n, warm_n = max(iters["cold"]), max(iters["warm"])
     say(f"K3 cold solve + planes, W={W}: kernel {ms:.3f} ms plain {plain_ms:.3f} ms; {cold_n} iterations, "
@@ -955,7 +1012,7 @@ def phase_k4(results):
     plain_ms = cuda_ms(lambda: force.force_planes_plain(fdm32, Lam, psi, True), 5)
     Ltau, N, nc = fdm32.Ltau, fdm32.n_sites, fdm32.cb.n_colors
     # psi (2 planes), Lambda and expV in, P1 and P2 out
-    bound_ms, bound_by = bound(6 * Ltau * N * 4 + table_bytes(N, nc, 4), {"f32": epilogue_ops(Ltau, N, nc)})
+    bound_ms, bound_by = bound(6 * Ltau * N * 4 + table_bytes(fdm32, 4), {"f32": epilogue_ops(Ltau, N, nc)})
     shape = force.launch_shape(fdm32, 1)
     stamps = torch.zeros(force.stamp_slots(), dtype=torch.int64, device=dev)
     force.force_planes_cuda(fdm32, Lam, psi, True, stamps=stamps)
@@ -1018,11 +1075,10 @@ def phase_walkers(results, card):
     import math
 
     from smoqyelphqmc_tpu_torch.driver import run_updates
-    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
 
     h = HEADLINE
     W = N_WALKERS
-    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    geo, tbm, em = model_of(h)
     md, counts = drive_path(
         lambda: run_updates(tbm, em, headline_config(n_walkers=W), N_WALKER_SWEEPS, device=MAIN_DEVICE),
         ("mtm_f64", "pcg", "pcg_force"))
@@ -1049,10 +1105,9 @@ def phase_fused_force(results, card):
     import math
 
     from smoqyelphqmc_tpu_torch.driver import run_updates
-    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
 
     h = HEADLINE
-    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    geo, tbm, em = model_of(h)
     md, counts = drive_path(
         lambda: run_updates(tbm, em, headline_config(fused_force=True), N_WALKER_SWEEPS, device=MAIN_DEVICE),
         ("mtm_f32", "mtm_f64", "pcg", "force"))
@@ -1109,7 +1164,7 @@ def phase_kpm_kernel(results, symmetric):
     orders = pre.orders.astype(int)
     C_pad = ops.coefs_re.shape[1]
     n_vec = ure.shape[0]
-    nbytes = 2 * 2 * ure.numel() * 4 + (1 if symmetric else 2) * Ltau * C_pad * 4 + table_bytes(N, nc, 4) \
+    nbytes = 2 * 2 * ure.numel() * 4 + (1 if symmetric else 2) * Ltau * C_pad * 4 + table_bytes(fdm, 4) \
         + N * 4 + 2 * Ltau * 4
     if symmetric:
         ops_f32 = 2 * n_vec * N * int(sum(1 + (o - 1) * (b_flops(nc, True) + 7) for o in orders))
@@ -1147,10 +1202,9 @@ def phase_large_path(results, card, symmetric, n_sweeps):
     import math
 
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
-    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
 
     h = LARGE
-    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    geo, tbm, em = model_of(h)
     cfg = SimulationConfig(beta=h["beta"], dtau=h["dtau"], Nt=h["Nt"], tol=h["tol"], seed=1, mixed_precision=True,
                            force_dtype="float32", preconditioner="auto", symmetric=symmetric)
     name = "kpm_mf" if symmetric else "kpm_mf_asym"
@@ -1172,15 +1226,21 @@ def phase_large_path(results, card, symmetric, n_sweeps):
     if not md["all_converged"] or not all(math.isfinite(d) for d in md["hmc_delta_H"]):
         fail("the large-N path did not converge or has a non-finite Delta H")
 
+def complex_chain(L, Omega, alpha, mu):
+    """The complex chain t e^{i phase} of L sites (phase from COMPLEX)."""
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
+
+    return complex_chain_model(L, 1.0, COMPLEX["phase"], mu, Omega, alpha)
+
+
 def complex_model(device, h=COMPLEX):
     """The complex chain's expanded parameters (seed 0): (tbm, em, tbp, elph)."""
     import numpy as np
 
     from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononParameters
-    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
     from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingParameters
 
-    geo, tbm, em = complex_chain_model(h["L"], 1.0, h["phase"], h["mu"], h["Omega"], h["alpha"])
+    geo, tbm, em = model_of(h)
     rng = np.random.default_rng(0)
     tbp = TightBindingParameters.from_model(tbm, rng, device=device)
     return tbm, em, tbp, ElectronPhononParameters.from_model(h["beta"], h["dtau"], em, tbp, rng, device=device)
@@ -1323,11 +1383,10 @@ def phase_asym_headline(results, card):
     import torch
 
     from smoqyelphqmc_tpu_torch.driver import run_updates
-    from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model
 
     phase_k2(headline_fdm(torch.device("cuda"), symmetric=False), results, key="pcg_asym")
     h = HEADLINE
-    geo, tbm, em = holstein_honeycomb_model(h["L"], h["Omega"], h["alpha"], h["mu"])
+    geo, tbm, em = model_of(h)
     cfg = headline_config(preconditioner="auto", symmetric=False)
     md, counts = drive_path(lambda: run_updates(tbm, em, cfg, 1, device=MAIN_DEVICE), ("mtm_f32", "mtm_f64", "pcg"))
     say(f"asymmetric headline path on {card}: 1 sweep; s/sweep {[round(t, 4) for t in md['sweep_s']]}; "
@@ -1336,6 +1395,174 @@ def phase_asym_headline(results, card):
         f"launches/plain calls {counts}")
     if not md["all_converged"] or not all(math.isfinite(d) for d in md["hmc_delta_H"]):
         fail("the asymmetric headline path did not converge or has a non-finite Delta H")
+
+
+def phase_ssh_kernels(results):
+    """a. K1 (f32, f64) and K2 (cold, warm) on the optical-SSH honeycomb's
+    tables at its initial field (x != 0, so the tau rows of C and S differ:
+    K1's memory form, K2 at tau stride N) against their plain versions at
+    phases 3-4's tolerances, with their times and bounds (the tables' Ltau
+    rows counted); K1 also with its tau blocks forced to T = 2 and to a
+    ragged T = 7 (240 = 34 x 7 + 2); K2 also at the estimator refresh's
+    (20, 240, 288)."""
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops import mtm
+
+    fdm64 = headline_fdm(torch.device("cuda"), h=SSH)
+    C = fdm64.cb.C
+    spread = float((C - C[:, :1]).abs().max())
+    say(f"SSH tables (optical-SSH honeycomb L={SSH['L']}, beta={SSH['beta']}, alpha={SSH['alpha']}, initial field): "
+        f"C, S {tuple(C.shape)}, static_hops {fdm64.static_hops}, max_l |C[:, l] - C[:, 0]| {spread:.3e}")
+    if fdm64.static_hops or not spread > 0:
+        fail("the SSH model's hopping tables do not differ from one tau row to the next")
+    phase_k1(fdm64, results, tag="K1 SSH", names=("mtm_tau_f32", "mtm_tau_f64"))
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    for T in (2, 7):
+        for dtype, tol in ((torch.float32, 2e-6), (torch.float64, 1e-12)):
+            fdm = fdm64.astype(dtype)
+            v = torch.randn((2, fdm.Ltau, fdm.n_sites), generator=gen, dtype=torch.float64).to(fdm.device, dtype)
+            shape = mtm.launch_shape(fdm, 2, tau_rows=T)
+            ref = mtm.mtm_plain(fdm, v)
+            rel = float((mtm.mtm_cuda(fdm, v, tau_rows=T) - ref).abs().max() / ref.abs().max())
+            say(f"K1 SSH {str(dtype).split('.')[-1]} T={T}: max_rel_err {rel:.3e} (tol {tol:g}); form "
+                f"{shape['form']}, grid {shape['grid']}, {shape['smem']} bytes")
+            if shape["form"] != 0 or not rel <= tol:
+                fail(f"K1 on the SSH tables at T={T} ({dtype}): form {shape['form']}, error {rel:.3e} > {tol:g}")
+    phase_k2(fdm64, results, key="pcg_tau")
+    phase_k2_estimator(results, h=SSH, two="pcg_tau")
+    phase_table_forms()
+
+
+def phase_table_forms():
+    """The cost of the tau-table forms alone: the headline Holstein tables
+    compressed to one row against the same values replicated over the Ltau
+    rows (static_hops False: K1's memory form, K2 at tau stride N), the same
+    shape, inputs and iterations; K1 f32 device ms (a CUDA graph of
+    launches; also the memory form on the one-row tables), K2 ms a cold
+    solve."""
+    import dataclasses
+
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops import mtm, pcg
+    from smoqyelphqmc_tpu_torch.ops.spectral_precond import build_spectral
+
+    hol = headline_fdm(torch.device("cuda"))
+    pre = build_spectral(hol)
+    one = hol.astype(torch.float32)
+    rows = dataclasses.replace(hol, static_hops=False).astype(torch.float32)
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    v = torch.randn((2, one.Ltau, one.n_sites), generator=gen, dtype=torch.float64).to("cuda", torch.float32)
+    k1 = {"register form, one row": graph_ms(lambda: mtm.mtm_cuda(one, v), 50),
+          "memory form, one row": graph_ms(lambda: mtm.mtm_cuda(one, v, memory_form=True), 50),
+          "memory form, Ltau rows": graph_ms(lambda: mtm.mtm_cuda(rows, v), 50)}
+    same = torch.equal(mtm.mtm_cuda(one, v, memory_form=True), mtm.mtm_cuda(rows, v))
+    b = (v / torch.linalg.vector_norm(v, dim=(1, 2), keepdim=True)).contiguous()
+    its = [int(pcg.pcg_cuda(f, pre, b, 1e-5, 500)[2]) for f in (one, rows)]
+    k2 = [cuda_ms(lambda f=f: pcg.pcg_cuda(f, pre, b, 1e-5, 500), 5) for f in (one, rows)]
+    say(f"table forms (headline Holstein tables, (2, 240, 288) f32): K1 {rounded(k1, 5)} ms; memory form on one "
+        f"row and on Ltau rows bit-identical {same}; K2 cold solve one row {k2[0]:.3f} ms ({its[0]} iterations), "
+        f"Ltau rows {k2[1]:.3f} ms ({its[1]} iterations)")
+    if not same or its[0] != its[1]:
+        fail("the replicated tau tables change K1's output or K2's iterations")
+
+
+def phase_ssh_measured(results, card, W=1):
+    """b, c. The measured SSH path: `simulate` on the optical-SSH honeycomb
+    at full size with the SSH examples' configuration (radial updates, Nt=24,
+    tol 1e-10 and the package defaults: mixed precision, f32 forces and
+    measurements, 'auto' (spectral at N=288), seed 1) and `basic_spec`,
+    N_therm=2, N_measurements=4, N_bins=2, Nrv=10, at W walkers (walker by
+    walker trajectories, the shared walker-mean refresh); every solve must
+    converge, every Delta H be finite, K1 and K2 launch and K3, K4, the KPM
+    kernels and every plain version not. Returns the launch counts."""
+    import math
+    import tempfile
+
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig
+    from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
+
+    h = SSH
+    geo, tbm, em = model_of(h)
+    spec = spec_of(h, geo, tbm)
+    cfg = SimulationConfig(beta=h["beta"], dtau=h["dtau"], Nt=h["Nt"], tol=h["tol"], seed=1, use_radial_updates=True,
+                           n_walkers=W, **MEASURED)
+    with tempfile.TemporaryDirectory() as tmp:
+        info = SimulationInfo(filepath=tmp, datafolder_prefix=f"ssh_w{W}", sID=1)
+        t0 = time.perf_counter()
+        with SweepSpy() as spy:
+            (bins, md, finished), counts = drive_path(
+                lambda: simulate_in_memory(info, tbm, em, spec, cfg, MAIN_DEVICE), ("mtm_f32", "mtm_f64", "pcg"),
+                only=True)
+        wall = time.perf_counter() - t0
+    check_bins(bins, cfg.N_bins, f"the measured SSH path (W={W})", W)
+    dH = [d for row in spy.dH for d in (row if isinstance(row, list) else [row])]
+    n_meas = md["n_measure_timed"]
+    per_sweep = md["t_measure_s"] / n_meas
+    ssh = {str(k): rounded([float(v) for v in bins[k]["local"]["ssh_energy"][0]], 5) for k in sorted(bins)}
+    say(f"measured SSH path (W={W}) on {card}: simulate optical-SSH honeycomb L={h['L']} beta={h['beta']} "
+        f"N={geo.n_sites} Ltau={round(h['beta'] / h['dtau'])} alpha={h['alpha']} radial, Nt={cfg.Nt}, N_therm={cfg.N_therm} "
+        f"N_measurements={cfg.N_measurements} N_bins={cfg.N_bins} Nrv={cfg.Nrv}; s per measured sweep "
+        f"{per_sweep:.4f}" + (f", walker-measured-sweeps/s {W / per_sweep:.3f}" if W > 1 else "")
+        + f" (first {md['t_first_measured_sweep_s']:.3f}, {n_meas} sweeps {md['t_measure_s']:.3f} s; "
+        f"thermalization {md['t_therm_s']:.3f} s for {md['n_therm_timed']}); estimator refresh "
+        f"{md['t_refresh_s']:.4f} s, share {md['t_refresh_s'] / md['t_measure_s']:.4f}; measurement passes "
+        f"{md['t_measurements_s']:.4f} s, share {md['t_measurements_s'] / md['t_measure_s']:.4f}; acceptance hmc "
+        f"{md['hmc_acceptance_rate']:.3f} refl {md['reflection_acceptance_rate']:.3f} swap "
+        f"{md['swap_acceptance_rate']:.3f} radial {md['radial_acceptance_rate']:.3f}; iters/solve refl "
+        f"{md['reflection_iters']:.2f} swap {md['swap_iters']:.2f} hmc {md['hmc_iters']:.2f} measurement "
+        f"{md['measurement_iters']:.2f}; "
+        + (f"precond_fallback_sweeps {md['precond_fallback_sweeps']}; " if W > 1 else "")
+        + f"dH {rounded(dH, 5)}; ssh_energy per bin {ssh}; all converged {md['all_converged']}; wall {wall:.2f} s; "
+        f"launches/plain calls {counts}")
+    if not (finished and md["all_converged"]):
+        fail(f"the measured SSH path (W={W}) did not finish or converge ({finished}, {md['all_converged']})")
+    if len(dH) != W * (cfg.N_therm + cfg.N_measurements) or not all(math.isfinite(d) for d in dH):
+        fail(f"the measured SSH path (W={W}) has a non-finite Delta H: {dH}")
+    return counts
+
+
+def dispersive_bssh_square(L, Omega, alpha, mu):
+    """The bond-SSH square lattice with one dispersion coupling added (as
+    tests/test_aux.py:44 adds one)."""
+    from smoqyelphqmc_tpu_torch.models.electron_phonon import DispersionCoupling
+    from smoqyelphqmc_tpu_torch.models.library import bssh_square_model
+
+    geo, tbm, em = bssh_square_model(L, Omega, alpha, mu)
+    em.add_dispersion_coupling(DispersionCoupling(phonon_ids=(0, 0), displacement=[1, 0], Omega_mean=0.5))
+    return geo, tbm, em
+
+
+def complex_ssh_chain(L, Omega, alpha, mu):
+    """The chain with a complex SSH constant alpha on real hoppings
+    (tests/test_complex_hoppings.py:242)."""
+    from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononModel, PhononMode, SSHCoupling
+    from smoqyelphqmc_tpu_torch.models.library import chain_geometry
+    from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingModel
+
+    geo, bond = chain_geometry(L)
+    tbm = TightBindingModel(geo, [bond], [1.0], [0.0], mu=mu)
+    em = ElectronPhononModel(geo, tbm)
+    p = em.add_phonon_mode(PhononMode([0.0], Omega))
+    em.add_ssh_coupling(SSHCoupling(phonon_ids=(p, p), bond=bond, alpha_mean=alpha))
+    return geo, tbm, em
+
+
+DISPERSIVE_BSSH = dict(SSH, name="bond-SSH square + dispersion", model="dispersive_bssh_square")
+COMPLEX_SSH = dict(SSH, name="complex-SSH chain", model="complex_ssh_chain", alpha=0.4 + 0.25j, mu=0.1)
+
+
+def phase_ssh_small_references():
+    """d. GPU against CPU on small SSH models: the optical-SSH honeycomb
+    L=3, beta=2 measured at W=1 and W=2, each interrupted and resumed bit
+    for bit; the bond-SSH square L=4 with a dispersion coupling and the
+    complex-SSH chain with 'auto' (the doubled-basis spectral
+    preconditioner), their update paths at W=1."""
+    phase_measured_small_reference(h=SSH, use_radial_updates=True)
+    phase_measured_small_reference(h=SSH, n_walkers=2, use_radial_updates=True)
+    phase_small_reference(L=4, h=DISPERSIVE_BSSH)
+    phase_small_reference(L=4, beta=0.6, preconditioner="auto", h=COMPLEX_SSH)
 
 
 def main() -> None:
@@ -1403,14 +1630,20 @@ def main() -> None:
     phase_cplx_path(results, card, symmetric=True, n_sweeps=1, preconditioner="auto")
     phase_cplx_path(results, card, symmetric=False, n_sweeps=1, preconditioner="auto")
     phase_asym_headline(results, card)
-    phase_small_reference(L=COMPLEX["L"], beta=1.0, preconditioner="kpm", complex_chain=True)
+    phase_small_reference(L=COMPLEX["L"], beta=1.0, preconditioner="kpm", h=COMPLEX)
+    phase_ssh_kernels(results)
+    counts = phase_ssh_measured(results, card, W=1)
+    results["mtm_tau_f32"]["launches"] = counts["mtm_f32"][0]
+    results["pcg_tau"]["launches"] = counts["pcg"][0]
+    phase_ssh_measured(results, card, W=N_WALKERS)
+    phase_ssh_small_references()
     # K8's entry carries its symmetric instantiation's times (the asymmetric
     # one's are on its own line above), the larger error of the two, and the
     # launches of both complex KPM paths
     results["kpm_mf_cplx"]["max_abs_err"] = max(results[k]["max_abs_err"] for k in ("kpm_mf_cplx", "kpm_mf_cplx_asym"))
     kernels = []
     for k in ("mtm_f32", "mtm_f64", "pcg", "pcg_force", "force", "mtm_irregular_f32", "kpm_mf", "kpm_mf_asym",
-              "kpm_mf_cplx"):
+              "kpm_mf_cplx", "mtm_tau_f32", "pcg_tau"):
         r = results[k]
         # no single PyTorch call computes any of these functions from their
         # operands (checkerboard tables, a whole preconditioned solve, a

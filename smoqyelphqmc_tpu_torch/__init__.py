@@ -42,10 +42,12 @@ DEFAULT_DTYPE = torch.float64
 
 from .lattice import Bond, Lattice, ModelGeometry, UnitCell  # noqa: E402
 from .models.electron_phonon import (  # noqa: E402
+    DispersionCoupling,
     ElectronPhononModel,
     ElectronPhononParameters,
     HolsteinCoupling,
     PhononMode,
+    SSHCoupling,
 )
 from .models.tight_binding import TightBindingModel, TightBindingParameters  # noqa: E402
 
@@ -61,6 +63,8 @@ __all__ = [
     "TightBindingParameters",
     "PhononMode",
     "HolsteinCoupling",
+    "SSHCoupling",
+    "DispersionCoupling",
     "ElectronPhononModel",
     "ElectronPhononParameters",
 ]

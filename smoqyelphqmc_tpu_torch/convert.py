@@ -50,7 +50,8 @@ def tight_binding_parameters(tbp, device="cuda") -> TightBindingParameters:
 
 
 def path_integral(fpi, device="cuda") -> FermionPathIntegral:
-    """A fermion path integral: V, t and, for complex hoppings, t_im."""
+    """A fermion path integral: V, t (tau-dependent with SSH couplings,
+    static_hops False) and, for complex hoppings, t_im."""
     return FermionPathIntegral(V=_t(fpi.V, device), t=_t(fpi.t, device), dtau=float(fpi.dtau), Ltau=int(fpi.Ltau),
                                n_sites=int(fpi.n_sites), static_hops=bool(fpi.static_hops),
                                t_im=_t_opt(fpi.t_im, device))
@@ -79,9 +80,13 @@ def fermion_det_matrix(fdm, device="cuda") -> FermionDetMatrix:
 
 
 def electron_phonon_parameters(elph, device="cuda", x=None) -> ElectronPhononParameters:
-    """Holstein-model parameters; `x` (default elph.x) becomes the field."""
-    if elph.n_ssh or elph.n_dispersion:
-        raise NotImplementedError("SSH and dispersion couplings are not ported yet (ROADMAP Queue 1, item 15)")
+    """Electron-phonon parameters: Holstein, SSH (complex constants' `*_im`
+    parts included) and dispersion couplings; `x` (default elph.x) becomes
+    the field."""
+    def idx(a, shape=(0,)):
+        a = np.asarray(a, dtype=np.int32)
+        return a if a.size else np.zeros(shape, dtype=np.int32)
+
     return ElectronPhononParameters(
         x=phonon_field(elph.x if x is None else x, device),
         Omega=_t(elph.Omega, device),
@@ -91,14 +96,27 @@ def electron_phonon_parameters(elph, device="cuda", x=None) -> ElectronPhononPar
         hol_alpha2=_t(elph.hol_alpha2, device),
         hol_alpha3=_t(elph.hol_alpha3, device),
         hol_alpha4=_t(elph.hol_alpha4, device),
+        ssh_alpha=_t(elph.ssh_alpha, device),
+        ssh_alpha2=_t(elph.ssh_alpha2, device),
+        ssh_alpha3=_t(elph.ssh_alpha3, device),
+        ssh_alpha4=_t(elph.ssh_alpha4, device),
+        ssh_alpha_im=_t_opt(elph.ssh_alpha_im, device),
+        ssh_alpha2_im=_t_opt(elph.ssh_alpha2_im, device),
+        ssh_alpha3_im=_t_opt(elph.ssh_alpha3_im, device),
+        ssh_alpha4_im=_t_opt(elph.ssh_alpha4_im, device),
+        disp_Omega=_t(elph.disp_Omega, device),
+        disp_Omega4=_t(elph.disp_Omega4, device),
         beta=float(elph.beta),
         dtau=float(elph.dtau),
         Ltau=int(elph.Ltau),
         n_cells=int(elph.n_cells),
         nphonon=int(elph.nphonon),
-        hol_to_phonon=np.asarray(elph.hol_to_phonon, dtype=np.int32),
-        hol_to_site=np.asarray(elph.hol_to_site, dtype=np.int32),
+        hol_to_phonon=idx(elph.hol_to_phonon),
+        hol_to_site=idx(elph.hol_to_site),
         hol_ph_sym=np.asarray(elph.hol_ph_sym, dtype=bool),
+        ssh_to_phonon=idx(elph.ssh_to_phonon, (2, 0)),
+        ssh_to_hop=idx(elph.ssh_to_hop),
+        disp_to_phonon=idx(elph.disp_to_phonon, (2, 0)),
         frozen_mask=np.asarray(elph.frozen_mask, dtype=bool),
     )
 

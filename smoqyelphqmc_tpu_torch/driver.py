@@ -34,7 +34,8 @@ iteration metadata (walker-averaged), the KPM preconditioner's diagnostics
 when the chain carries one, and the per-update flags a caller needs to check
 the run. A KPM preconditioner ('kpm', or 'auto' above 4000 sites) runs at
 W = 1: its initial Lanczos start vector is the first draw of the chain's
-generator (length 2N for complex hoppings). Complex hoppings run at W = 1.
+generator (length 2N for complex hoppings). Complex hoppings, and complex SSH
+coupling constants, run at W = 1.
 """
 
 from __future__ import annotations
@@ -75,7 +76,7 @@ from .parallel.walkers import (
     walker_sweep,
 )
 from .tree import tree_map
-from .updates.context import QMCContext, QMCState, initialize_qmc, make_fdm, with_mu
+from .updates.context import QMCContext, QMCState, complex_hops, initialize_qmc, make_fdm, with_mu
 from .updates.global_updates import radial_update, reflection_update, swap_update
 from .updates.hmc import HMCParams, hmc_update
 from .updates.mu_tuner import MuTunerState, init_mu_tuner, mu_tuner_update
@@ -144,15 +145,15 @@ def _check_ported(cfg: SimulationConfig) -> None:
                                       f"(ROADMAP Queue 1, item {item})")
 
 
-def _check_walker_path(cfg: SimulationConfig, tbp: TightBindingParameters) -> None:
+def _check_walker_path(cfg: SimulationConfig, tbp: TightBindingParameters, elph: ElectronPhononParameters) -> None:
     """Raise for a walker batch whose code is not ported yet."""
     kind = resolve_kind(cfg.preconditioner or "auto", tbp.n_sites) if cfg.use_preconditioner else None
     if kind == "kpm" and cfg.n_walkers > 1:
         raise NotImplementedError("the walker path with a KPM preconditioner is not ported yet "
                                   "(ROADMAP Queue 1, item 20)")
-    if tbp.t0_im is not None and cfg.n_walkers > 1:
-        raise NotImplementedError("the walker path with complex hoppings is not ported yet "
-                                  "(ROADMAP Queue 1, item 21)")
+    if complex_hops(tbp, elph) and cfg.n_walkers > 1:
+        raise NotImplementedError("the walker path with complex hoppings (or complex SSH constants) is not "
+                                  "ported yet (ROADMAP Queue 1, item 21)")
 
 
 def walker_seed(seed: int, w: int) -> int:
@@ -252,7 +253,7 @@ def _init_chain(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg
     gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
     v0 = None
     if kind == "kpm":  # the doubled (re, im) basis for complex hoppings
-        v0 = torch.randn((2 * tbp.n_sites if tbp.t0_im is not None else tbp.n_sites,), generator=gen,
+        v0 = torch.randn((2 * tbp.n_sites if complex_hops(tbp, elph) else tbp.n_sites,), generator=gen,
                          dtype=torch.float64)
     t0 = time.perf_counter()
     ctx, state = initialize_qmc(
@@ -444,7 +445,7 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     _check_ported(cfg)
     if cfg.target_density is not None:
         raise ValueError("SimulationConfig.target_density tunes mu from measurements: use simulate / run_simulation")
-    _check_walker_path(cfg, tbp)
+    _check_walker_path(cfg, tbp, elph)
     device = elph.device
     gen, ctx, state, t_init = _init_chain(tbp, elph, cfg)
     params = _hmc_params(cfg)
@@ -552,7 +553,7 @@ def simulate(
     geo = spec.geometry
     model_summary(sim_info, cfg.beta, cfg.dtau, geo, tight_binding_model, (electron_phonon_model,))
     tbp, elph = _expand(tight_binding_model, electron_phonon_model, cfg, device)
-    _check_walker_path(cfg, tbp)
+    _check_walker_path(cfg, tbp, elph)
     gen, ctx, state, _ = _init_chain(tbp, elph, cfg)
     est = build_greens_estimator(elph.Ltau, geo.n_orbitals, geo.L, Nrv=cfg.Nrv, dtype=cfg.measurement_dtype,
                                  device=device)

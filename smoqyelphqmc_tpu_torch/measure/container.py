@@ -44,6 +44,7 @@ from .correlations import (
 from .greens_estimator import GreensEstimator
 from .local_measurements import (
     measure_bare_hopping_energy,
+    measure_dispersion_energy,
     measure_holstein_energy,
     measure_hopping_amplitude,
     measure_hopping_energy,
@@ -52,6 +53,7 @@ from .local_measurements import (
     measure_phonon_kinetic_energy,
     measure_phonon_position_moment,
     measure_phonon_potential_energy,
+    measure_ssh_energy,
 )
 from .scalar import measure_double_occ, measure_n, measure_Nsqrd
 
@@ -314,6 +316,15 @@ def make_measurements(ctx: QMCContext, spec: MeasurementSpec, est: GreensEstimat
         local["holstein_energy_up"] = (re, im)
         local["holstein_energy_dn"] = (re, im)
         local["holstein_energy"] = (2 * re, 2 * im)
+    nssh = elph.n_ssh // elph.n_cells if elph.n_cells else 0
+    if nssh:
+        re, im = stack([measure_ssh_energy(est, elph, tbp, x, s) for s in range(nssh)])
+        local["ssh_energy_up"] = (re, im)
+        local["ssh_energy_dn"] = (re, im)
+        local["ssh_energy"] = (2 * re, 2 * im)
+    ndisp = elph.n_dispersion // elph.n_cells if elph.n_cells else 0
+    if ndisp:
+        local["dispersion_energy"] = stack([measure_dispersion_energy(elph, x, d) for d in range(ndisp)])
 
     cache: Dict = {}  # pass-wide transform cache
     corr = {name: _pair(_measure_one_correlation(ctx, spec, est, x, fpi, req, cache=cache))

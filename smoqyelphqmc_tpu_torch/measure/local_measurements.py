@@ -1,12 +1,12 @@
-"""Local (per-unit-cell-averaged) measurements: tight-binding and Holstein
-energies, phonon moments.
+"""Local (per-unit-cell-averaged) measurements: tight-binding, Holstein, SSH
+and dispersion energies, phonon moments.
 
-Port of the JAX package's measure/local_measurements.py for the couplings the
-port has. Estimator-based results are complex 0-dim tensors (the JAX package
-returns (re, im) pairs); the products with the float64 model tables promote
-them to complex128, as in the JAX package. Phonon moments are real float64.
-The SSH and dispersion energies wait for those couplings (ROADMAP Queue 1,
-item 15)."""
+Port of the JAX package's measure/local_measurements.py. Estimator-based
+results are complex 0-dim tensors (the JAX package returns (re, im) pairs);
+the products with the float64 model tables promote them to complex128, as in
+the JAX package. Phonon moments and the dispersion energy are real float64.
+The fields x are one walker's (n_phonon, Ltau), the path integral's t one
+walker's (Ltau, n_hops)."""
 
 from __future__ import annotations
 
@@ -139,9 +139,39 @@ def measure_holstein_energy(est: GreensEstimator, elph: ElectronPhononParameters
     return torch.sum(even * n + odd * (n - shift)) / (nc * est.Ltau)
 
 
-def measure_ssh_energy(*args, **kwargs):
-    raise NotImplementedError("SSH couplings are not ported yet (ROADMAP Queue 1, item 15)")
+def measure_ssh_energy(est: GreensEstimator, elph: ElectronPhononParameters, tbp: TightBindingParameters,
+                       x: torch.Tensor, ssh_id: int) -> torch.Tensor:
+    """Single-spin SSH coupling energy of one coupling type:
+    <c G(i, f) + conj(c) G(f, i)> with c = sum_k alpha_k (x_f - x_i)^k
+    (complex for complex coupling constants)."""
+    nc = elph.n_cells
+    sl = slice(ssh_id * nc, (ssh_id + 1) * nc)
+    hops = elph.ssh_to_hop[sl]
+    dev = est.GR.device
+    s_i = torch.as_tensor(tbp.neighbor_table[0, hops], dtype=torch.long, device=dev)
+    s_f = torch.as_tensor(tbp.neighbor_table[1, hops], dtype=torch.long, device=dev)
+    dx = x[elph.ssh_to_phonon_t[1, sl], :] - x[elph.ssh_to_phonon_t[0, sl], :]  # (Nc, Ltau)
+
+    def poly(a1, a2, a3, a4):
+        return a1[sl][:, None] * dx + a2[sl][:, None] * dx**2 + a3[sl][:, None] * dx**3 + a4[sl][:, None] * dx**4
+
+    GR, Rc = _fields(est)
+    hf = -(GR[..., s_i] * Rc[..., s_f]).mean(dim=0).T  # (Nc, Ltau)
+    hr = -(GR[..., s_f] * Rc[..., s_i]).mean(dim=0).T
+    e = torch.sum(poly(elph.ssh_alpha, elph.ssh_alpha2, elph.ssh_alpha3, elph.ssh_alpha4) * (hf + hr))
+    if elph.complex_ssh:
+        c_im = poly(elph.ssh_alpha_im, elph.ssh_alpha2_im, elph.ssh_alpha3_im, elph.ssh_alpha4_im)
+        e = e + torch.sum(1j * c_im * (hf - hr))
+    return e / (nc * est.Ltau)
 
 
-def measure_dispersion_energy(*args, **kwargs):
-    raise NotImplementedError("dispersion couplings are not ported yet (ROADMAP Queue 1, item 15)")
+def measure_dispersion_energy(elph: ElectronPhononParameters, x: torch.Tensor, dispersion_id: int) -> torch.Tensor:
+    """<(1/2) Mr Omega_d^2 (dx)^2 + Omega4_d (dx)^4> of one dispersive coupling type."""
+    from ..ops.bosonic import _reduced_mass
+
+    nc = elph.n_cells
+    sl = slice(dispersion_id * nc, (dispersion_id + 1) * nc)
+    mr = _reduced_mass(elph)[sl]
+    dxp = x[elph.disp_to_phonon_t[1, sl], :] - x[elph.disp_to_phonon_t[0, sl], :]
+    u = 0.5 * mr[:, None] * elph.disp_Omega[sl][:, None] ** 2 * dxp**2 + elph.disp_Omega4[sl][:, None] * dxp**4
+    return torch.mean(torch.sum(u, dim=0) / nc)

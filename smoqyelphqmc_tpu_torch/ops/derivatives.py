@@ -1,7 +1,12 @@
-"""Fermion-matrix derivative forces, Holstein couplings: force[p, l] +=
-nu * Re <u | dM/dx_{p,l} | v> (port of the Holstein parts of
-the JAX package's ops/derivatives.py). The SSH color walk waits (ROADMAP
-Queue 1, item 15).
+"""Fermion-matrix derivative forces: force[p, l] += nu * Re <u | dM/dx_{p,l} | v>
+(port of the JAX package's ops/derivatives.py).
+
+The derivative of the checkerboard-factorized M is never formed: the walk
+goes through the checkerboard colors, moving u' and v' with forward and
+inverse color applications, so that each factor's derivative is taken in
+its own basis. A color's SSH (hopping-derivative) terms are one gather,
+elementwise products and a scatter-add over the couplings of that color; the
+Holstein (potential-derivative) term is one pass.
 
 u, v carry a leading complex-channel axis (2, Ltau, N); with real couplings
 Re <u|A|v> is the channel sum of elementwise products. The force from the
@@ -11,6 +16,7 @@ leading walker axis."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -21,18 +27,130 @@ from .fermion_det import FermionDetMatrix, boundary_sign
 
 
 @dataclasses.dataclass(frozen=True)
+class SSHColorGroup:
+    """The SSH couplings whose hop lies in one checkerboard color, as long
+    tensors on the parameters' device: coupling, hop, the hop's two sites,
+    the two phonons, and the finite-mass masks of the phonons (float64;
+    frozen phonons take no force)."""
+
+    idx: torch.Tensor
+    hop: torch.Tensor
+    site_i: torch.Tensor
+    site_j: torch.Tensor
+    phonon_i: torch.Tensor
+    phonon_f: torch.Tensor
+    finite_i: torch.Tensor
+    finite_f: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
 class ForcePlan:
-    """Finite-mass mask of the Holstein couplings (frozen phonons take no force)."""
+    """Static grouping of the SSH couplings by checkerboard color (one group
+    a color, empty without SSH couplings) and the finite-mass mask of the
+    Holstein couplings."""
 
     hol_finite: np.ndarray  # (n_holstein,) float64
+    ssh_groups: Tuple[SSHColorGroup, ...] = ()
 
 
 def build_force_plan(elph: ElectronPhononParameters, structure: CheckerboardStructure) -> ForcePlan:
-    if elph.n_ssh:
-        raise NotImplementedError("SSH forces are not ported yet (ROADMAP Queue 1, item 15)")
     frozen = elph.frozen_mask
     hol_finite = (~frozen[elph.hol_to_phonon]).astype(np.float64) if elph.n_holstein else np.zeros(0)
-    return ForcePlan(hol_finite=hol_finite)
+    groups = []
+    if elph.n_ssh:
+        color_of_hop = np.zeros(structure.n_hops, dtype=np.int64)
+        for c, (start, stop) in enumerate(structure.color_slices):
+            color_of_hop[structure.perm[start:stop]] = c
+        dev = elph.device
+
+        def long(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+        for c in range(structure.n_colors):
+            idx = np.where(color_of_hop[elph.ssh_to_hop] == c)[0]
+            hops = elph.ssh_to_hop[idx]
+            p_i, p_f = elph.ssh_to_phonon[0, idx], elph.ssh_to_phonon[1, idx]
+            groups.append(SSHColorGroup(
+                idx=long(idx), hop=long(hops),
+                site_i=long(structure.neighbor_table[0, hops]), site_j=long(structure.neighbor_table[1, hops]),
+                phonon_i=long(p_i), phonon_f=long(p_f),
+                finite_i=torch.as_tensor((~frozen[p_i]).astype(np.float64), device=dev),
+                finite_f=torch.as_tensor((~frozen[p_f]).astype(np.float64), device=dev),
+            ))
+    return ForcePlan(hol_finite=hol_finite, ssh_groups=tuple(groups))
+
+
+def _add_ssh_color_force(
+    force: torch.Tensor,
+    nu: float,
+    up: torch.Tensor,
+    vp: torch.Tensor,
+    fdm: FermionDetMatrix,
+    elph: ElectronPhononParameters,
+    x: torch.Tensor,
+    plan: ForcePlan,
+    dtau_eff: float,
+    color: int,
+) -> torch.Tensor:
+    """The SSH kinetic-derivative term of one checkerboard color.
+
+    Real hoppings: the inserted operator is dE_c E_c^{-1} = dtau_eff (dt/dx)
+    H0 (H0 the off-diagonal ones). Complex hoppings (complex t0 or complex
+    SSH constants): dK_c does not commute with K_c inside a 2x2 hop block,
+    so the exact block derivative is used: with t = |t| e^{i theta},
+    t_hat = t/|t|, c = cosh(dtau_eff |t|), s = sinh(dtau_eff |t|),
+
+      dE E^{-1} = dtau_eff |t|' H + i theta' (s c G + s^2 Z),
+      H = [[0, conj(t_hat)], [t_hat, 0]],  G = [[0, -conj(t_hat)], [t_hat, 0]],
+      Z = diag(+1_i, -1_j),   |t|' = Re(conj(t_hat) dt/dx),
+      theta' = Im(conj(t_hat) dt/dx) / |t|."""
+    grp = plan.ssh_groups[color]
+    if grp.idx.numel() == 0:
+        return force
+    i, j, p, pf, idx = grp.site_i, grp.site_j, grp.phonon_i, grp.phonon_f, grp.idx
+    dx = x[pf, :] - x[p, :]  # (n_c, Ltau)
+
+    def dpoly(a1, a2, a3, a4):
+        """d(coupling polynomial)/d(dx) = -dt/dx."""
+        return (a1[idx][:, None] + 2.0 * a2[idx][:, None] * dx + 3.0 * a3[idx][:, None] * dx**2
+                + 4.0 * a4[idx][:, None] * dx**3)
+
+    g_re = dpoly(elph.ssh_alpha, elph.ssh_alpha2, elph.ssh_alpha3, elph.ssh_alpha4)
+    if fdm.sinh_hop_im is None:
+        prod = torch.sum(up[..., j] * vp[..., i] + up[..., i] * vp[..., j], dim=0)  # (Ltau, n_c)
+        val = nu * dtau_eff * g_re * prod.T
+    else:
+        g_im = (dpoly(elph.ssh_alpha_im, elph.ssh_alpha2_im, elph.ssh_alpha3_im, elph.ssh_alpha4_im)
+                if elph.complex_ssh else torch.zeros_like(g_re))
+        hops = grp.hop
+        sh_re = fdm.sinh_hop[:, hops].T  # (n_c, Ltau)
+        sh_im = fdm.sinh_hop_im[:, hops].T
+        c = fdm.cosh_hop[:, hops].T
+        s = torch.sqrt(sh_re**2 + sh_im**2)
+        s_safe = torch.where(s > 0, s, torch.ones_like(s))
+        a_re = sh_re / s_safe  # t_hat (1 where the hop vanishes)
+        a_im = -sh_im / s_safe
+        abs_t = torch.asinh(s) / dtau_eff
+        abs_t_safe = torch.where(abs_t > 0, abs_t, torch.ones_like(abs_t))
+        dabs = -(a_re * g_re + a_im * g_im)
+        dtheta = -(a_re * g_im - a_im * g_re) / abs_t_safe
+        dtheta = torch.where(abs_t > 0, dtheta, torch.zeros_like(dtheta))
+        u_re, u_im, v_re, v_im = up[0], up[1], vp[0], vp[1]
+
+        def cprod(a, b):  # conj(u_a) v_b as (re, im), (n_c, Ltau)
+            return ((u_re[..., a] * v_re[..., b] + u_im[..., a] * v_im[..., b]).T,
+                    (u_re[..., a] * v_im[..., b] - u_im[..., a] * v_re[..., b]).T)
+
+        Pji_re, Pji_im = cprod(j, i)
+        Pij_re, Pij_im = cprod(i, j)
+        _, Dii_im = cprod(i, i)
+        _, Djj_im = cprod(j, j)
+        term1 = dtau_eff * dabs * (a_re * (Pji_re + Pij_re) - a_im * (Pji_im - Pij_im))
+        term2 = -dtheta * s * c * (a_re * (Pji_im - Pij_im) + a_im * (Pji_re + Pij_re))
+        term3 = -dtheta * s**2 * (Dii_im - Djj_im)
+        val = -nu * (term1 + term2 + term3)
+    force = force.index_add(0, p, -val * grp.finite_i.to(val.dtype)[:, None])
+    return force.index_add(0, pf, val * grp.finite_f.to(val.dtype)[:, None])
 
 
 def _add_holstein_V_force(
@@ -71,19 +189,44 @@ def add_M_derivative_force(
     x: torch.Tensor,
     plan: ForcePlan,
 ) -> torch.Tensor:
-    """force += nu * Re <u | dM/dx | v> for Holstein couplings (both
-    factorizations). u, v: (2, Ltau, N); force: (n_phonon, Ltau)."""
-    if elph.n_ssh:
-        raise NotImplementedError("SSH forces are not ported yet (ROADMAP Queue 1, item 15)")
+    """force += nu * Re <u | dM/dx | v> (both factorizations). u, v: (2,
+    Ltau, N); force: (n_phonon, Ltau)."""
     cb = fdm.cb
+    n_colors = cb.n_colors
+    dtau = elph.dtau
+    # v' = B_l (+-v[l-1]): the tau-shifted, sign-fixed column the derivative acts on
     vp = torch.roll(v, 1, dims=-2) * boundary_sign(fdm.Ltau, True, v.dtype, v.device)
     vp = fdm.apply_B(vp)
     up = u
+
+    def walk(force, up, vp, colors, dtau_eff):
+        for color in colors:
+            force = _add_ssh_color_force(force, -nu, up, vp, fdm, elph, x, plan, dtau_eff, color)
+            up = cb.apply_color(up, color)
+            vp = cb.apply_color(vp, color, inverse=True)
+        return force, up, vp
+
     if fdm.symmetric:
-        up = cb.apply(up, transpose=True)
-        vp = cb.apply(vp, inverse=True)
-    if elph.n_holstein > 0:
-        force = _add_holstein_V_force(force, -nu, up, vp, elph, x, plan)
+        # the left factor CB: walk the colors in reverse (u takes CB^dag, v
+        # peels CB with the plain inverse)
+        if elph.n_ssh > 0:
+            force, up, vp = walk(force, up, vp, reversed(range(n_colors)), dtau / 2)
+        else:
+            up = cb.apply(up, transpose=True)
+            vp = cb.apply(vp, inverse=True)
+        if elph.n_holstein > 0:
+            force = _add_holstein_V_force(force, -nu, up, vp, elph, x, plan)
+        if elph.n_ssh > 0:  # the right factor CB^T: walk the colors forward
+            up = up * fdm.exp_nV
+            vp = vp / fdm.exp_nV
+            force, _, _ = walk(force, up, vp, range(n_colors), dtau / 2)
+    else:  # B = exp(-dtau V) CB: the potential term, then the kinetic walk
+        if elph.n_holstein > 0:
+            force = _add_holstein_V_force(force, -nu, up, vp, elph, x, plan)
+        if elph.n_ssh > 0:
+            up = up * fdm.exp_nV
+            vp = vp / fdm.exp_nV
+            force, _, _ = walk(force, up, vp, reversed(range(n_colors)), dtau)
     return force
 
 

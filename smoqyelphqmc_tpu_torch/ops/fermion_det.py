@@ -56,8 +56,10 @@ class FermionDetMatrix:
     """Matrix-free M for the current field.
 
     exp_nV: (Ltau, N) exp(-dtau V); cb: checkerboard factors at dtau/2 (sym) or
-    dtau (asym); cosh_hop / sinh_hop: (Ltau, n_hops) per-hop factors;
-    sinh_hop_im: their imaginary parts for complex hoppings (else None)."""
+    dtau (asym); cosh_hop / sinh_hop: (Ltau, n_hops) per-hop factors, whose
+    rows differ with SSH couplings (static_hops False); sinh_hop_im: their
+    imaginary parts for complex hoppings (else None). A walker batch
+    (updates.context.make_fdm) adds leading walker axes."""
 
     exp_nV: torch.Tensor
     cb: CheckerboardOp
@@ -166,9 +168,10 @@ class FermionDetMatrix:
 
     def averaged_factors(self):
         """tau-averaged (exp_nV, cosh_hop, sinh_hop, sinh_hop_im): the Bbar
-        ingredients (sinh_hop_im None for real hoppings)."""
-        return (self.exp_nV.mean(dim=0), self.cosh_hop.mean(dim=0), self.sinh_hop.mean(dim=0),
-                _maybe(self.sinh_hop_im, lambda t: t.mean(dim=0)))
+        ingredients (sinh_hop_im None for real hoppings). The mean runs over
+        the tau axis alone (-2), so leading walker axes stay."""
+        return (self.exp_nV.mean(dim=-2), self.cosh_hop.mean(dim=-2), self.sinh_hop.mean(dim=-2),
+                _maybe(self.sinh_hop_im, lambda t: t.mean(dim=-2)))
 
 
 def solve_MtM(

@@ -102,7 +102,8 @@ def fermionic_action_and_force(
     trajectory force path; Metropolis exactness rests on the f64 endpoint
     actions).
 
-    For an f32, symmetric, real-hopping evaluation, fused_step=True runs the
+    For an f32, symmetric, real-hopping evaluation without SSH couplings,
+    fused_step=True runs the
     solve and the force planes as kernel K3 (spectral preconditioner; Phi, x
     and the fermion matrix may then carry a leading walker axis, and the
     stats are per walker) and fused_force=True runs the K2 solve and then
@@ -117,9 +118,11 @@ def fermionic_action_and_force(
         if warm_start is not None:
             warm_start = warm_start.to(dt)
     mixed = mixed and Phi.dtype == torch.float64
-    # the planes of K3 / K4 need f32, the symmetric factorization and real
-    # hoppings (the JAX package gates K4 so, pallas_fused.py:1031)
-    planes_apply = Phi.dtype == torch.float32 and fdm.symmetric and not fdm.complex_hops
+    # the planes of K3 / K4 are the Holstein force: they need f32, the
+    # symmetric factorization, real hoppings and no SSH couplings (the JAX
+    # package gates K3 and K4 so, ops/pff.py:157,196, pallas_fused.py:1031)
+    planes_apply = (Phi.dtype == torch.float32 and fdm.symmetric and not fdm.complex_hops
+                    and elph.n_ssh == 0)
     want_p2 = bool(np.any(elph.hol_ph_sym))
     if fused_step and planes_apply and isinstance(precond, SpectralPreconditioner):
         Lam = build_lambda(elph, x, fdm.n_sites)

@@ -28,6 +28,7 @@ import torch
 
 from ..measure.container import make_measurements
 from ..measure.greens_estimator import EstimatorUpdate, GreensEstimator, draw_theta, update_greens_estimator
+from ..ops.checkerboard import build_checkerboard_op
 from ..ops.preconditioner import refresh_preconditioner
 from ..updates.context import QMCContext, QMCState, make_fdm, with_mu
 from ..updates.global_updates import (
@@ -108,17 +109,29 @@ def init_walker_states(ctx: QMCContext, base_state: QMCState, noise: torch.Tenso
     return WalkerStates(x=x, precond=[base_state.precond] * x.shape[0])
 
 
+def walker_mean_fdm(fdm):
+    """The walker mean of a walker batch's fermion matrix (make_fdm of a
+    (W, n_phonon, Ltau) field): every factor averaged over the walkers,
+    exp_nV, and with SSH couplings cosh_hop, sinh_hop and sinh_hop_im (the
+    checkerboard planes rebuilt from the means), as the JAX package averages
+    every leaf (parallel/walkers.py:79)."""
+    mean = dataclasses.replace(fdm, exp_nV=fdm.exp_nV.mean(dim=0)[0])
+    if not fdm.static_hops:
+        cosh, sinh = fdm.cosh_hop.mean(dim=0), fdm.sinh_hop.mean(dim=0)
+        sinh_im = None if fdm.sinh_hop_im is None else fdm.sinh_hop_im.mean(dim=0)
+        mean = dataclasses.replace(mean, cosh_hop=cosh, sinh_hop=sinh, sinh_hop_im=sinh_im,
+                                   cb=build_checkerboard_op(fdm.structure, cosh, sinh, sinh_im))
+    return mean
+
+
 def shared_precond_refresh(ctx: QMCContext, states: WalkerStates) -> WalkerStates:
     """Refresh the preconditioner once from the walker-mean fermion matrix
-    (the mean of the walkers' exp(-dtau V) planes at the context's mu: the
-    walker sweep passes the walker-mean mu) and give it to every walker.
-    Preconditioner quality moves only iteration counts, never the sampled
-    distribution."""
+    (`walker_mean_fdm`, at the context's mu: the walker sweep passes the
+    walker-mean mu) and give it to every walker. Preconditioner quality moves
+    only iteration counts, never the sampled distribution."""
     if states.precond[0] is None:
         return states
-    fdm = make_fdm(ctx, states.x)
-    fdm_mean = dataclasses.replace(fdm, exp_nV=fdm.exp_nV.mean(dim=0)[0])
-    pre = refresh_preconditioner(states.precond[0], fdm_mean)
+    pre = refresh_preconditioner(states.precond[0], walker_mean_fdm(make_fdm(ctx, states.x)))
     return WalkerStates(x=states.x, precond=[pre] * states.n_walkers)
 
 

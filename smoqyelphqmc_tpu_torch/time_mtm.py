@@ -53,11 +53,14 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
 
 
-def mtm_bound(n_sys, Ltau, N, n_colors, es):
-    """(ms, by): v in and out once, expV and the single-row tables read once;
-    two symmetric B applications and four multiply-adds a site of each row."""
+def mtm_bound(fdm, n_sys, es):
+    """(ms, by): v in and out once, expV and the hopping data read once (each
+    hop's cosh and sinh, one row or Ltau rows, and its two int32 sites); two
+    symmetric B applications and four multiply-adds a site of each row."""
+    Ltau, N, n_colors = fdm.Ltau, fdm.n_sites, fdm.cb.n_colors
     ops = n_sys * Ltau * N * (2 * (2 * 3 * n_colors + 1) + 4)
-    nbytes = es * (2 * n_sys * Ltau * N + Ltau * N) + n_colors * N * (2 * es + 4)
+    rows = 1 if fdm.static_hops else Ltau
+    nbytes = es * (2 * n_sys * Ltau * N + Ltau * N) + fdm.structure.n_hops * (2 * es * rows + 2 * 4)
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / PEAK_FLOPS[es]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -167,7 +170,7 @@ def main() -> None:
                 rel = float((got - ref).abs().max() / ref.abs().max())
                 eager_ms = cuda_ms(lambda: mtm.mtm_cuda(fdm, v), args.reps)
                 ms = graph_ms(lambda: mtm.mtm_cuda(fdm, v), args.reps)
-                bound_ms, bound_by = mtm_bound(v.shape[0], fdm.Ltau, fdm.n_sites, fdm.cb.n_colors, v.element_size())
+                bound_ms, bound_by = mtm_bound(fdm, v.shape[0], v.element_size())
                 row = dict(kind="k1", shape=shape, symmetric=symmetric, dtype=str(dtype).split(".")[-1],
                            v=list(v.shape), n_colors=fdm.cb.n_colors, ms=ms, eager_ms=eager_ms, bound_ms=bound_ms, bound_by=bound_by,
                            max_rel_err=rel, tol=tol, ok=rel <= tol, bit_identical=bool(torch.equal(got, again)))

@@ -26,6 +26,11 @@ from ..ops.preconditioner import build_preconditioner
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
+def complex_hops(tbp: TightBindingParameters, elph: ElectronPhononParameters) -> bool:
+    """True when M is complex: complex hoppings or complex SSH constants."""
+    return tbp.t0_im is not None or elph.complex_ssh
+
+
 @dataclasses.dataclass
 class QMCContext:
     tbp: TightBindingParameters
@@ -58,7 +63,7 @@ class QMCContext:
 
     @property
     def complex_hops(self) -> bool:
-        return self.tbp.t0_im is not None
+        return complex_hops(self.tbp, self.elph)
 
     @property
     def lanczos_dim(self) -> int:
@@ -92,9 +97,11 @@ def make_fdm(ctx: QMCContext, x: torch.Tensor, dtype: Optional[str] = None) -> F
     For a walker batch x (W, n_phonon, Ltau) the fermion matrix carries exp_nV
     as (W, 1, Ltau, N): its products broadcast over the channel axis of
     (W, 2, Ltau, N) fields, and kernels K3 / K4 read the planes with a walker
-    stride. The hopping tables are shared (no SSH couplings). Complex hoppings
-    carry their imaginary parts through the path integral (t_im) into the
-    fermion matrix (sinh_hop_im, cb.S_im)."""
+    stride. Without SSH couplings the hopping tables are shared; with them
+    each walker has its own: cosh_hop / sinh_hop (W, Ltau, n_hops) and the
+    checkerboard planes (n_colors, W, 1, Ltau, N). Complex hoppings carry
+    their imaginary parts through the path integral (t_im) into the fermion
+    matrix (sinh_hop_im, cb.S_im)."""
     fpi = build_path_integral(ctx.tbp, ctx.elph, x)
     if dtype is not None and _DTYPES[dtype] != fpi.V.dtype:
         fpi = fpi.to_dtype(_DTYPES[dtype])
@@ -102,6 +109,10 @@ def make_fdm(ctx: QMCContext, x: torch.Tensor, dtype: Optional[str] = None) -> F
     if x.dim() == 3:
         expV = torch.broadcast_to(fdm.exp_nV, (x.shape[0], fdm.Ltau, fdm.n_sites))
         fdm = dataclasses.replace(fdm, exp_nV=expV[:, None])
+        if not fdm.static_hops:
+            cb = fdm.cb
+            fdm = dataclasses.replace(fdm, cb=dataclasses.replace(
+                cb, C=cb.C[:, :, None], S=cb.S[:, :, None], S_im=None if cb.S_im is None else cb.S_im[:, :, None]))
     return fdm
 
 

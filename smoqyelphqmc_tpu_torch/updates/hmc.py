@@ -26,7 +26,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
-from ..ops.bosonic import add_anharmonic_force, bosonic_action
+from ..ops.bosonic import add_anharmonic_force, add_dispersive_force, bosonic_action
 from ..ops.cg import CGStats
 from ..ops.kpm import KPMPreconditioner
 from ..ops.preconditioner import refresh_preconditioner
@@ -154,7 +154,7 @@ def _integrate(ctx: QMCContext, params: HMCParams, x0: torch.Tensor, pw, dt, for
         nonlocal hist, iters_sum, ok
         res = force(x, psi_warm, refresh)
         hist = [res.psi_raw.to(fdt)] + hist[:-1]
-        f = add_anharmonic_force(res.force, elph, x)
+        f = add_dispersive_force(add_anharmonic_force(res.force, elph, x), elph, x)
         ok = ok & res.stats.converged.to(ok.device) & torch.isfinite(f).all(dim=-1).all(dim=-1)
         iters_sum = iters_sum + res.stats.iters.to(iters_sum.device)
         return (efa.kick_omega_f32 if use_f32_step else efa.kick_omega)(pw, f, dt_kick)
@@ -216,8 +216,9 @@ def _linear_warm_start(hist, c: float) -> torch.Tensor:
 
 def k3_trajectory_applies(ctx: QMCContext, precond) -> bool:
     """Whether kernel K3 can run the trajectory force solves: f32 forces, the
-    symmetric factorization, real hoppings and the spectral preconditioner."""
-    return (ctx.force_dtype == "float32" and ctx.symmetric and not ctx.complex_hops
+    symmetric factorization, real hoppings, no SSH couplings (its planes are
+    the Holstein force) and the spectral preconditioner."""
+    return (ctx.force_dtype == "float32" and ctx.symmetric and not ctx.complex_hops and ctx.elph.n_ssh == 0
             and isinstance(precond, SpectralPreconditioner))
 
 

@@ -1204,3 +1204,105 @@ def test_simulate_walkers_with_options_on_gpu_matches_cpu(cuda_device, tmp_path,
     for k, v in gpu.items():
         np.testing.assert_array_equal(got[k], v, err_msg=str(k))
     assert md["final_mu_per_walker"] == gmd["final_mu_per_walker"] and md["hmc_dt_final"] == gmd["hmc_dt_final"]
+
+
+# ----------------------------------------------------------------------
+# SSH couplings: hopping tables whose tau rows differ (K1's memory form, K2
+# at tau_stride N), and the gate that keeps K3 / K4 off SSH models
+# ----------------------------------------------------------------------
+
+
+def _ssh_fdm(device, symmetric=True, L=3, beta=1.0):
+    """The optical-SSH honeycomb's fermion matrix (f64) at its initial field
+    (nonzero: the tau rows of its hopping tables differ)."""
+    from smoqyelphqmc_tpu_torch.models.library import ossh_honeycomb_model
+
+    geo, tbm, em = ossh_honeycomb_model(L, 1.0, 0.5, 0.0)
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=device)
+    elph = ElectronPhononParameters.from_model(beta, 0.1, em, tbp, rng, device=device)
+    structure = build_checkerboard_structure(tbp.neighbor_table, tbp.n_sites)
+    fdm = FermionDetMatrix.from_path_integral(build_path_integral(tbp, elph), structure, symmetric=symmetric)
+    assert not fdm.static_hops and float((fdm.cb.C - fdm.cb.C[:, :1]).abs().max()) > 0
+    return fdm
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("symmetric", SYM)
+@pytest.mark.parametrize("T", [1, 2, 3, None], ids=["T-1", "T-2", "T-3", "T-path"])
+@pytest.mark.parametrize("L,beta", [(3, 0.9), (12, 1.0)], ids=["N-18-Ltau-9", "N-288-Ltau-10"])
+def test_mtm_kernel_ssh_tables(cuda_device, L, beta, T, symmetric, dtype, tol):
+    """K1's memory form on SSH tables whose tau rows differ: a stage must read
+    row l's (cosh, sinh) for B_l and row l+1's for B_{l+1}^T, at the edges of
+    ragged tau blocks too."""
+    fdm = _ssh_fdm(cuda_device, symmetric, L=L, beta=beta).astype(dtype)
+    assert mtm.launch_shape(fdm, 2)["form"] == 0
+    v = torch.randn((2, fdm.Ltau, fdm.n_sites), dtype=dtype,
+                    generator=torch.Generator().manual_seed(31)).to(cuda_device)
+    _mtm_close(mtm.mtm_cuda(fdm, v, tau_rows=T), mtm.mtm_plain(fdm, v), tol)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("symmetric", SYM)
+@pytest.mark.parametrize("L,beta", [(3, 0.9), (12, 1.0)], ids=["N-18-Ltau-9", "N-288-Ltau-10"])
+def test_pcg_kernel_ssh_tables(cuda_device, L, beta, symmetric, warm):
+    """K2 on SSH tables whose tau rows differ, cold and warm, both
+    factorizations, against its plain version."""
+    fdm = _ssh_fdm(cuda_device, symmetric, L=L, beta=beta)
+    pre = build_spectral(fdm)
+    b = torch.randn((2, fdm.Ltau, fdm.n_sites), dtype=torch.float32,
+                    generator=torch.Generator().manual_seed(32)).to(cuda_device)
+    x0 = pcg.SpectralPCG(fdm, pre)(b, tol=1e-3, maxiter=400)[0] if warm else None
+    launches = pcg.PCG.launches
+    xk, sk = pcg.SpectralPCG(fdm, pre)(b, x0=x0, tol=1e-5, maxiter=400)
+    assert pcg.PCG.launches == launches + 1
+    fdm32 = fdm.astype(torch.float32)
+    nb = torch.linalg.vector_norm(b, dim=(1, 2), keepdim=True)
+    rhs = b if x0 is None else b - mtm.mtm_plain(fdm32, x0)
+    xp, ep, _ = pcg.pcg_plain(fdm32, pre, (rhs / nb).contiguous(), 1e-5, 400)
+    xp = xp * nb if x0 is None else x0 + xp * nb
+    assert bool(sk.converged) and bool((ep < 1e-5).all())
+    torch.testing.assert_close(xk, xp, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("n_walkers", [1, 2])
+def test_ssh_chain_gpu_matches_cpu(cuda_device, n_walkers):
+    """The optical-SSH chain's sweeps on the card (K1, K2; no K3 or K4) and
+    on the CPU: the same accept decisions, the fields to 1e-4 relative (f32
+    force solves at tol 1e-5 with sums in another order)."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+    from smoqyelphqmc_tpu_torch.models.library import ossh_chain_model
+
+    geo, tbm, em = ossh_chain_model(16, 1.0, 0.5, 0.0)
+    cfg = SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=4, n_walkers=n_walkers, use_radial_updates=True)
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE, force.FORCE)
+    for c in counters:
+        c.reset()
+    gpu = run_updates(tbm, em, cfg, 2, device=cuda_device)
+    assert pcg_force.PCG_FORCE.launches == 0 and force.FORCE.launches == 0
+    for c in counters[:3]:
+        assert c.launches > 0 and c.plain_calls == 0, c.name
+    cpu = run_updates(tbm, em, cfg, 2, device="cpu")
+    assert gpu["all_converged"] and cpu["all_converged"]
+    for k in ("reflection", "swap", "radial", "hmc"):
+        assert gpu[f"{k}_acceptance_rate"] == cpu[f"{k}_acceptance_rate"], k
+    xg, xc = gpu["x_final"].cpu(), cpu["x_final"]
+    assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-4
+
+
+def test_fused_force_ssh_launches_no_k4(cuda_device):
+    """fused_force=True on an SSH model: the forces take the plain chain (K4
+    computes Holstein planes only), so K4 never launches; K1 and K2 do."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+    from smoqyelphqmc_tpu_torch.models.library import ossh_honeycomb_model
+
+    geo, tbm, em = ossh_honeycomb_model(3, 1.0, 0.5, 0.0)
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE, force.FORCE)
+    for c in counters:
+        c.reset()
+    md = run_updates(tbm, em, SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2, fused_force=True), 2,
+                     device=cuda_device)
+    assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
+    assert force.FORCE.launches == 0 and pcg_force.PCG_FORCE.launches == 0
+    for c in counters[:3]:
+        assert c.launches > 0 and c.plain_calls == 0, c.name

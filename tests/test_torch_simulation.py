@@ -37,7 +37,6 @@ from smoqyelphqmc_tpu_torch.driver import SimulationConfig, measured_sweep, run_
 from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
 from smoqyelphqmc_tpu_torch.measure.container import MeasurementAccumulator
 from smoqyelphqmc_tpu_torch.measure.greens_estimator import build_greens_estimator
-from smoqyelphqmc_tpu_torch.measure.local_measurements import measure_dispersion_energy, measure_ssh_energy
 from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model, holstein_honeycomb_spec
 from smoqyelphqmc_tpu_torch.ops.mtm import MTM
 from smoqyelphqmc_tpu_torch.ops.pcg import PCG
@@ -239,8 +238,3 @@ def test_ported_options_run(tmp_path, field, value, key):
     assert md["all_converged"] and key in md and os.path.exists(os.path.join(info.datafolder, "stats.h5"))
     assert 0.0 <= md["radial_acceptance_rate"] <= 1.0 and md["measurement_iters"] > 0
 
-
-@pytest.mark.parametrize("fn", [measure_ssh_energy, measure_dispersion_energy])
-def test_ssh_and_dispersion_energies_raise(fn):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        fn(None, None, None, None)
