@@ -121,12 +121,33 @@ Phases, one line each:
      beta=2 measured at W=1 and W=2, each interrupted and resumed bit for
      bit; the bond-SSH square L=4 with a dispersion coupling and the
      complex-SSH chain (0.4 + 0.25i on real hoppings, 'auto'), update paths
-     at W=1.
-Each path (5, 5a, 7, 10, 10a, 10b, 11, 15, 16, 19, 20, 21, 24, 25) is
-driven with every kernel count set to 0 just before it and read just
-after; the launches of K1 and K2 in the kernels line are the measured main
-path's (5a), K3's the measured walker path's (10a), those of the
-tau-table entries the measured SSH path's (24). Then one JSON line of kernel results,
+     at W=1;
+ 27. the large-N walker path: `run_updates` on the large model ('auto' ->
+     matrix-free KPM) at W=8, 1 sweep, the shared refresh from the walker
+     mean (its Lanczos start vector from a stream of its own) and each
+     walker's trajectory on its own; every walker's KPM must stay active,
+     every solve converge and every Delta H be finite; K1 f32, K1 f64 and
+     K6 launch and no plain version runs; the line gives s/sweep,
+     walker-sweeps/s, the shared refresh's seconds and KPM diagnostics,
+     iterations, acceptances and the diagnostics folded over the walkers;
+ 28. the same in the asymmetric factorization at W=2 (K7);
+ 29. the complex walker path: the complex chain (N=1152) at W=8 with 'kpm',
+     1 sweep: K8 launches and none of K1-K4, K6, K7; then at W=2 with 'auto'
+     (the doubled-basis spectral preconditioner, no kernel), 1 sweep;
+ 30. GPU against CPU at W=2: the KPM chain of 17 (N=1152) with the shared
+     refresh and with shared_precond=False, the complex KPM chain of 22 and
+     the complex-SSH chain of 26: accept flags equal, the fields to 1e-4;
+ 31. the measured KPM walker path: `simulate` at W=2 on the L=24 'kpm'
+     chain (N_therm=1, N_measurements=2, N_bins=1, Nrv=10) on the GPU and
+     the CPU: bins finite, accept flags equal, the bins to 1e-4 of each
+     observable's largest magnitude; the GPU run interrupted after every
+     sweep and resumed must repeat its bins bit for bit.
+Each path (5, 5a, 7, 10, 10a, 10b, 11, 15, 16, 19, 20, 21, 24, 25, 27, 28,
+29) is driven with every kernel count set to 0 just before it and read
+just after; the launches of K1 and K2 in the kernels line are the measured
+main path's (5a), K3's the measured walker path's (10a), those of the
+tau-table entries the measured SSH path's (24), K6's those of 15 and 27,
+K7's of 16 and 28, K8's of 19 and 29. Then one JSON line of kernel results,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
 and the operations it must do over the card's peak for their type (f32
 67 TFLOP/s, f64 34 TFLOP/s, bf16 989 TFLOP/s dense; H100 SXM data sheet),
@@ -602,17 +623,19 @@ def rounded(v, nd=6):
     return [rounded(u, nd) for u in v] if isinstance(v, list) else round(v, nd)
 
 
-def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral", fused_force=False, h=HEADLINE):
+def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral", fused_force=False, h=HEADLINE,
+                          **kw):
     """The same chain on model h at L on the GPU (kernels) and the CPU (plain
     versions): the accept decisions must match and the fields agree to 1e-4
     relative (the f32 force solves stop at 1e-5 relative in both, with sums in
     another order, so forces may differ at that level); fused_force takes the
-    W = 1 trajectory forces through K4 on the GPU."""
+    W = 1 trajectory forces through K4 on the GPU; `kw` sets other config
+    fields (shared_precond)."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
 
     geo, tbm, em = model_of(h, L)
     cfg = SimulationConfig(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner=preconditioner, n_walkers=n_walkers,
-                           fused_force=fused_force)
+                           fused_force=fused_force, **kw)
     t0 = time.perf_counter()
     gpu = run_updates(tbm, em, cfg, 3, device="cuda")
     t1 = time.perf_counter()
@@ -622,7 +645,7 @@ def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral",
     err = float((xg - xc).abs().max() / xc.abs().max())
     same = all(gpu[f"{k}_acceptance_rate"] == cpu[f"{k}_acceptance_rate"] for k in ("reflection", "swap", "hmc"))
     kpm = {d: md.get("kpm_active") for d, md in (("gpu", gpu), ("cpu", cpu))}
-    model = h["name"] + (", fused_force" if fused_force else "")
+    model = h["name"] + (", fused_force" if fused_force else "") + "".join(f", {k}={v}" for k, v in kw.items())
     say(f"small-model reference ({model} L={L}, N={gpu['n_sites']}, beta={beta}, {preconditioner}, W={n_walkers}): "
         f"GPU vs "
         f"CPU field max rel err {err:.3e}; same acceptance {same}; dH gpu {rounded(gpu['hmc_delta_H'])} "
@@ -631,6 +654,12 @@ def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral",
     if not (same and err <= 1e-4 and gpu["all_converged"] and cpu["all_converged"]):
         fail(f"the GPU chain disagrees with the CPU reference on the small model ({model} L={L}, "
              f"{preconditioner}, W={n_walkers})")
+    if n_walkers > 1:
+        dH = [(g, c) for gw, cw in zip(gpu["hmc_delta_H"], cpu["hmc_delta_H"]) for g, c in zip(gw, cw)]
+        say(f"  walkers converged gpu {gpu['walker_converged']} cpu {cpu['walker_converged']}; fallback sweeps gpu "
+            f"{gpu['precond_fallback_sweeps']} cpu {cpu['precond_fallback_sweeps']}; KPM inactive walkers gpu "
+            f"{gpu.get('kpm_inactive_walkers')} cpu {cpu.get('kpm_inactive_walkers')}; dH max abs diff "
+            f"{max(abs(g - c) for g, c in dH):.3e}")
     if preconditioner == "kpm" and kpm != {"gpu": True, "cpu": True}:
         fail(f"the KPM preconditioner of the GPU-vs-CPU chain deactivated: {kpm}")
 
@@ -1374,6 +1403,88 @@ def phase_cplx_path(results, card, symmetric, n_sweeps, preconditioner):
         fail("the complex path never applied the complex M^dag M in f32 and f64")
 
 
+class RefreshSpy:
+    """Records every shared preconditioner refresh of the walker path while
+    the block runs: its seconds (the card synchronised around it) and the
+    refreshed KPM preconditioner's diagnostics (bounds, active, the largest
+    live order, the clipped orders), by wrapping
+    parallel.walkers.shared_precond_refresh."""
+
+    def __enter__(self):
+        import torch
+
+        from smoqyelphqmc_tpu_torch.ops.kpm import KPMPreconditioner
+        from smoqyelphqmc_tpu_torch.parallel import walkers
+
+        self.seconds, self.kpm, self._orig = [], [], walkers.shared_precond_refresh
+        orig = self._orig
+
+        def spy(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+            pre = out.precond[0]
+            if isinstance(pre, KPMPreconditioner):
+                self.kpm.append(dict(lo=round(pre.lo, 5), hi=round(pre.hi, 5), active=pre.active,
+                                     max_order=int(pre.orders.max()), clips=int(pre.order_clip_count)))
+            return out
+
+        walkers.shared_precond_refresh = spy
+        return self
+
+    def __exit__(self, *exc):
+        from smoqyelphqmc_tpu_torch.parallel import walkers
+
+        walkers.shared_precond_refresh = self._orig
+
+
+def phase_walker_kpm_path(results, card, h, W, symmetric, preconditioner, path_kernels, key=None, only=False):
+    """The walker path with a KPM preconditioner or complex hoppings:
+    `run_updates` on model h at W walkers, 1 sweep, the shared refresh (from
+    the walker mean, its Lanczos start vector from its own stream) and each
+    walker's trajectory on its own (K3 is off KPM and complex chains). Every
+    walker's KPM must stay active, every solve converge and every Delta H be
+    finite; the kernels of `path_kernels` must launch and no plain version
+    run (only=True: no other kernel either). The launches of `key` add to its
+    kernels-line entry. The line gives s/sweep, walker-sweeps/s, the shared
+    refresh's seconds and its KPM diagnostics, iterations, acceptances and
+    the KPM diagnostics folded over the walkers."""
+    import math
+
+    from smoqyelphqmc_tpu_torch.driver import run_updates
+
+    cfg = headline_config(h, preconditioner=preconditioner, symmetric=symmetric, n_walkers=W)
+    geo, tbm, em = model_of(h)
+    with RefreshSpy() as spy:
+        md, counts = drive_path(lambda: run_updates(tbm, em, cfg, 1, device=MAIN_DEVICE), path_kernels, only=only)
+    if key is not None:
+        results[key]["launches"] = results[key].get("launches", 0) + counts[key][0]
+    n_solves = W * (2 + h["Nt"] + 1)
+    kind = "symmetric" if symmetric else "asymmetric"
+    sweep_s = md["sweep_s"][0]
+    diag = {k: md.get(k) for k in ("kpm_active", "kpm_inactive_walkers", "kpm_order_clip_count")}
+    per_solve = {k: round(counts[k][0] / n_solves, 2) for k in path_kernels}
+    say(f"walker path ({h['name']}, {kind}, {preconditioner}) on {card}: W={W}, 1 sweep N={md['n_sites']} "
+        f"beta={h['beta']} Ltau={md['Ltau']}; s/sweep {sweep_s:.4f}, walker-sweeps/s {W / sweep_s:.3f} (init "
+        f"{md['t_init_s']:.3f} s); shared refresh s {[round(t, 4) for t in spy.seconds]} (KPM {spy.kpm}); "
+        f"KPM diagnostics over the walkers {diag}; acceptance refl {md['reflection_acceptance_rate']:.3f} swap "
+        f"{md['swap_acceptance_rate']:.3f} hmc {md['hmc_acceptance_rate']:.3f}; iters/solve refl "
+        f"{md['reflection_iters']:.2f} swap {md['swap_iters']:.2f} hmc {md['hmc_iters']:.2f}; launches per solve "
+        f"{per_solve}; fallback sweeps {md['precond_fallback_sweeps']}; converged {md['walker_converged']}; "
+        f"dH {rounded(md['hmc_delta_H'], 5)}; launches/plain calls {counts}")
+    if preconditioner == "kpm" or h is LARGE:
+        if diag != {"kpm_active": True, "kpm_inactive_walkers": 0, "kpm_order_clip_count": 0} or not spy.kpm:
+            fail(f"the walker path ({h['name']}, {kind}) did not keep every walker's KPM active: {diag}")
+    if not spy.seconds or md["precond_fallback_sweeps"] != 0:
+        fail("the walker path's sweep did not run the shared refresh")
+    if not (md["all_converged"] and all(md["walker_converged"])):
+        fail(f"a walker of the walker path ({h['name']}, {kind}, {preconditioner}) did not converge")
+    if not all(math.isfinite(d) for dw in md["hmc_delta_H"] for d in dw):
+        fail(f"a Delta H of the walker path ({h['name']}, {kind}, {preconditioner}) is not finite")
+
+
 def phase_asym_headline(results, card):
     """Item 13 on the headline: K2 in its asymmetric form against its plain
     version, then 1 asymmetric sweep with 'auto' (the half-angle spectral
@@ -1637,6 +1748,20 @@ def main() -> None:
     results["pcg_tau"]["launches"] = counts["pcg"][0]
     phase_ssh_measured(results, card, W=N_WALKERS)
     phase_ssh_small_references()
+    # the walker path with KPM and complex hoppings (27-31)
+    phase_walker_kpm_path(results, card, LARGE, N_WALKERS, True, "auto", ("mtm_f32", "mtm_f64", "kpm_mf"),
+                          key="kpm_mf")
+    phase_walker_kpm_path(results, card, LARGE, 2, False, "auto", ("mtm_f32", "mtm_f64", "kpm_mf_asym"),
+                          key="kpm_mf_asym")
+    phase_walker_kpm_path(results, card, COMPLEX, N_WALKERS, True, "kpm", ("kpm_mf_cplx",), key="kpm_mf_cplx",
+                          only=True)
+    phase_walker_kpm_path(results, card, COMPLEX, 2, True, "auto", (), only=True)
+    phase_small_reference(n_walkers=2, L=24, beta=1.0, preconditioner="kpm")
+    phase_small_reference(n_walkers=2, L=24, beta=1.0, preconditioner="kpm", shared_precond=False)
+    phase_small_reference(n_walkers=2, L=COMPLEX["L"], beta=1.0, preconditioner="kpm", h=COMPLEX)
+    phase_small_reference(n_walkers=2, L=4, beta=0.6, preconditioner="auto", h=COMPLEX_SSH)
+    phase_measured_small_reference(L=24, beta=1.0, preconditioner="kpm", n_walkers=2, N_therm=1, N_measurements=2,
+                                   N_bins=1)
     # K8's entry carries its symmetric instantiation's times (the asymmetric
     # one's are on its own line above), the larger error of the two, and the
     # launches of both complex KPM paths

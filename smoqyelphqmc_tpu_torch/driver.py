@@ -32,10 +32,13 @@ applied after every drift).
 `run_updates` runs update sweeps only. It returns the acceptance /
 iteration metadata (walker-averaged), the KPM preconditioner's diagnostics
 when the chain carries one, and the per-update flags a caller needs to check
-the run. A KPM preconditioner ('kpm', or 'auto' above 4000 sites) runs at
-W = 1: its initial Lanczos start vector is the first draw of the chain's
-generator (length 2N for complex hoppings). Complex hoppings, and complex SSH
-coupling constants, run at W = 1.
+the run. A KPM preconditioner ('kpm', or 'auto' above 4000 sites) takes
+its initial Lanczos start vector from the first draw of the generator seeded
+with cfg.seed (length 2N for complex hoppings); at W >= 2 a shared refresh's
+start vector comes from a generator of its own (`shared_seed`), a
+per-walker refresh's from the walker's HMC draws. Every preconditioner and
+hopping kind (complex hoppings, complex SSH coupling constants) runs at any
+W.
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ from .parallel.walkers import (
     PrecondFallbackController,
     SweepStats,
     WalkerDraws,
+    draw_shared,
     draw_walker,
     init_walker_states,
     sync_device,
@@ -145,40 +149,39 @@ def _check_ported(cfg: SimulationConfig) -> None:
                                       f"(ROADMAP Queue 1, item {item})")
 
 
-def _check_walker_path(cfg: SimulationConfig, tbp: TightBindingParameters, elph: ElectronPhononParameters) -> None:
-    """Raise for a walker batch whose code is not ported yet."""
-    kind = resolve_kind(cfg.preconditioner or "auto", tbp.n_sites) if cfg.use_preconditioner else None
-    if kind == "kpm" and cfg.n_walkers > 1:
-        raise NotImplementedError("the walker path with a KPM preconditioner is not ported yet "
-                                  "(ROADMAP Queue 1, item 20)")
-    if complex_hops(tbp, elph) and cfg.n_walkers > 1:
-        raise NotImplementedError("the walker path with complex hoppings (or complex SSH constants) is not "
-                                  "ported yet (ROADMAP Queue 1, item 21)")
-
-
 def walker_seed(seed: int, w: int) -> int:
     """The seed of walker w's generator."""
     return int(np.random.SeedSequence([seed, w]).generate_state(1)[0])
 
 
-def fold_kpm_diagnostics(metadata: Dict, precond) -> None:
-    """Record a KPM preconditioner's self-diagnostics in the metadata
-    (the JAX package's driver.py:fold_kpm_diagnostics): whether it is active
-    in the final state (inactive means the solves ran unpreconditioned), and
-    how many frequencies the static order caps clipped; warn on either. No-op
-    for other preconditioners."""
-    if not isinstance(precond, KPMPreconditioner):
+def shared_seed(seed: int) -> int:
+    """The seed of the shared refresh's generator (a stream apart from every
+    walker's)."""
+    return int(np.random.SeedSequence(seed, spawn_key=(0,)).generate_state(1)[0])
+
+
+def fold_kpm_diagnostics(metadata: Dict, preconds) -> None:
+    """Record the KPM preconditioners' self-diagnostics in the metadata
+    (the JAX package's driver.py:fold_kpm_diagnostics), `preconds` the
+    walkers' list: whether every walker's is active in the final state
+    (inactive means its solves ran unpreconditioned), how many walkers' are
+    not (a shared preconditioner counts once a walker), and the most
+    frequencies the static order caps clipped; warn on either. No-op for
+    other preconditioners."""
+    pres = [p for p in preconds if isinstance(p, KPMPreconditioner)]
+    if not pres:
         return
-    metadata["kpm_active"] = bool(precond.active)
-    metadata["kpm_inactive_walkers"] = int(not precond.active)
-    metadata["kpm_order_clip_count"] = int(precond.order_clip_count)
-    if not precond.active:
-        warnings.warn("KPM preconditioner DEACTIVATED in the final state: Lanczos bounds outside the valid "
-                      "window or the truncation-positivity guard fired, so those CG solves ran "
-                      "unpreconditioned", stacklevel=2)
-    if precond.order_clip_count > 0:
-        warnings.warn(f"KPM order cap clipped {precond.order_clip_count} frequency orders in the final refresh",
-                      stacklevel=2)
+    n_inactive = sum(not p.active for p in pres)
+    clips = max(int(p.order_clip_count) for p in pres)
+    metadata["kpm_active"] = n_inactive == 0
+    metadata["kpm_inactive_walkers"] = n_inactive
+    metadata["kpm_order_clip_count"] = clips
+    if n_inactive:
+        warnings.warn(f"KPM preconditioner DEACTIVATED in the final state ({n_inactive} walker(s)): Lanczos "
+                      "bounds outside the valid window or the truncation-positivity guard fired, so those CG "
+                      "solves ran unpreconditioned", stacklevel=2)
+    if clips > 0:
+        warnings.warn(f"KPM order cap clipped {clips} frequency orders in the final refresh", stacklevel=2)
 
 
 def dt_law(dt: float, accepted: float, target: float, dt0: float) -> float:
@@ -311,6 +314,8 @@ class _Chains:
         self.pc = PrecondFallbackController(ratio=cfg.precond_fallback_ratio, retry_every=cfg.precond_retry_every,
                                             enabled=state.precond is not None)
         self.fallback = 0  # sweeps run with per-walker refresh
+        # the shared refresh's KPM start vectors, a stream no walker draws from
+        self.shared_gen = torch.Generator(device="cpu").manual_seed(shared_seed(cfg.seed))
 
     @property
     def x(self) -> torch.Tensor:
@@ -318,8 +323,9 @@ class _Chains:
         return self.state.x if self.W == 1 else self.states.x
 
     @property
-    def precond(self):
-        return self.state.precond if self.W == 1 else self.states.precond[0]
+    def preconds(self) -> list:
+        """The walkers' preconditioners (one at W = 1)."""
+        return [self.state.precond] if self.W == 1 else list(self.states.precond)
 
     def _params(self) -> HMCParams:
         return self.params if self.cfg.target_acceptance is None else dataclasses.replace(self.params, dt=self.dt)
@@ -341,8 +347,9 @@ class _Chains:
         use_shared = self.cfg.shared_precond and self.pc.choose()
         draws = [draw_walker(g, self.ctx, self.states.precond[w], params, est, radial)
                  for w, g in enumerate(self.gens)]
+        v_shared = draw_shared(self.shared_gen, self.ctx, self.states.precond[0]) if use_shared else None
         self.states, st = walker_sweep(self.ctx, self.states, params, draws, shared_precond=use_shared,
-                                       mus=self.mu, recenter=self.recenter)
+                                       mus=self.mu, recenter=self.recenter, v_shared=v_shared)
         self.pc.record(sum(h.iters_avg for h in st.hmc) / self.W, use_shared)
         self.fallback += not use_shared
         return [d.theta for d in draws], st
@@ -373,7 +380,7 @@ class _Chains:
             return {"x": self.state.x, "precond": self.state.precond, "generator": self.gens[0].get_state()}
         return {"x": self.states.x, "precond": list(self.states.precond),
                 "generator": [g.get_state() for g in self.gens], "controller": self.pc.state_dict(),
-                "fallback": self.fallback}
+                "fallback": self.fallback, "shared_generator": self.shared_gen.get_state()}
 
     def load_state(self, s: Dict) -> None:
         x = torch.as_tensor(s["x"], device=self.ctx.device)
@@ -386,6 +393,7 @@ class _Chains:
             g.set_state(torch.as_tensor(gs))
         self.pc.load_state(s["controller"])
         self.fallback = int(s["fallback"])
+        self.shared_gen.set_state(torch.as_tensor(s["shared_generator"]))
 
 
 def _mean(values) -> float:
@@ -445,7 +453,6 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     _check_ported(cfg)
     if cfg.target_density is not None:
         raise ValueError("SimulationConfig.target_density tunes mu from measurements: use simulate / run_simulation")
-    _check_walker_path(cfg, tbp, elph)
     device = elph.device
     gen, ctx, state, t_init = _init_chain(tbp, elph, cfg)
     params = _hmc_params(cfg)
@@ -486,9 +493,9 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     meta.update({"sweep_s": sweep_s, "x_final": chains.x})
     if cfg.target_acceptance is not None:
         meta["hmc_dt_final"] = chains.dt
+    fold_kpm_diagnostics(meta, chains.preconds)
     if W == 1:
         meta["hmc_delta_H"] = delta_H[0]
-        fold_kpm_diagnostics(meta, chains.precond)
     else:
         meta.update({"hmc_delta_H": delta_H, "walker_converged": converged,
                      "precond_fallback_sweeps": chains.fallback})
@@ -553,7 +560,6 @@ def simulate(
     geo = spec.geometry
     model_summary(sim_info, cfg.beta, cfg.dtau, geo, tight_binding_model, (electron_phonon_model,))
     tbp, elph = _expand(tight_binding_model, electron_phonon_model, cfg, device)
-    _check_walker_path(cfg, tbp, elph)
     gen, ctx, state, _ = _init_chain(tbp, elph, cfg)
     est = build_greens_estimator(elph.Ltau, geo.n_orbitals, geo.L, Nrv=cfg.Nrv, dtype=cfg.measurement_dtype,
                                  device=device)
@@ -659,7 +665,7 @@ def simulate(
             maybe_checkpoint()
         if out_of_time():
             maybe_checkpoint()
-            fold_kpm_diagnostics(metadata, chains.precond)
+            fold_kpm_diagnostics(metadata, chains.preconds)
             return metadata, False
     if n_timed:
         metadata["t_therm_s"] = round(time.time() - t_phase, 3)
@@ -698,7 +704,7 @@ def simulate(
             maybe_checkpoint()
         if out_of_time() and meas_done < cfg.N_measurements:
             maybe_checkpoint()
-            fold_kpm_diagnostics(metadata, chains.precond)
+            fold_kpm_diagnostics(metadata, chains.preconds)
             return metadata, False
     if n_timed:
         sync_device(device)
@@ -709,7 +715,7 @@ def simulate(
     for k in _rates():
         metadata[k] /= max(n_updates, 1)
     metadata["measurement_iters"] /= max(cfg.N_measurements, 1)
-    fold_kpm_diagnostics(metadata, chains.precond)
+    fold_kpm_diagnostics(metadata, chains.preconds)
     if W > 1:
         metadata["precond_fallback_sweeps"] = chains.fallback
     if cfg.target_acceptance is not None:

@@ -6,7 +6,11 @@ axis is written out: the field is (W, n_phonon, Ltau); reflection, swap and
 radial moves, each a Metropolis decision on f64 solves (K1 / K2), run walker
 by walker; with one shared preconditioner the HMC trajectories of all
 walkers run together in one `updates.hmc.hmc_update`, every kick's W force
-solves in one launch of kernel K3. Each walker may carry its own chemical
+solves in one launch of kernel K3 where it applies (spectral, real,
+symmetric, no SSH couplings), else walker by walker: K1 + K6 / K7 with a
+real KPM preconditioner, the complex M^dag M + K8 with a complex one. The
+shared refresh of a KPM preconditioner starts its Lanczos iteration from a
+vector of its own stream (`draw_shared`). Each walker may carry its own chemical
 potential (`mus`): its moves, its trajectory's fermion matrix (K3 reads the
 walkers' exp_nV planes with a walker stride) and its measurements use it,
 and the shared refresh uses the walker-mean mu. Draws are per walker
@@ -14,7 +18,8 @@ and the shared refresh uses the walker-mean mu. Draws are per walker
 
 `walker_measure` refreshes each walker's Green's estimator (one K2 launch of
 2 Nrv systems at that walker's fermion matrix: K2 takes one fermion matrix a
-launch) and takes its measurement pass.
+launch; with a KPM preconditioner or complex hoppings the CG path with the
+walker's preconditioner) and takes its measurement pass.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from ..measure.container import make_measurements
 from ..measure.greens_estimator import EstimatorUpdate, GreensEstimator, draw_theta, update_greens_estimator
 from ..ops.checkerboard import build_checkerboard_op
+from ..ops.kpm import KPMPreconditioner
 from ..ops.preconditioner import refresh_preconditioner
 from ..updates.context import QMCContext, QMCState, make_fdm, with_mu
 from ..updates.global_updates import (
@@ -124,15 +130,26 @@ def walker_mean_fdm(fdm):
     return mean
 
 
-def shared_precond_refresh(ctx: QMCContext, states: WalkerStates) -> WalkerStates:
+def shared_precond_refresh(ctx: QMCContext, states: WalkerStates, v0: Optional[torch.Tensor] = None) -> WalkerStates:
     """Refresh the preconditioner once from the walker-mean fermion matrix
     (`walker_mean_fdm`, at the context's mu: the walker sweep passes the
-    walker-mean mu) and give it to every walker. Preconditioner quality moves
+    walker-mean mu) and give it to every walker. A KPM preconditioner's
+    Lanczos iteration starts from v0 (ctx.lanczos_dim,) (`draw_shared`; the
+    JAX package draws it from walker 0's key). Preconditioner quality moves
     only iteration counts, never the sampled distribution."""
     if states.precond[0] is None:
         return states
-    pre = refresh_preconditioner(states.precond[0], walker_mean_fdm(make_fdm(ctx, states.x)))
+    pre = refresh_preconditioner(states.precond[0], walker_mean_fdm(make_fdm(ctx, states.x)), v0)
     return WalkerStates(x=states.x, precond=[pre] * states.n_walkers)
+
+
+def draw_shared(gen: torch.Generator, ctx: QMCContext, precond) -> Optional[torch.Tensor]:
+    """The shared refresh's Lanczos start vector (ctx.lanczos_dim,) ~ N(0, 1)
+    from a generator of its own, which no walker's chain draws from; None
+    (and no draw) unless the walkers carry a KPM preconditioner."""
+    if not isinstance(precond, KPMPreconditioner):
+        return None
+    return torch.randn((ctx.lanczos_dim,), generator=gen, dtype=torch.float64).to(ctx.device)
 
 
 class PrecondFallbackController:
@@ -206,12 +223,14 @@ class PrecondFallbackController:
 
 
 def walker_sweep(ctx: QMCContext, states: WalkerStates, params: HMCParams, draws: Sequence[WalkerDraws],
-                 shared_precond: bool = True, mus: Optional[torch.Tensor] = None, recenter=None):
+                 shared_precond: bool = True, mus: Optional[torch.Tensor] = None, recenter=None,
+                 v_shared: Optional[torch.Tensor] = None):
     """One (reflection + swap [+ radial] + HMC) sweep of every walker, walker
     w with draws[w] (radial where draws[w].radial is set) and, with mus (W,)
     float64, at chemical potential mus[w]. With shared_precond the
     preconditioner is refreshed once per sweep from the walker-mean fermion
-    matrix at the walker-mean mu and the W trajectories run as one batch, at
+    matrix at the walker-mean mu (a KPM preconditioner's Lanczos iteration
+    from v_shared, `draw_shared`) and the W trajectories run as one batch, at
     W >= 2 with fused_step_force (every force solve through K3, as the JAX
     package's walker_sweep sets it); otherwise each walker refreshes its own
     preconditioner at trajectory start and runs its own trajectory (the JAX
@@ -224,7 +243,7 @@ def walker_sweep(ctx: QMCContext, states: WalkerStates, params: HMCParams, draws
         if ctx.refresh_precond_global or params.refresh_precond_every_step:
             raise ValueError("a walker batch shares one preconditioner, refreshed once a sweep: "
                              "refresh_precond_global and refresh_precond_every_step need shared_precond=False")
-        states = shared_precond_refresh(ctx if mus is None else with_mu(ctx, mus.mean()), states)
+        states = shared_precond_refresh(ctx if mus is None else with_mu(ctx, mus.mean()), states, v_shared)
         params = dataclasses.replace(params, refresh_precond_at_start=False)
         if W >= 2:
             params = dataclasses.replace(params, fused_step_force=True)

@@ -454,8 +454,9 @@ def test_real_kernels_refuse_complex_fermion_matrix():
 def test_run_updates_complex_on_cpu(symmetric, monkeypatch):
     """The complex chain through the driver on CPU tensors, matrix-free KPM:
     every solve converges, KPM stays active, the complex M^dag M and K8's
-    plain version run and no real-hopping kernel is reached; the walker path
-    with complex hoppings is refused."""
+    plain version run and no real-hopping kernel is reached; 'auto' (the
+    doubled-basis spectral preconditioner) converges at W = 1 and on the
+    walker path at W = 2."""
     from smoqyelphqmc_tpu_torch.ops import kpm as pkpm
 
     _, tbm, em = complex_chain_model(8)
@@ -470,5 +471,6 @@ def test_run_updates_complex_on_cpu(symmetric, monkeypatch):
     assert KPM_MF_CPLX.plain_calls > k8 and all(c.plain_calls > c0 for c, c0 in zip(CPLX_MTM.values(), cplx))
     auto = run_updates(tbm, em, dataclasses.replace(cfg, preconditioner="auto"), 1, device="cpu")
     assert auto["all_converged"] and "kpm_active" not in auto
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_updates(tbm, em, dataclasses.replace(cfg, preconditioner="auto", n_walkers=2), 1, device="cpu")
+    walk = run_updates(tbm, em, dataclasses.replace(cfg, preconditioner="auto", n_walkers=2), 1, device="cpu")
+    assert walk["all_converged"] and walk["walker_converged"] == [True, True]
+    assert np.isfinite(walk["hmc_delta_H"]).all() and "kpm_active" not in walk

@@ -1306,3 +1306,210 @@ def test_fused_force_ssh_launches_no_k4(cuda_device):
     assert force.FORCE.launches == 0 and pcg_force.PCG_FORCE.launches == 0
     for c in counters[:3]:
         assert c.launches > 0 and c.plain_calls == 0, c.name
+
+
+# ----------------------------------------------------------------------
+# the walker path with KPM and complex hoppings
+# ----------------------------------------------------------------------
+
+
+def _walker_states(device, tbm, em, preconditioner, W=2, symmetric=True, beta=1.0, seed=3):
+    """The context and W jittered walkers (0.1 N(0, 1)) of a model, with the
+    preconditioner built from a drawn start vector."""
+    from smoqyelphqmc_tpu_torch.parallel.walkers import init_walker_states
+    from smoqyelphqmc_tpu_torch.updates.context import initialize_qmc
+
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=device)
+    elph = ElectronPhononParameters.from_model(beta, 0.1, em, tbp, rng, device=device)
+    gen = torch.Generator().manual_seed(seed)
+    n = tbp.n_sites * (2 if tbp.t0_im is not None else 1)
+    ctx, state = initialize_qmc(tbp, elph, symmetric=symmetric, preconditioner=preconditioner,
+                                mixed_precision=True, force_dtype="float32",
+                                lanczos_v0=torch.randn(n, generator=gen, dtype=torch.float64))
+    noise = 0.1 * torch.randn((W,) + tuple(state.x.shape), generator=gen, dtype=torch.float64)
+    return ctx, init_walker_states(ctx, state, noise), gen
+
+
+def _walker_mean_operands(ctx, states, gen):
+    """The matrix-free operands of the shared refresh from the walker mean."""
+    from smoqyelphqmc_tpu_torch.parallel.walkers import draw_shared, shared_precond_refresh
+
+    pre = shared_precond_refresh(ctx, states, draw_shared(gen, ctx, states.precond[0])).precond[0]
+    assert pre.matrix_free and pre.active
+    return pre.mf_operands()
+
+
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_kernel_walker_mean_tables(cuda_device, symmetric):
+    """K6 / K7 against their plain versions on the stage tables of the shared
+    refresh from the walker mean of W = 8 walkers (honeycomb L=48)."""
+    geo, tbm, em = holstein_honeycomb_model(48, 1.0, 1.5, 0.0)
+    ctx, states, gen = _walker_states(cuda_device, tbm, em, "kpm", W=8, symmetric=symmetric)
+    _check_kpm_mf(_walker_mean_operands(ctx, states, gen), cuda_device)
+
+
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_mf_cplx_kernel_walker_mean_tables(cuda_device, symmetric):
+    """K8 against its plain version on the stage tables (S_im included) of
+    the shared refresh from the walker mean of W = 8 complex-chain walkers
+    (N = 1152)."""
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
+
+    geo, tbm, em = complex_chain_model(1152)
+    ctx, states, gen = _walker_states(cuda_device, tbm, em, "kpm", W=8, symmetric=symmetric)
+    ops = _walker_mean_operands(ctx, states, gen)
+    assert ops.S_im is not None
+    _check_k8(ops, cuda_device)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "perwalker"])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_run_updates_kpm_walkers_launch_k1_k6_k7(cuda_device, symmetric, shared):
+    """preconditioner='kpm' at N = 1152 and W = 2, with the shared refresh
+    and per walker: every walker's solves apply K1 and K6 (symmetric) or K7
+    (asymmetric); K3 stays off and no plain version runs."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+
+    geo, tbm, em = holstein_honeycomb_model(24, 1.0, 0.6, 0.0)
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE, force.FORCE,
+                kpm_mf.KPM_MF, kpm_mf.KPM_MF_ASYM)
+    for c in counters:
+        c.reset()
+    cfg = SimulationConfig(beta=1.0, dtau=0.1, Nt=4, seed=2, symmetric=symmetric, preconditioner="kpm",
+                           n_walkers=2, shared_precond=shared)
+    md = run_updates(tbm, em, cfg, 1, device=cuda_device)
+    assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
+    assert md["kpm_active"] and md["kpm_inactive_walkers"] == 0
+    kpm = kpm_mf.KPM_MF if symmetric else kpm_mf.KPM_MF_ASYM
+    assert kpm.launches > 0 and mtm.MTM[torch.float32].launches > 0 and mtm.MTM[torch.float64].launches > 0
+    assert pcg_force.PCG_FORCE.launches == 0 and pcg.PCG.launches == 0
+    for c in counters:
+        assert c.plain_calls == 0, c.name
+
+
+def test_run_updates_complex_kpm_walkers_launch_k8(cuda_device):
+    """The complex chain at N = 1152, W = 2, preconditioner='kpm': K8 is the
+    only kernel launched, no plain version of a kernel runs."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
+
+    geo, tbm, em = complex_chain_model(1152)
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE, force.FORCE,
+                kpm_mf.KPM_MF, kpm_mf.KPM_MF_ASYM, kpm_mf.KPM_MF_CPLX)
+    for c in counters:
+        c.reset()
+    cfg = SimulationConfig(beta=1.0, dtau=0.1, Nt=4, seed=2, preconditioner="kpm", n_walkers=2)
+    md = run_updates(tbm, em, cfg, 1, device=cuda_device)
+    assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all() and md["kpm_active"]
+    assert kpm_mf.KPM_MF_CPLX.launches > 0
+    for c in counters:
+        assert c.plain_calls == 0, c.name
+        assert c.launches == 0 or c is kpm_mf.KPM_MF_CPLX, c.name
+
+
+def _gpu_cpu_walkers(device, tbm, em, **kw):
+    """run_updates at W = 2 on the card and on the CPU from the same seed:
+    the same accept decisions, the fields to 1e-4 relative (f32 force solves
+    at tol 1e-5 with sums in another order)."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+
+    cfg = SimulationConfig(**dict(dict(beta=1.0, dtau=0.1, Nt=4, seed=4, n_walkers=2), **kw))
+    gpu = run_updates(tbm, em, cfg, 2, device=device)
+    cpu = run_updates(tbm, em, cfg, 2, device="cpu")
+    assert gpu["all_converged"] and cpu["all_converged"]
+    for k in ("reflection", "swap", "hmc"):
+        assert gpu[f"{k}_acceptance_rate"] == cpu[f"{k}_acceptance_rate"], k
+    xg, xc = gpu["x_final"].cpu(), cpu["x_final"]
+    assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-4
+    return gpu, cpu
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "perwalker"])
+@pytest.mark.parametrize("symmetric", SYM)
+def test_kpm_walkers_gpu_matches_cpu(cuda_device, symmetric, shared, monkeypatch):
+    """The matrix-free KPM walker path (K1, K6 / K7 on the card, their plain
+    versions on the CPU) on the honeycomb L=3 at W = 2."""
+    from smoqyelphqmc_tpu_torch.ops import kpm as pkpm
+
+    monkeypatch.setattr(pkpm, "MATRIX_FREE_MIN_SITES", 0)
+    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.6, 0.0)
+    gpu, _ = _gpu_cpu_walkers(cuda_device, tbm, em, preconditioner="kpm", symmetric=symmetric,
+                              shared_precond=shared)
+    assert gpu["kpm_active"]
+
+
+@pytest.mark.parametrize("kind", ["auto", "kpm"])
+def test_complex_walkers_gpu_matches_cpu(cuda_device, kind, monkeypatch):
+    """The complex chain (N = 8) at W = 2 with the doubled-basis spectral
+    preconditioner and with matrix-free KPM (K8 on the card)."""
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
+    from smoqyelphqmc_tpu_torch.ops import kpm as pkpm
+
+    monkeypatch.setattr(pkpm, "MATRIX_FREE_MIN_SITES", 0)
+    geo, tbm, em = complex_chain_model(8)
+    kpm_mf.KPM_MF_CPLX.reset()
+    _gpu_cpu_walkers(cuda_device, tbm, em, preconditioner=kind, beta=2.0)
+    assert (kpm_mf.KPM_MF_CPLX.launches > 0) == (kind == "kpm")
+
+
+def test_complex_ssh_walkers_gpu_matches_cpu(cuda_device):
+    """The complex-SSH chain (the SSH constant 0.4 + 0.25i on real hoppings,
+    tests/test_complex_hoppings.py:242) at W = 2: each walker's own complex
+    hopping tables, the doubled-basis spectral preconditioner."""
+    from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononModel, PhononMode, SSHCoupling
+    from smoqyelphqmc_tpu_torch.models.library import chain_geometry
+    from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingModel
+
+    geo, bond = chain_geometry(8)
+    tbm = TightBindingModel(geo, [bond], [1.0], [0.0], mu=0.1)
+    em = ElectronPhononModel(geo, tbm)
+    p = em.add_phonon_mode(PhononMode([0.0], 1.0))
+    em.add_ssh_coupling(SSHCoupling(phonon_ids=(p, p), bond=bond, alpha_mean=0.4 + 0.25j))
+    _gpu_cpu_walkers(cuda_device, tbm, em, beta=0.6)
+
+
+@pytest.mark.parametrize("model", ["honeycomb", "complex_chain"])
+def test_simulate_kpm_walkers_on_gpu(cuda_device, tmp_path, model):
+    """The measured walker path with matrix-free KPM at W = 2 (N = 1152):
+    each walker's estimator refresh runs the CG path with its KPM
+    preconditioner (K1 + K6 on the honeycomb, K8 on the complex chain), never
+    K2 (spectral and real) or a plain version; the bins are finite."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, simulate
+    from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
+    from smoqyelphqmc_tpu_torch.measure.container import MeasurementSpec
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model, holstein_honeycomb_spec
+
+    if model == "honeycomb":
+        geo, tbm, em = holstein_honeycomb_model(24, 1.0, 0.6, 0.0)
+        spec, path = holstein_honeycomb_spec(geo), (mtm.MTM[torch.float32], kpm_mf.KPM_MF)
+    else:
+        geo, tbm, em = complex_chain_model(1152)
+        spec = MeasurementSpec(geometry=geo)
+        spec.add_correlation("greens", [(0, 0)], time_displaced=True)
+        spec.add_correlation("current", [(tbm.bond_ids[0], tbm.bond_ids[0])], integrated=True)
+        path = (kpm_mf.KPM_MF_CPLX,)
+    cfg = SimulationConfig(beta=1.0, dtau=0.1, N_therm=1, N_measurements=2, N_bins=1, Nt=4, Nrv=4, seed=2,
+                           n_walkers=2, preconditioner="kpm")
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE, force.FORCE,
+                kpm_mf.KPM_MF, kpm_mf.KPM_MF_ASYM, kpm_mf.KPM_MF_CPLX)
+    for c in counters:
+        c.reset()
+    run = simulate(SimulationInfo(filepath=str(tmp_path), datafolder_prefix=model, sID=1), tbm, em, spec, cfg,
+                   device=cuda_device)
+    bins = []
+    while True:
+        try:
+            bins.append(next(run))
+        except StopIteration as done:
+            md, finished = done.value
+            break
+    assert finished and md["all_converged"] and md["kpm_active"] and [b[:2] for b in bins] == [(0, 0), (1, 0)]
+    for c in path:
+        assert c.launches > 0, c.name
+    assert pcg.PCG.launches == 0 and pcg_force.PCG_FORCE.launches == 0
+    for c in counters:
+        assert c.plain_calls == 0, c.name
+    for _, _, tree in bins:
+        for name, (re, im) in tree["correlations"].items():
+            assert np.all(np.isfinite(re)) and np.all(np.isfinite(im)), name

@@ -265,8 +265,8 @@ def test_entry_points_default_to_cuda():
 
 def test_run_updates_kpm_on_cpu():
     """preconditioner='kpm' through the driver on CPU tensors (the dense apply
-    at this size): every solve converges, the diagnostics are recorded, and
-    the walker path with KPM is refused."""
+    at this size): every solve converges and the diagnostics are recorded,
+    at W = 1 and on the walker path at W = 2."""
     geo, tbm, em = holstein_honeycomb_model(2, 1.0, 0.5, 0.0)
     cfg = SimulationConfig(beta=1.0, dtau=0.1, Nt=4, seed=3, preconditioner="kpm")
     md = run_updates(tbm, em, cfg, 2, device="cpu")
@@ -274,6 +274,7 @@ def test_run_updates_kpm_on_cpu():
     assert md["kpm_active"] is True and md["kpm_inactive_walkers"] == 0 and md["kpm_order_clip_count"] == 0
     spectral = run_updates(tbm, em, SimulationConfig(beta=1.0, dtau=0.1, Nt=4, seed=3), 1, device="cpu")
     assert "kpm_active" not in spectral
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_updates(tbm, em, SimulationConfig(beta=1.0, dtau=0.1, Nt=4, preconditioner="kpm", n_walkers=2), 1,
-                    device="cpu")
+    md2 = run_updates(tbm, em, SimulationConfig(beta=1.0, dtau=0.1, Nt=4, preconditioner="kpm", n_walkers=2), 1,
+                      device="cpu")
+    assert md2["all_converged"] and md2["walker_converged"] == [True, True]
+    assert np.isfinite(md2["hmc_delta_H"]).all() and md2["kpm_active"] is True and md2["kpm_inactive_walkers"] == 0

@@ -15,8 +15,8 @@ K1's tau-blocked pair stages); the SSH energy from the same R and GR to
 tests/test_torch_measure.py holds the other measurements).
 
 Also here: the gate that keeps kernels K3 and K4 (Holstein force planes)
-off a model with SSH couplings, and the walker path's refusal of complex SSH
-constants at W >= 2 (ROADMAP Queue 1, item 21).
+off a model with SSH couplings, and the walker path at W = 2 with complex
+SSH constants.
 """
 
 import dataclasses
@@ -357,14 +357,16 @@ def test_holstein_kernels_gated_off_ssh():
         assert torch.equal(r.force, res[-1].force)
 
 
-def test_complex_ssh_walkers_raise():
+def test_complex_ssh_walkers_run():
     """Complex SSH constants on real hoppings make M complex: the walker
-    path refuses them at W >= 2 as it refuses complex hoppings (item 21),
-    and runs them at W = 1 with the doubled-basis spectral preconditioner."""
+    path runs them at W = 2 with the doubled-basis spectral preconditioner,
+    with the shared refresh and per walker, as it runs them at W = 1."""
     _, tbm, _, em, _ = build(P, "complex_ssh_chain")
     cfg = SimulationConfig(beta=0.6, dtau=0.1, Nt=4, n_walkers=2)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        run_updates(tbm, em, cfg, 1, device="cpu")
+    for shared in (True, False):
+        md = run_updates(tbm, em, dataclasses.replace(cfg, shared_precond=shared), 1, device="cpu")
+        assert md["all_converged"] and md["walker_converged"] == [True, True]
+        assert np.isfinite(md["hmc_delta_H"]).all() and md["precond_fallback_sweeps"] == (0 if shared else 1)
     md = run_updates(tbm, em, dataclasses.replace(cfg, n_walkers=1), 1, device="cpu")
     assert md["all_converged"] and np.isfinite(md["hmc_delta_H"][0])
 
