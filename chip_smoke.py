@@ -141,10 +141,25 @@ Phases, one line each:
      chain (N_therm=1, N_measurements=2, N_bins=1, Nrv=10) on the GPU and
      the CPU: bins finite, accept flags equal, the bins to 1e-4 of each
      observable's largest magnitude; the GPU run interrupted after every
-     sweep and resumed must repeat its bins bit for bit.
+     sweep and resumed must repeat its bins bit for bit;
+ 32. sweep batching at full width: the measured walker path of 10a (W=8)
+     with sweeps_per_dispatch=2 against the same run at k=1: accept flags
+     equal, bins within 1e-5 of each observable's largest magnitude; the
+     line gives the fields' relative difference, whether the runs agree
+     bit for bit and both runs' s per measured sweep;
+ 33. a walker fleet of 2 processes of this script (`--fleet-worker`) on
+     the one card, 4 walkers each (K3 at (4, 2, 240, 288), K2 and K1 f64),
+     gloo for the gathers, at 32's configuration, against 32's k=1 run:
+     accept flags equal, fields within 1e-6 relative, bins within 1e-5;
+     each rank's launches and s per measured sweep; a failed rank fails the
+     phase;
+ 34. kill and resume of a 2-process fleet at sweeps_per_dispatch=2 on the
+     honeycomb L=3, beta=2 (W=4): runtime limit 0 leaves one checkpoint a
+     process, the relaunched fleet must repeat the uninterrupted fleet's
+     bins bit for bit (in memory: the card's machine has no h5py).
 Each path (5, 5a, 7, 10, 10a, 10b, 11, 15, 16, 19, 20, 21, 24, 25, 27, 28,
-29) is driven with every kernel count set to 0 just before it and read
-just after; the launches of K1 and K2 in the kernels line are the measured
+29, 32 and each rank's in 33) is driven with every kernel count set to 0
+just before it and read just after; the launches of K1 and K2 in the kernels line are the measured
 main path's (5a), K3's the measured walker path's (10a), those of the
 tau-table entries the measured SSH path's (24), K6's those of 15 and 27,
 K7's of 16 and 28, K8's of 19 and 29. Then one JSON line of kernel results,
@@ -708,6 +723,26 @@ def check_bins(bins, n_bins, tag, n_walkers=1):
     return leaves
 
 
+def bins_rel_diff(leaves, ref_leaves) -> float:
+    """The largest difference of two runs' bin leaves, each over its
+    observable's largest magnitude in ref_leaves (the NaN globals left out)."""
+    import numpy as np
+
+    worst = 0.0
+    for k, ref in ref_leaves.items():
+        if k[2] not in NAN_GLOBALS:
+            worst = max(worst, float(np.max(np.abs(leaves[k] - ref)) / max(float(np.max(np.abs(ref))), 1e-300)))
+    return worst
+
+
+def same_bins(leaves, ref_leaves) -> bool:
+    """Whether two runs' bin leaves are equal bit for bit (NaN where NaN)."""
+    import numpy as np
+
+    return set(leaves) == set(ref_leaves) and all(np.array_equal(leaves[k], v, equal_nan=True)
+                                                  for k, v in ref_leaves.items())
+
+
 def measured_config(h=HEADLINE, **kw):
     return headline_config(h, measurement_dtype="float32", **{**MEASURED, **kw})
 
@@ -755,25 +790,28 @@ def phase_measured(results, card):
 class SweepSpy:
     """Records the accept flags of every sweep the driver runs, in the order
     the updates ran (W = 1: `driver.sweep`; W >= 2: `driver.walker_sweep`,
-    one tuple a walker), and each sweep's HMC Delta H (one a walker), by
-    wrapping both while the block runs."""
+    one tuple a walker), each sweep's HMC Delta H (one a walker) and the
+    last sweep's fields (a CPU copy), by wrapping both while the block
+    runs."""
 
     def __enter__(self):
         from smoqyelphqmc_tpu_torch import driver
 
-        self.flags, self.dH, self._orig = [], [], (driver.sweep, driver.walker_sweep)
+        self.flags, self.dH, self.x, self._orig = [], [], None, (driver.sweep, driver.walker_sweep)
         one, walkers = self._orig
 
         def spy_one(*args, **kw):
             state, st = one(*args, **kw)
             self.flags.append(tuple(bool(s.accepted) for s in st))
             self.dH.append(st.hmc.delta_H)
+            self.x = state.x.cpu().clone()
             return state, st
 
         def spy_walkers(*args, **kw):
             states, st = walkers(*args, **kw)
             self.flags.append(tuple(tuple(bool(u.accepted) for u in ups) for ups in st))
             self.dH.append([h.delta_H for h in st.hmc])
+            self.x = states.x.cpu().clone()
             return states, st
 
         driver.sweep, driver.walker_sweep = spy_one, spy_walkers
@@ -798,8 +836,6 @@ def phase_measured_small_reference(L=3, beta=2.0, h=HEADLINE, **kw):
     the tutorial set by default) and its measurement set."""
     import dataclasses
     import tempfile
-
-    import numpy as np
 
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig
     from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
@@ -829,13 +865,8 @@ def phase_measured_small_reference(L=3, beta=2.0, h=HEADLINE, **kw):
         resumed.update(bins)
         t2 = time.perf_counter()
     (gmd, gflags, gleaves), (cmd, cflags, cleaves) = runs["cuda"], runs["cpu"]
-    worst = 0.0
-    for k, ref in cleaves.items():
-        if k[2] not in NAN_GLOBALS:
-            worst = max(worst, float(np.max(np.abs(gleaves[k] - ref)) / max(float(np.max(np.abs(ref))), 1e-300)))
-    rleaves = bin_leaves(resumed)
-    same_bits = set(rleaves) == set(gleaves) and all(np.array_equal(rleaves[k], v, equal_nan=True)
-                                                      for k, v in gleaves.items())
+    worst = bins_rel_diff(gleaves, cleaves)
+    same_bits = same_bins(bin_leaves(resumed), gleaves)
     controls = [k for k in ("final_mu", "final_mu_per_walker", "hmc_dt_final") if k in gmd]
     same_controls = all(rmd.get(k) == gmd[k] for k in controls)
     opts = {k: v for k, v in kw.items()}
@@ -1676,6 +1707,202 @@ def phase_ssh_small_references():
     phase_small_reference(L=4, beta=0.6, preconditioner="auto", h=COMPLEX_SSH)
 
 
+# ----------------------------------------------------------------------
+# Sweep batching and the walker fleet (32-34)
+# ----------------------------------------------------------------------
+
+FLEET_PROCESSES = 2
+# the killed-and-resumed fleet: honeycomb L=3, beta=2, 2 walkers a process,
+# batches of 2 sweeps
+SMALL_FLEET = dict(L=3, beta=2.0, n_walkers=4, sweeps_per_dispatch=2)
+
+
+def measured_walkers_run(cfg, tag):
+    """`simulate` at the headline with cfg (W >= 2) on the card, the bins in
+    memory, driven with every count set to 0 just before it and read just
+    after (K1 f64, K2 and K3 must launch, no plain version run); in a fleet
+    this process's walkers. Returns the bins, metadata, accept flags, last
+    fields, counts and s per measured sweep."""
+    import tempfile
+
+    from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
+
+    h = HEADLINE
+    geo, tbm, em = model_of(h)
+    spec = spec_of(h, geo, tbm)
+    with tempfile.TemporaryDirectory() as tmp:
+        info = SimulationInfo(filepath=tmp, datafolder_prefix="walkers", sID=1)
+        t0 = time.perf_counter()
+        with SweepSpy() as spy:
+            (bins, md, finished), counts = drive_path(
+                lambda: simulate_in_memory(info, tbm, em, spec, cfg, MAIN_DEVICE), ("mtm_f64", "pcg", "pcg_force"))
+        wall = time.perf_counter() - t0
+    if not (finished and md["all_converged"]):
+        fail(f"{tag} did not finish or converge ({finished}, {md['all_converged']})")
+    return dict(bins=bins, md=md, flags=spy.flags, x=spy.x, counts=counts, wall=wall,
+                per_sweep=md["t_measure_s"] / md["n_measure_timed"])
+
+
+def field_rel_diff(x, ref) -> float:
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+def phase_batching(card):
+    """32. The measured walker path at full width (10a's configuration: the
+    headline, W = N_WALKERS, the tutorial set) with sweeps_per_dispatch=2
+    against the same run at k = 1: accept flags equal, bins within 1e-5 of
+    each observable's largest magnitude. Returns the k = 1 run (phase 33's
+    reference)."""
+    runs = {k: measured_walkers_run(measured_config(n_walkers=N_WALKERS, sweeps_per_dispatch=k),
+                                    f"the batching run k={k}") for k in (1, 2)}
+    one, two = runs[1], runs[2]
+    for r in runs.values():
+        check_bins(r["bins"], r["md"]["N_bins"], "the batching run", N_WALKERS)
+    leaves1, leaves2 = bin_leaves(one["bins"]), bin_leaves(two["bins"])
+    worst, err = bins_rel_diff(leaves2, leaves1), field_rel_diff(two["x"], one["x"])
+    same_flags = one["flags"] == two["flags"]
+    bits = same_bins(leaves2, leaves1) and err == 0.0
+    say(f"batching on {card}: simulate W={N_WALKERS} L={HEADLINE['L']} beta={HEADLINE['beta']} "
+        f"N_therm={one['md']['N_therm']} N_measurements={one['md']['N_measurements']} sweeps_per_dispatch 2 against "
+        f"1: accept flags equal {same_flags}; fields max rel diff {err:.3e}; bins max rel diff {worst:.3e} (tol 1e-5); "
+        f"bit for bit {bits}; first batches k=2 therm {two['md']['n_first_therm_batch']} measured "
+        f"{two['md']['n_first_measured_batch']}; s per measured sweep k=1 {one['per_sweep']:.4f} k=2 "
+        f"{two['per_sweep']:.4f}; fallback sweeps k=1 {one['md']['precond_fallback_sweeps']} k=2 "
+        f"{two['md']['precond_fallback_sweeps']}; launches/plain calls k=1 {one['counts']} k=2 {two['counts']}")
+    if not (same_flags and worst <= 1e-5):
+        fail("sweeps_per_dispatch=2 changed the measured walker path's accept flags or bins beyond 1e-5")
+    return one
+
+
+def small_fleet_run(job, folder):
+    """Phase 34's run in a fleet process: the measured run on the honeycomb
+    L=3, beta=2 at SMALL_FLEET into `folder` on the card, the bins in
+    memory: 'ref' to the end, 'stop' with runtime limit 0 (it stops after its
+    first batch and checkpoints), 'resume' from that checkpoint to the end."""
+    import dataclasses
+
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig
+    from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
+
+    small = dict(SMALL_FLEET)
+    L, beta = small.pop("L"), small.pop("beta")
+    geo, tbm, em = model_of(HEADLINE, L)
+    spec = spec_of(HEADLINE, geo, tbm)
+    cfg = SimulationConfig(**{**dict(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner="spectral"), **MEASURED,
+                              **small})
+    if job == "stop":
+        cfg = dataclasses.replace(cfg, runtime_limit_hours=0.0)
+    info = SimulationInfo(filepath=folder, datafolder_prefix="ref" if job == "ref" else "interrupted", sID=1)
+    bins, md, finished = simulate_in_memory(info, tbm, em, spec, cfg, MAIN_DEVICE)
+    return dict(bins=bins, finished=finished, datafolder=info.datafolder)
+
+
+def fleet_worker(spec: dict) -> None:
+    """One process of the fleet phases (`chip_smoke.py --fleet-worker
+    JSON`): joins the gloo group of spec['world'] processes, its compute on
+    the card (cuda:0 for every rank of one card), runs spec['jobs'] and
+    pickles their results to <out>/rank<r>-<launch>.pkl."""
+    import pickle
+
+    from smoqyelphqmc_tpu_torch.parallel.distributed import initialize_distributed, local_walker_ids
+
+    initialize_distributed(f"file://{spec['init']}", spec["world"], spec["rank"])
+    out = {"owned": list(local_walker_ids(N_WALKERS))}
+    for job in spec["jobs"]:
+        if job == "full":
+            out[job] = measured_walkers_run(measured_config(n_walkers=N_WALKERS), f"fleet rank {spec['rank']}")
+        else:
+            out[job] = small_fleet_run(job, os.path.join(spec["out"], "small"))
+    with open(os.path.join(spec["out"], f"rank{spec['rank']}-{spec['launch']}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def launch_fleet(jobs, out, launch, timeout=600.0):
+    """Run `jobs` in a fleet of FLEET_PROCESSES processes of this script on
+    this card; returns each rank's results. A rank that fails fails the
+    phase and ends the others."""
+    import pickle
+
+    from smoqyelphqmc_tpu_torch.parallel.distributed import spawn_processes
+
+    init = os.path.join(out, f"pg-{launch}")
+    spec = dict(init=init, world=FLEET_PROCESSES, jobs=list(jobs), out=out, launch=launch)
+    logs = [os.path.join(out, f"log{r}-{launch}.txt") for r in range(FLEET_PROCESSES)]
+    codes = spawn_processes([[sys.executable, os.path.abspath(__file__), "--fleet-worker",
+                              json.dumps({**spec, "rank": r})] for r in range(FLEET_PROCESSES)], logs, timeout)
+    bad = [(r, code) for r, code in enumerate(codes) if code != 0]
+    if bad:
+        for r, _ in bad:
+            with open(logs[r]) as f:
+                print(f"--- fleet rank {r} ({launch}):\n{f.read()[-3000:]}", file=sys.stderr)
+        fail(f"fleet ranks failed or timed out (rank, code): {bad}")
+    results = []
+    for r in range(FLEET_PROCESSES):
+        with open(os.path.join(out, f"rank{r}-{launch}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+def merged_bins(ranks, job):
+    bins = {}
+    for r in ranks:
+        bins.update(r[job]["bins"])
+    return bins
+
+
+def phase_fleet(card, single):
+    """33. A fleet of FLEET_PROCESSES processes on this one card, N_WALKERS
+    walkers split in blocks (K3 at 4 walkers a launch), gloo for the
+    gathers, against `single` (phase 32's one-process run): accept flags
+    equal, fields within 1e-6 relative, bins within 1e-5; each rank's
+    launches of K1 f64, K2 and K3 and its s per measured sweep. 34. Kill and
+    resume of a fleet at sweeps_per_dispatch=2 on the honeycomb L=3, beta=2:
+    runtime limit 0 leaves one checkpoint a process; relaunched, the fleet
+    must repeat the uninterrupted fleet's bins bit for bit."""
+    import glob
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        ranks = launch_fleet(["full", "ref", "stop"], out, "a")
+        t1 = time.perf_counter()
+        folder = ranks[0]["stop"]["datafolder"]
+        cps = [len(glob.glob(os.path.join(folder, f"checkpoint_pID-{r}_slot-*.pkl"))) for r in range(FLEET_PROCESSES)]
+        resumed = launch_fleet(["resume"], out, "b")
+        t2 = time.perf_counter()
+    full = [r["full"] for r in ranks]
+    owned = [r["owned"] for r in ranks]
+    bins = merged_bins(ranks, "full")
+    leaves = check_bins(bins, single["md"]["N_bins"], "the fleet", N_WALKERS)
+    worst = bins_rel_diff(leaves, bin_leaves(single["bins"]))
+    flags = [tuple(sum((r["flags"][s][u] for r in full), ()) for u in range(len(f)))
+             for s, f in enumerate(single["flags"])] if all(len(r["flags"]) == len(single["flags"]) for r in full) \
+        else None
+    err = field_rel_diff(torch.cat([r["x"] for r in full]), single["x"])
+    bits = err == 0.0 and same_bins(leaves, bin_leaves(single["bins"]))
+    say(f"fleet on {card}: {FLEET_PROCESSES} processes x {N_WALKERS // FLEET_PROCESSES} walkers (owned {owned}) on "
+        f"one card, gloo, simulate W={N_WALKERS} L={HEADLINE['L']} beta={HEADLINE['beta']} against one process: "
+        f"accept flags equal {flags == single['flags']}; fields max rel diff {err:.3e} (tol 1e-6); bins max rel diff "
+        f"{worst:.3e} (tol 1e-5); bit for bit {bits}; s per measured sweep by rank "
+        f"{[round(r['per_sweep'], 4) for r in full]} against one process {single['per_sweep']:.4f}; fallback sweeps "
+        f"{[r['md']['precond_fallback_sweeps'] for r in full]}; launches/plain calls by rank "
+        f"{[r['counts'] for r in full]}; {t1 - t0:.1f} s for the first launch (with phase 34's runs)")
+    if not (flags == single["flags"] and err <= 1e-6 and worst <= 1e-5):
+        fail("the fleet's chains disagree with one process's (flags, fields 1e-6 or bins 1e-5)")
+    ref, res = bin_leaves(merged_bins(ranks, "ref")), bin_leaves(merged_bins(resumed, "resume"))
+    stopped = [r["stop"]["finished"] for r in ranks]
+    finished = [r["resume"]["finished"] for r in resumed]
+    same = same_bins(res, ref) and len(ref) > 0
+    say(f"fleet kill and resume on {card}: honeycomb L={SMALL_FLEET['L']} beta={SMALL_FLEET['beta']} "
+        f"W={SMALL_FLEET['n_walkers']} sweeps_per_dispatch {SMALL_FLEET['sweeps_per_dispatch']}: stopped runs finished "
+        f"{stopped}, checkpoints a rank {cps}; resumed runs finished {finished}; bins {len(res)} leaves, bit for bit "
+        f"with the uninterrupted fleet {same}; {t2 - t1:.1f} s for the relaunch")
+    if any(stopped) or min(cps) < 1 or not all(finished) or not same:
+        fail("the killed and resumed fleet did not repeat the uninterrupted fleet's bins bit for bit")
+
+
 def main() -> None:
     try:
         import torch
@@ -1688,6 +1915,9 @@ def main() -> None:
         fail("smoqyelphqmc_tpu_torch/ not found beside chip_smoke.py: run it from a checkout", 3)
     sys.path.insert(0, str(root))
     os.chdir(root)
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        fleet_worker(json.loads(sys.argv[2]))
+        return
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1762,6 +1992,8 @@ def main() -> None:
     phase_small_reference(n_walkers=2, L=4, beta=0.6, preconditioner="auto", h=COMPLEX_SSH)
     phase_measured_small_reference(L=24, beta=1.0, preconditioner="kpm", n_walkers=2, N_therm=1, N_measurements=2,
                                    N_bins=1)
+    # sweep batching and the walker fleet (32-34)
+    phase_fleet(card, phase_batching(card))
     # K8's entry carries its symmetric instantiation's times (the asymmetric
     # one's are on its own line above), the larger error of the two, and the
     # launches of both complex KPM paths

@@ -1,14 +1,32 @@
 """The simulation driver (port of the JAX package's driver.py).
 
-`run_simulation` is the measured simulation on one host (the JAX
-run_simulation with one sweep per dispatch): model expansion from
-`cfg.seed`, thermalization sweeps, measured sweeps (a sweep, the
-Green's-estimator refresh, the measurement pass and device-side bin sums), a
-bin written every N_measurements // N_bins sweeps, wall-clock-gated
-checkpoints with runtime-limit self-termination, bit-identical resume, and
-the final statistics (merged bins, stats.h5, CSVs, simulation_info.toml).
-Its loop is `simulate`, a generator that yields the bins in memory and
-needs no h5py; only the HDF5 writing and post-processing import h5py.
+`run_simulation` is the measured simulation (the JAX run_simulation and
+_run_multiwalker): model expansion from `cfg.seed`, thermalization sweeps,
+measured sweeps (a sweep, the Green's-estimator refresh, the measurement
+pass and the bin sums), a bin written every N_measurements // N_bins
+sweeps, wall-clock-gated checkpoints with runtime-limit self-termination,
+bit-identical resume, and the final statistics (merged bins, stats.h5, CSVs,
+simulation_info.toml). Its loop is `simulate`, a generator that yields the
+bins in memory and needs no h5py; only the HDF5 writing and post-processing
+import h5py.
+
+Sweeps run in batches of `cfg.sweeps_per_dispatch` on the JAX package's
+absolute grid (`_batch`): a batch ends at a multiple of k, at the end of its
+phase and, when measuring, at the next bin end, so a resumed run partitions
+its sweeps as an uninterrupted one does; mu tuning forces k = 1. Each sweep
+of a batch records its statistics, its timestep-law step and its bin sums as
+at k = 1; once a batch come the fallback controller's choice and feedback,
+the checkpoint and stop decisions and the timing points. The port runs
+eagerly, so a batch coarsens the host's bookkeeping and replays nothing.
+
+In a fleet (`parallel.distributed`: P processes, one a card) each process
+runs the walkers of its block (`local_walker_ids`), with the chains one
+process with all W walkers gives: the shared refresh, the controller, the
+timestep law and the metadata's walker means read every walker's values
+(gathered); rank 0 alone creates the data folder (its sID broadcast), writes
+the model summary, decides when to checkpoint and stop, and runs the final
+merge and statistics; each process yields and writes the bins of its own
+pIDs and checkpoints its block under its rank.
 
 At `cfg.n_walkers` = 1 every random number comes from one `torch.Generator`
 seeded with `cfg.seed`; at W >= 2 each walker has its own generator, seeded
@@ -52,7 +70,7 @@ from typing import Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .io.checkpoint import delete_checkpoints, read_checkpoint, runtime_exceeded, write_checkpoint
+from .io.checkpoint import checkpoint_due, delete_checkpoints, read_checkpoint, runtime_exceeded, write_checkpoint
 from .io.simulation_info import (
     SimulationInfo,
     initialize_datafolder,
@@ -67,10 +85,20 @@ from .models.electron_phonon import ElectronPhononParameters
 from .models.tight_binding import TightBindingParameters
 from .ops.kpm import KPMPreconditioner
 from .ops.preconditioner import resolve_kind
+from .parallel.distributed import (
+    all_gather_object,
+    barrier,
+    broadcast_object,
+    gather_walkers,
+    local_walker_ids,
+    process_count,
+    process_index,
+)
 from .parallel.walkers import (
     PrecondFallbackController,
     SweepStats,
     WalkerDraws,
+    WalkerMeasurement,
     draw_shared,
     draw_walker,
     init_walker_states,
@@ -133,20 +161,21 @@ class SimulationConfig:
     shared_precond: bool = True
     precond_fallback_ratio: float = 1.5
     precond_retry_every: int = 32
-    sweeps_per_dispatch: int = 1  # sweep batching waits (item 18)
+    # sweeps a batch, on the absolute grid of `_batch` (1 while tuning mu);
+    # the fallback controller's feedback and the checkpoint / stop checks
+    # come once a batch
+    sweeps_per_dispatch: int = 1
 
 
-# the fields whose code is not ported yet: (name, ROADMAP Queue 1 item)
-_UNPORTED = (("sweeps_per_dispatch", 18),)
-
-
-def _check_ported(cfg: SimulationConfig) -> None:
-    """Raise for a config field whose code is not ported yet."""
-    defaults = {f.name: f.default for f in dataclasses.fields(SimulationConfig)}
-    for name, item in _UNPORTED:
-        if getattr(cfg, name) != defaults[name]:
-            raise NotImplementedError(f"SimulationConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                                      f"(ROADMAP Queue 1, item {item})")
+def _batch(done: int, k_disp: int, *ends: int) -> int:
+    """The size of the batch that starts after `done` sweeps: up to the next
+    multiple of k_disp, clipped at each of `ends` (the JAX package's driver
+    _batch, its sweep-index grid absolute so that a resumed run partitions
+    its sweeps as an uninterrupted one does)."""
+    k = k_disp - done % k_disp
+    for e in ends:
+        k = min(k, e - done)
+    return max(k, 1)
 
 
 def walker_seed(seed: int, w: int) -> int:
@@ -167,12 +196,15 @@ def fold_kpm_diagnostics(metadata: Dict, preconds) -> None:
     (inactive means its solves ran unpreconditioned), how many walkers' are
     not (a shared preconditioner counts once a walker), and the most
     frequencies the static order caps clipped; warn on either. No-op for
-    other preconditioners."""
+    other preconditioners. In a fleet `preconds` are this process's block,
+    and every process's walkers are folded in (`distributed.gather_walkers`)."""
     pres = [p for p in preconds if isinstance(p, KPMPreconditioner)]
     if not pres:
         return
-    n_inactive = sum(not p.active for p in pres)
-    clips = max(int(p.order_clip_count) for p in pres)
+    flags = torch.tensor([[float(not p.active), float(p.order_clip_count)] for p in pres], dtype=torch.float64)
+    flags = gather_walkers(flags)
+    n_inactive = int(flags[:, 0].sum())
+    clips = int(flags[:, 1].max())
     metadata["kpm_active"] = n_inactive == 0
     metadata["kpm_inactive_walkers"] = n_inactive
     metadata["kpm_order_clip_count"] = clips
@@ -278,12 +310,65 @@ def _as_lists(st: SweepStats) -> SweepStats:
     return SweepStats([st.reflection], [st.swap], [st.hmc], None if st.radial is None else [st.radial])
 
 
+# a sweep's row a walker (`_walker_rows`): the acceptance flags and iteration
+# counts the metadata average over walkers, whether its updates converged
+# and, for a measured sweep, its estimator refresh's iterations and
+# convergence
+_RATE_COLS = ("reflection_acceptance_rate", "swap_acceptance_rate", "radial_acceptance_rate", "hmc_acceptance_rate",
+              "reflection_iters", "swap_iters", "hmc_iters")
+_HMC_ACC, _HMC_ITERS, _CONVERGED, _MEAS_ITERS, _MEAS_CONVERGED = 3, 6, 7, 8, 9
+
+
+def _walker_rows(st: SweepStats, updates: Optional[List[EstimatorUpdate]] = None) -> torch.Tensor:
+    """(walkers, 8), with updates (walkers, 10), float64 rows of one sweep
+    (the columns above). Without radial updates the radial entry takes the
+    reflection's flag, as the JAX package's sweep does."""
+    cols = [[float(r.accepted) for r in st.reflection], [float(s.accepted) for s in st.swap],
+            [float(r.accepted) for r in (st.radial or st.reflection)], [float(h.accepted) for h in st.hmc],
+            [float(r.iters) for r in st.reflection], [float(s.iters) for s in st.swap],
+            [float(h.iters_avg) for h in st.hmc],
+            [float(all(ups[w].converged for ups in st)) for w in range(len(st.hmc))]]
+    if updates is not None:
+        cols += [[float(u.iters) for u in updates], [float(bool(u.converged)) for u in updates]]
+    return torch.tensor(cols, dtype=torch.float64).T
+
+
+def _col_mean(rows: torch.Tensor, j: int) -> float:
+    """The walker mean of column j, summed in walker order."""
+    values = rows[:, j].tolist()
+    return sum(values) / len(values)
+
+
+def _record_rows(metadata: Dict, rows: torch.Tensor) -> None:
+    """Add one sweep's walker-mean acceptance flags and iterations to the
+    run's sums."""
+    for j, key in enumerate(_RATE_COLS):
+        metadata[key] += _col_mean(rows, j)
+    metadata["all_converged"] = metadata["all_converged"] and bool(rows[:, _CONVERGED].all())
+
+
+def _rates() -> Dict:
+    return {f"{k}_{m}": 0.0 for m in ("acceptance_rate", "iters") for k in ("hmc", "reflection", "swap", "radial")
+            if f"{k}_{m}" != "radial_iters"}
+
+
+class _Sweep(NamedTuple):
+    """A sweep of every walker: lists over this process's walkers, and the
+    rows of every walker (`_walker_rows`, gathered in a fleet)."""
+
+    thetas: list
+    stats: SweepStats
+    rows: torch.Tensor
+
+
 class _Pass(NamedTuple):
-    """A measured sweep of every walker: lists over walkers."""
+    """A measured sweep of every walker: lists over this process's walkers,
+    and the rows of every walker."""
 
     stats: SweepStats
     updates: List[EstimatorUpdate]
     outs: List[Dict]
+    rows: torch.Tensor
     t_refresh_s: float
     t_measurements_s: float
 
@@ -294,9 +379,11 @@ class _Chains:
     vector its first draw). W >= 2: W walkers, each with a generator seeded
     from (cfg.seed, w) whose first draws jitter its initial field (0.1
     N(0, 1)), sweeping through walker_sweep with the shared refresh and its
-    fallback controller. `mu` is None (the model's mu, the context
-    untouched), a float (W = 1) or (W,) float64 values; `dt` is the HMC
-    timestep. Sweep results are SweepStats of lists over walkers."""
+    fallback controller. This process runs the walkers `owned`: its block of
+    pIDs in a fleet (`local_walker_ids`), all W otherwise; what the walkers
+    share is gathered from every process. `mu` is None (the
+    model's mu, the context untouched), a float (W = 1) or the owned walkers'
+    float64 values; `dt` is the HMC timestep."""
 
     def __init__(self, ctx: QMCContext, state: QMCState, gen: torch.Generator, cfg: SimulationConfig,
                  params: HMCParams, recenter=None):
@@ -304,10 +391,11 @@ class _Chains:
         self.W = cfg.n_walkers
         self.mu = None
         self.dt = params.timestep()
+        self.owned = list(local_walker_ids(self.W))
         if self.W == 1:
             self.gens, self.state = [gen], state
             return
-        self.gens = [torch.Generator(device="cpu").manual_seed(walker_seed(cfg.seed, w)) for w in range(self.W)]
+        self.gens = [torch.Generator(device="cpu").manual_seed(walker_seed(cfg.seed, w)) for w in self.owned]
         noise = torch.stack([0.1 * torch.randn(tuple(state.x.shape), generator=g, dtype=torch.float64)
                              for g in self.gens])
         self.states = init_walker_states(ctx, state, noise)
@@ -319,63 +407,86 @@ class _Chains:
 
     @property
     def x(self) -> torch.Tensor:
-        """(n_phonon, Ltau) at W = 1, (W, n_phonon, Ltau) at W >= 2."""
+        """(n_phonon, Ltau) at W = 1, (owned walkers, n_phonon, Ltau) at W >= 2."""
         return self.state.x if self.W == 1 else self.states.x
 
     @property
     def preconds(self) -> list:
-        """The walkers' preconditioners (one at W = 1)."""
+        """The owned walkers' preconditioners (one at W = 1)."""
         return [self.state.precond] if self.W == 1 else list(self.states.precond)
 
     def _params(self) -> HMCParams:
         return self.params if self.cfg.target_acceptance is None else dataclasses.replace(self.params, dt=self.dt)
 
-    def context(self, w: int = 0) -> QMCContext:
-        """Walker w's context at its mu."""
+    def context(self, i: int = 0) -> QMCContext:
+        """The context at the mu of the i-th owned walker."""
         if self.mu is None:
             return self.ctx
-        return with_mu(self.ctx, self.mu if self.W == 1 else self.mu[w])
+        return with_mu(self.ctx, self.mu if self.W == 1 else self.mu[i])
 
-    def sweep(self, est: Optional[GreensEstimator] = None):
+    def _sweep(self, est: Optional[GreensEstimator], use_shared: Optional[bool]):
         """Draw and run one sweep (theta drawn with an estimator). Returns
-        (thetas, SweepStats), lists over walkers."""
+        (thetas, SweepStats), lists over the owned walkers."""
         params, radial = self._params(), self.cfg.use_radial_updates
         if self.W == 1:
             draws = draw_walker(self.gens[0], self.ctx, self.state.precond, params, est, radial)
             self.state, st = sweep(self.context(), self.state, params, draws, self.recenter)
             return [draws.theta], _as_lists(st)
-        use_shared = self.cfg.shared_precond and self.pc.choose()
-        draws = [draw_walker(g, self.ctx, self.states.precond[w], params, est, radial)
-                 for w, g in enumerate(self.gens)]
+        draws = [draw_walker(g, self.ctx, self.states.precond[i], params, est, radial)
+                 for i, g in enumerate(self.gens)]
         v_shared = draw_shared(self.shared_gen, self.ctx, self.states.precond[0]) if use_shared else None
         self.states, st = walker_sweep(self.ctx, self.states, params, draws, shared_precond=use_shared,
                                        mus=self.mu, recenter=self.recenter, v_shared=v_shared)
-        self.pc.record(sum(h.iters_avg for h in st.hmc) / self.W, use_shared)
-        self.fallback += not use_shared
         return [d.theta for d in draws], st
 
+    def _measured(self, est: GreensEstimator, spec: MeasurementSpec, use_shared: Optional[bool]) -> _Pass:
+        """A sweep, each walker's estimator refresh and measurement pass."""
+        if self.W == 1:
+            draws = draw_walker(self.gens[0], self.ctx, self.state.precond, self._params(), est,
+                                self.cfg.use_radial_updates)
+            one = measured_sweep(self.context(), self.state, self._params(), draws, est, spec, self.cfg,
+                                 self.recenter)
+            self.state, stats = one.state, _as_lists(one.stats)
+            m = WalkerMeasurement([one.out], [one.update], one.t_refresh_s, one.t_measurements_s)
+        else:
+            thetas, stats = self._sweep(est, use_shared)
+            m = walker_measure(self.ctx, spec, self.states, est, thetas, self.mu, **_solve_opts(self.cfg))
+        return _Pass(stats, m.updates, m.outs, gather_walkers(_walker_rows(stats, m.updates)), m.t_refresh_s,
+                     m.t_measurements_s)
+
+    def batch(self, k: int, est: Optional[GreensEstimator] = None, spec: Optional[MeasurementSpec] = None):
+        """Run a batch of k sweeps, yielding each sweep's _Sweep (theta drawn
+        with an estimator), or with `spec` each measured sweep's _Pass. At
+        W >= 2 the fallback controller chooses the refresh once for the batch
+        and, once the batch is through, records the last sweep's walker-mean
+        trajectory iteration count, as the JAX package's batched walker sweep
+        feeds it: its own counters count batches, `fallback` counts sweeps."""
+        use_shared = None if self.W == 1 else self.cfg.shared_precond and self.pc.choose()
+        for _ in range(k):
+            if spec is not None:
+                res = self._measured(est, spec, use_shared)
+            else:
+                thetas, st = self._sweep(est, use_shared)
+                res = _Sweep(thetas, st, gather_walkers(_walker_rows(st)))
+            yield res
+        if self.W > 1:
+            self.pc.record(_col_mean(res.rows, _HMC_ITERS), use_shared)
+            self.fallback += 0 if use_shared else k
+
     def refresh(self, est: GreensEstimator, thetas) -> List[EstimatorUpdate]:
-        """Each walker's estimator refresh at its field, mu and preconditioner."""
+        """Each owned walker's estimator refresh at its field, mu and preconditioner."""
         if self.W == 1:
             return [update_greens_estimator(est, make_fdm(self.context(), self.state.x), thetas[0],
                                             precond=self.state.precond, **_solve_opts(self.cfg))]
         return walker_refresh(self.ctx, self.states, est, thetas, self.mu, **_solve_opts(self.cfg))
 
-    def measured_sweep(self, est: GreensEstimator, spec: MeasurementSpec) -> _Pass:
-        """A sweep, each walker's estimator refresh and measurement pass."""
-        if self.W == 1:
-            draws = draw_walker(self.gens[0], self.ctx, self.state.precond, self._params(), est,
-                                self.cfg.use_radial_updates)
-            m = measured_sweep(self.context(), self.state, self._params(), draws, est, spec, self.cfg, self.recenter)
-            self.state = m.state
-            return _Pass(_as_lists(m.stats), [m.update], [m.out], m.t_refresh_s, m.t_measurements_s)
-        thetas, stats = self.sweep(est)
-        m = walker_measure(self.ctx, spec, self.states, est, thetas, self.mu, **_solve_opts(self.cfg))
-        return _Pass(stats, m.updates, m.outs, m.t_refresh_s, m.t_measurements_s)
+    def fold_kpm(self, metadata: Dict) -> None:
+        fold_kpm_diagnostics(metadata, self.preconds)
 
     def state_dict(self) -> Dict:
         """The chains' checkpoint: fields, preconditioner(s), generator
-        state(s) and, at W >= 2, the fallback controller."""
+        state(s) and, at W >= 2, the fallback controller (the owned walkers'
+        in a fleet)."""
         if self.W == 1:
             return {"x": self.state.x, "precond": self.state.precond, "generator": self.gens[0].get_state()}
         return {"x": self.states.x, "precond": list(self.states.precond),
@@ -394,30 +505,6 @@ class _Chains:
         self.pc.load_state(s["controller"])
         self.fallback = int(s["fallback"])
         self.shared_gen.set_state(torch.as_tensor(s["shared_generator"]))
-
-
-def _mean(values) -> float:
-    values = list(values)
-    return sum(values) / len(values)
-
-
-def _record_sweep(metadata: Dict, st: SweepStats) -> None:
-    """Add one sweep's walker-mean acceptance flags and iterations to the
-    run's sums. Without radial updates the radial entry takes the
-    reflection's flag, as the JAX package's sweep does."""
-    metadata["reflection_acceptance_rate"] += _mean(float(r.accepted) for r in st.reflection)
-    metadata["swap_acceptance_rate"] += _mean(float(s.accepted) for s in st.swap)
-    metadata["radial_acceptance_rate"] += _mean(float(r.accepted) for r in (st.radial or st.reflection))
-    metadata["hmc_acceptance_rate"] += _mean(float(h.accepted) for h in st.hmc)
-    metadata["reflection_iters"] += _mean(float(r.iters) for r in st.reflection)
-    metadata["swap_iters"] += _mean(float(s.iters) for s in st.swap)
-    metadata["hmc_iters"] += _mean(float(h.iters_avg) for h in st.hmc)
-    metadata["all_converged"] = metadata["all_converged"] and all(u.converged for ups in st for u in ups)
-
-
-def _rates() -> Dict:
-    return {f"{k}_{m}": 0.0 for m in ("acceptance_rate", "iters") for k in ("hmc", "reflection", "swap", "radial")
-            if f"{k}_{m}" != "radial_iters"}
 
 
 # ----------------------------------------------------------------------
@@ -445,12 +532,15 @@ def run_updates(tight_binding_model, electron_phonon_model, cfg: SimulationConfi
 def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg: SimulationConfig,
                n_sweeps: int) -> Dict:
     """`run_updates` from expanded parameters, on the device of `elph` (for a
-    caller with tables of its own, such as relabelled sites). Each sweep runs
-    inside a profiler range named "sweep". The timestep law of
+    caller with tables of its own, such as relabelled sites). The sweeps run
+    in batches of cfg.sweeps_per_dispatch on the absolute grid, each batch
+    inside a profiler range named "sweep" that closes after the batch's
+    device sync (a sweep and its sync at k = 1); sweep_s holds each sweep's
+    seconds (a batch's seconds over its sweeps). The timestep law of
     `target_acceptance` runs on every sweep; mu tuning needs the measured
     simulation. hmc_delta_H is a list a walker at W >= 2, with
-    walker_converged and precond_fallback_sweeps."""
-    _check_ported(cfg)
+    walker_converged and precond_fallback_sweeps; in a fleet hmc_delta_H and
+    x_final cover this process's walkers, the rest every walker."""
     if cfg.target_density is not None:
         raise ValueError("SimulationConfig.target_density tunes mu from measurements: use simulate / run_simulation")
     device = elph.device
@@ -473,27 +563,32 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
         **_rates(),
     }
     converged = [True] * W
-    delta_H = [[] for _ in range(W)]
+    delta_H = [[] for _ in chains.owned]
     sweep_s = []
-    for _ in range(n_sweeps):
+    k_disp = max(int(cfg.sweeps_per_dispatch), 1)
+    done = 0
+    while done < n_sweeps:
+        k = _batch(done, k_disp, n_sweeps)
         t0 = time.perf_counter()
         with torch.profiler.record_function("sweep"):
-            _, st = chains.sweep()
+            for s in chains.batch(k):
+                _record_rows(meta, s.rows)
+                if cfg.target_acceptance is not None:
+                    chains.dt = dt_law(chains.dt, _col_mean(s.rows, _HMC_ACC), cfg.target_acceptance, dt0)
+                for w in range(W):
+                    converged[w] = converged[w] and bool(s.rows[w, _CONVERGED])
+                for dh, h in zip(delta_H, s.stats.hmc):
+                    dh.append(h.delta_H)
             sync_device(device)
-        sweep_s.append(time.perf_counter() - t0)
-        _record_sweep(meta, st)
-        if cfg.target_acceptance is not None:
-            chains.dt = dt_law(chains.dt, _mean(float(h.accepted) for h in st.hmc), cfg.target_acceptance, dt0)
-        for w in range(W):
-            converged[w] = converged[w] and all(ups[w].converged for ups in st)
-            delta_H[w].append(st.hmc[w].delta_H)
+        sweep_s += [(time.perf_counter() - t0) / k] * k
+        done += k
     n = max(n_sweeps, 1)
     for k in _rates():
         meta[k] /= n
     meta.update({"sweep_s": sweep_s, "x_final": chains.x})
     if cfg.target_acceptance is not None:
         meta["hmc_dt_final"] = chains.dt
-    fold_kpm_diagnostics(meta, chains.preconds)
+    chains.fold_kpm(meta)
     if W == 1:
         meta["hmc_delta_H"] = delta_H[0]
     else:
@@ -509,8 +604,9 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
 
 def _tuner_inputs(upds: List[EstimatorUpdate], W: int):
     """(2 n, <N^2>) of each walker's refreshed estimator: floats at W = 1,
-    (W,) float64 CPU tensors at W >= 2 (the estimator's dtype, read as
-    float64, as the JAX package's tuner reads its f32 measurements)."""
+    float64 CPU tensors of the owned walkers at W >= 2 (the estimator's
+    dtype, read as float64, as the JAX package's tuner reads its f32
+    measurements)."""
     n = [float(2.0 * measure_n(u.estimator).real) for u in upds]
     N2 = [float(measure_Nsqrd(u.estimator).real) for u in upds]
     if W == 1:
@@ -520,6 +616,11 @@ def _tuner_inputs(upds: List[EstimatorUpdate], W: int):
 
 def _copy_leaf(v):
     return v.clone() if isinstance(v, torch.Tensor) else v
+
+
+def _checkpoint_pID(sim_info: SimulationInfo) -> int:
+    """The pID a process checkpoints under: its rank in a fleet."""
+    return process_index() if process_count() > 1 else sim_info.pID
 
 
 def simulate(
@@ -552,26 +653,39 @@ def simulate(
     generators' states, the fallback controller, the loop counters, the
     metadata, dt, mu, the tuner(s) and the tuning history, and each walker's
     partial-bin sums, so that a resumed run yields the bins an uninterrupted
-    one yields, bit for bit."""
-    _check_ported(cfg)
+    one yields, bit for bit.
+
+    In a fleet (`parallel.distributed.initialize_distributed`, W a multiple
+    of the process count P) every process calls simulate with the same
+    arguments: it runs, yields and checkpoints (under its rank) the walkers
+    of its block, its tuning profiles and final_mu_per_walker ({pID: mu})
+    cover them; rank 0 creates the data folder, whose sID every process then
+    takes (sim_info.sID is set to it), and writes the model summary. A
+    checkpoint records the walkers it holds: resuming with a block that
+    differs (another process count) raises ValueError on every process."""
     device = torch.device(device)
     start_time = time.time()
-    initialize_datafolder(sim_info)
+    W = cfg.n_walkers
+    fleet = process_count() > 1
+    if process_index() == 0:
+        initialize_datafolder(sim_info)
+        model_summary(sim_info, cfg.beta, cfg.dtau, spec.geometry, tight_binding_model, (electron_phonon_model,))
+    if fleet:
+        sim_info.sID = broadcast_object(sim_info.sID)
+        barrier("datafolder_init")
     geo = spec.geometry
-    model_summary(sim_info, cfg.beta, cfg.dtau, geo, tight_binding_model, (electron_phonon_model,))
     tbp, elph = _expand(tight_binding_model, electron_phonon_model, cfg, device)
     gen, ctx, state, _ = _init_chain(tbp, elph, cfg)
     est = build_greens_estimator(elph.Ltau, geo.n_orbitals, geo.L, Nrv=cfg.Nrv, dtype=cfg.measurement_dtype,
                                  device=device)
     params = _hmc_params(cfg)
     chains = _Chains(ctx, state, gen, cfg, params, recenter)
-    W = cfg.n_walkers
     dt0 = chains.dt
     tuner: Optional[MuTunerState] = None
     history: list = []  # one (mu, n, N^2) a tuner update
     if cfg.target_density is not None:
         tuner = init_mu_tuner(cfg.target_density, cfg.beta, tbp.n_sites, float(tbp.mu),
-                              n_walkers=W if W > 1 else 0)
+                              n_walkers=len(chains.owned) if W > 1 else 0)
         chains.mu = tuner.mu
     metadata: Dict = {
         **({"n_walkers": W} if W > 1 else {}),
@@ -593,34 +707,40 @@ def simulate(
     therm_done = 0
     meas_done = 0
     cp_stamp: Optional[float] = None
+    cp_pID = _checkpoint_pID(sim_info)
     bin_size = max(cfg.N_measurements // cfg.N_bins, 1)
-    accs = [MeasurementAccumulator(spec) for _ in range(W)]
-    if resume:
-        cp = read_checkpoint(sim_info.datafolder, sim_info.pID)
-        if cp is not None:
-            s = cp["state"]
-            chains.load_state(s)
-            therm_done = int(s["therm_done"])
-            meas_done = int(s["meas_done"])
-            metadata.update(s["metadata"])
-            chains.dt = float(s["dt"])
-            if tuner is not None:
-                tuner = tuner.with_leaves(s["tuner"])
-                chains.mu = tuner.mu
-                history = list(s["tuning_history"])
-            for a, sums, count in zip(accs, s["acc_sums"], s["acc_count"]):
-                if sums is not None:
-                    a.sums = tree_map(lambda v: torch.as_tensor(v, device=device), sums)
-                    a.count = int(count)
+    accs = [MeasurementAccumulator(spec) for _ in chains.owned]
+    cp = read_checkpoint(sim_info.datafolder, cp_pID) if resume else None
+    # every process's (walkers, therm_done, meas_done) from its checkpoint
+    held = all_gather_object(None if cp is None else
+                             (cp["state"]["walkers"], int(cp["state"]["therm_done"]), int(cp["state"]["meas_done"])))
+    moved = {r: h[0] for r, h in enumerate(held) if h is not None and h[0] != list(local_walker_ids(W, r))}
+    if moved:
+        raise ValueError(f"the checkpoints hold other walkers than the processes now own (rank: walkers held) "
+                         f"{moved}: resume with the number of processes that wrote them")
+    if len({(0, 0) if h is None else h[1:] for h in held}) > 1:
+        raise RuntimeError(f"the fleet's checkpoints are at different sweeps (walkers, therm, measured a rank): {held}")
+    if cp is not None:
+        s = cp["state"]
+        chains.load_state(s)
+        therm_done = int(s["therm_done"])
+        meas_done = int(s["meas_done"])
+        metadata.update(s["metadata"])
+        chains.dt = float(s["dt"])
+        if tuner is not None:
+            tuner = tuner.with_leaves(s["tuner"])
+            chains.mu = tuner.mu
+            history = list(s["tuning_history"])
+        for a, sums, count in zip(accs, s["acc_sums"], s["acc_count"]):
+            if sums is not None:
+                a.sums = tree_map(lambda v: torch.as_tensor(v, device=device), sums)
+                a.count = int(count)
 
-    def maybe_checkpoint():
+    def checkpoint():
         nonlocal cp_stamp
-        # frequency gate first (the test write_checkpoint applies), so a
-        # closed gate costs nothing per sweep
-        if cp_stamp is not None and (time.time() - cp_stamp) < cfg.checkpoint_freq_hours * 3600.0:
-            return
         tree = {
             **chains.state_dict(),
+            "walkers": chains.owned,
             "therm_done": therm_done,
             "meas_done": meas_done,
             "metadata": dict(metadata),
@@ -630,8 +750,15 @@ def simulate(
             "acc_sums": [a.sums for a in accs],
             "acc_count": [a.count for a in accs],
         }
-        cp_stamp = write_checkpoint(sim_info.datafolder, tree, pID=sim_info.pID, checkpoint_timestamp=cp_stamp,
-                                    checkpoint_freq_hours=cfg.checkpoint_freq_hours)
+        cp_stamp = write_checkpoint(sim_info.datafolder, tree, pID=cp_pID)
+
+    def decide(stop: bool):
+        """After a batch: (write a checkpoint, stop the run), rank 0's in a
+        fleet. A checkpoint is written when the frequency gate is open and
+        the run checkpoints on a clock or stops (the gate first, so that a
+        closed gate costs nothing)."""
+        due = (cfg.checkpoint_freq_hours < np.inf or stop) and checkpoint_due(cp_stamp, cfg.checkpoint_freq_hours)
+        return broadcast_object((due, stop)) if fleet else (due, stop)
 
     def out_of_time() -> bool:
         return runtime_exceeded(start_time, cfg.runtime_limit_hours)
@@ -643,29 +770,32 @@ def simulate(
         chains.mu = tuner.mu
         history.append((_copy_leaf(tuner.mu), n, N2))
 
+    k_disp = 1 if tuner is not None else max(int(cfg.sweeps_per_dispatch), 1)
+
     # ------------------------------------------------------------------
-    # thermalize (the first sweep of a phase carries its warm-up); dt
+    # thermalize (the first batch of a phase carries its warm-up); dt
     # follows the acceptance law, mu the tuner
     # ------------------------------------------------------------------
     t_phase = time.time()
     n_timed = 0
     while therm_done < cfg.N_therm:
-        thetas, st = chains.sweep(est if tuner is not None else None)
-        _record_sweep(metadata, st)
-        if cfg.target_acceptance is not None:
-            chains.dt = dt_law(chains.dt, _mean(float(h.accepted) for h in st.hmc), cfg.target_acceptance, dt0)
-        if tuner is not None:
-            tune(chains.refresh(est, thetas))
-        therm_done += 1
-        n_timed += 1
-        if n_timed == 1:
+        k = _batch(therm_done, k_disp, cfg.N_therm)
+        for s in chains.batch(k, est if tuner is not None else None):
+            _record_rows(metadata, s.rows)
+            if cfg.target_acceptance is not None:
+                chains.dt = dt_law(chains.dt, _col_mean(s.rows, _HMC_ACC), cfg.target_acceptance, dt0)
+            if tuner is not None:
+                tune(chains.refresh(est, s.thetas))
+        therm_done += k
+        n_timed += k
+        if n_timed == k:
             metadata["t_first_therm_sweep_s"] = round(time.time() - t_phase, 3)
-            metadata["n_first_therm_batch"] = 1
-        if cfg.checkpoint_freq_hours < np.inf:
-            maybe_checkpoint()
-        if out_of_time():
-            maybe_checkpoint()
-            fold_kpm_diagnostics(metadata, chains.preconds)
+            metadata["n_first_therm_batch"] = k
+        save, stop = decide(out_of_time())
+        if save:
+            checkpoint()
+        if stop:
+            chains.fold_kpm(metadata)
             return metadata, False
     if n_timed:
         metadata["t_therm_s"] = round(time.time() - t_phase, 3)
@@ -677,34 +807,35 @@ def simulate(
     t_phase = time.time()
     n_timed = 0
     while meas_done < cfg.N_measurements:
-        m = chains.measured_sweep(est, spec)
-        _record_sweep(metadata, m.stats)
-        metadata["measurement_iters"] += _mean(float(u.iters) for u in m.updates)
-        metadata["all_converged"] = metadata["all_converged"] and all(bool(u.converged) for u in m.updates)
-        metadata["t_refresh_s"] += m.t_refresh_s
-        metadata["t_measurements_s"] += m.t_measurements_s
-        for a, out in zip(accs, m.outs):
-            a.accumulate(out)
-        if tuner is not None:
-            tune(m.updates)
-        meas_done += 1
-        n_timed += 1
-        if n_timed == 1:
+        k = _batch(meas_done, k_disp, cfg.N_measurements, meas_done + bin_size - meas_done % bin_size)
+        for m in chains.batch(k, est, spec):
+            _record_rows(metadata, m.rows)
+            metadata["measurement_iters"] += _col_mean(m.rows, _MEAS_ITERS)
+            metadata["all_converged"] = metadata["all_converged"] and bool(m.rows[:, _MEAS_CONVERGED].all())
+            metadata["t_refresh_s"] += m.t_refresh_s
+            metadata["t_measurements_s"] += m.t_measurements_s
+            for a, out in zip(accs, m.outs):
+                a.accumulate(out)
+            if tuner is not None:
+                tune(m.updates)
+        meas_done += k
+        n_timed += k
+        if n_timed == k:
             sync_device(device)
             metadata["t_first_measured_sweep_s"] = round(time.time() - t_phase, 3)
-            metadata["n_first_measured_batch"] = 1
+            metadata["n_first_measured_batch"] = k
         if meas_done % bin_size == 0:
             b = meas_done // bin_size - 1
             if W == 1:
                 yield b, accs[0].finalize_bin()
             else:
-                for w, a in enumerate(accs):
+                for w, a in zip(chains.owned, accs):
                     yield w, b, a.finalize_bin()
-        if cfg.checkpoint_freq_hours < np.inf:
-            maybe_checkpoint()
-        if out_of_time() and meas_done < cfg.N_measurements:
-            maybe_checkpoint()
-            fold_kpm_diagnostics(metadata, chains.preconds)
+        save, stop = decide(out_of_time() and meas_done < cfg.N_measurements)
+        if save:
+            checkpoint()
+        if stop:
+            chains.fold_kpm(metadata)
             return metadata, False
     if n_timed:
         sync_device(device)
@@ -715,7 +846,7 @@ def simulate(
     for k in _rates():
         metadata[k] /= max(n_updates, 1)
     metadata["measurement_iters"] /= max(cfg.N_measurements, 1)
-    fold_kpm_diagnostics(metadata, chains.preconds)
+    chains.fold_kpm(metadata)
     if W > 1:
         metadata["precond_fallback_sweeps"] = chains.fallback
     if cfg.target_acceptance is not None:
@@ -725,9 +856,10 @@ def simulate(
             metadata["final_mu"] = float(tuner.mu)
             save_density_tuning_profile(sim_info, history)
         else:
-            metadata["final_mu_per_walker"] = [float(v) for v in tuner.mu]
-            for w in range(W):
-                save_density_tuning_profile(sim_info.with_pID(w), [tuple(float(v[w]) for v in row) for row in history])
+            mus = [float(v) for v in tuner.mu]
+            metadata["final_mu_per_walker"] = dict(zip(chains.owned, mus)) if fleet else mus
+            for i, w in enumerate(chains.owned):
+                save_density_tuning_profile(sim_info.with_pID(w), [tuple(float(v[i]) for v in row) for row in history])
     return metadata, True
 
 
@@ -745,7 +877,9 @@ def run_simulation(
     bins/bin-<k>_pID-<p>.h5 as it completes (p = the walker's pID at
     W >= 2); a finished run then merges the bins, writes
     simulation_info.toml, the statistics (stats.h5, CSVs) and deletes its
-    checkpoints. Returns the metadata dict."""
+    checkpoints. Returns the metadata dict. In a fleet each process writes
+    its walkers' bins and deletes its checkpoint; rank 0 merges and writes
+    the statistics once every process has written its bins."""
     from .io.measurements_io import merge_bins, process_measurements, write_measurement_bin
 
     run = simulate(sim_info, tight_binding_model, electron_phonon_model, spec, cfg, recenter=recenter, resume=resume,
@@ -759,8 +893,11 @@ def run_simulation(
         info = sim_info if len(item) == 2 else sim_info.with_pID(item[0])
         write_measurement_bin(info, item[-2], item[-1], spec, dtau=cfg.dtau)
     if finished:
-        merge_bins(sim_info)
-        save_simulation_info(sim_info, metadata)
-        process_measurements(sim_info.datafolder, n_bins=cfg.N_bins, spec=spec)
-        delete_checkpoints(sim_info.datafolder, sim_info.pID)
+        barrier("bins_complete")
+        if process_index() == 0:
+            merge_bins(sim_info)
+            save_simulation_info(sim_info, metadata)
+            process_measurements(sim_info.datafolder, n_bins=cfg.N_bins, spec=spec)
+        delete_checkpoints(sim_info.datafolder, _checkpoint_pID(sim_info))
+        barrier("finalize_done")
     return metadata

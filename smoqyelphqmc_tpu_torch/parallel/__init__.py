@@ -1,1 +1,2 @@
-"""parallel of the PyTorch port: walker batching (module names mirror the JAX package's parallel)."""
+"""parallel of the PyTorch port: walker batching and multi-process walker
+fleets (module names mirror the JAX package's parallel)."""

@@ -49,6 +49,7 @@ from ..updates.global_updates import (
     swap_update,
 )
 from ..updates.hmc import HMCDraws, HMCParams, draw_hmc, hmc_update
+from .distributed import gather_walkers, process_count
 
 
 @dataclasses.dataclass
@@ -133,13 +134,15 @@ def walker_mean_fdm(fdm):
 def shared_precond_refresh(ctx: QMCContext, states: WalkerStates, v0: Optional[torch.Tensor] = None) -> WalkerStates:
     """Refresh the preconditioner once from the walker-mean fermion matrix
     (`walker_mean_fdm`, at the context's mu: the walker sweep passes the
-    walker-mean mu) and give it to every walker. A KPM preconditioner's
-    Lanczos iteration starts from v0 (ctx.lanczos_dim,) (`draw_shared`; the
-    JAX package draws it from walker 0's key). Preconditioner quality moves
-    only iteration counts, never the sampled distribution."""
+    walker-mean mu) and give it to every walker. In a fleet the mean runs
+    over every process's walkers (`distributed.gather_walkers`). A KPM
+    preconditioner's Lanczos iteration starts from v0 (ctx.lanczos_dim,)
+    (`draw_shared`; the JAX package draws it from walker 0's key).
+    Preconditioner quality moves only iteration counts, never the sampled
+    distribution."""
     if states.precond[0] is None:
         return states
-    pre = refresh_preconditioner(states.precond[0], walker_mean_fdm(make_fdm(ctx, states.x)), v0)
+    pre = refresh_preconditioner(states.precond[0], walker_mean_fdm(make_fdm(ctx, gather_walkers(states.x))), v0)
     return WalkerStates(x=states.x, precond=[pre] * states.n_walkers)
 
 
@@ -235,7 +238,10 @@ def walker_sweep(ctx: QMCContext, states: WalkerStates, params: HMCParams, draws
     package's walker_sweep sets it); otherwise each walker refreshes its own
     preconditioner at trajectory start and runs its own trajectory (the JAX
     package drops K3 in that mode). `recenter` acts on each walker's field
-    after every drift. Returns (states, SweepStats of lists over walkers)."""
+    after every drift. In a fleet the states and mus are this process's
+    block, and the shared refresh and the W >= 2 test take every process's
+    walkers (`distributed.gather_walkers`). Returns (states, SweepStats of
+    lists over this block's walkers)."""
     W = states.n_walkers
     shared = shared_precond and states.precond[0] is not None
     ctxs = [ctx if mus is None else with_mu(ctx, mus[w]) for w in range(W)]
@@ -243,9 +249,10 @@ def walker_sweep(ctx: QMCContext, states: WalkerStates, params: HMCParams, draws
         if ctx.refresh_precond_global or params.refresh_precond_every_step:
             raise ValueError("a walker batch shares one preconditioner, refreshed once a sweep: "
                              "refresh_precond_global and refresh_precond_every_step need shared_precond=False")
-        states = shared_precond_refresh(ctx if mus is None else with_mu(ctx, mus.mean()), states, v_shared)
+        ctx_mean = ctx if mus is None else with_mu(ctx, gather_walkers(mus).mean())
+        states = shared_precond_refresh(ctx_mean, states, v_shared)
         params = dataclasses.replace(params, refresh_precond_at_start=False)
-        if W >= 2:
+        if W * process_count() >= 2:
             params = dataclasses.replace(params, fused_step_force=True)
     xs, pres, rs, ss, rads = [], [], [], [], []
     for w in range(W):

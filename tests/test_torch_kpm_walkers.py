@@ -166,12 +166,15 @@ def test_run_updates_kpm_walkers_on_cpu(symmetric, matrix_free):
     solve converges, every walker's KPM stays active; in per-walker mode
     walker w's chain is the same at W = 2 and W = 3 (its draws come from its
     own generator), and a shared sweep's start vector comes from a stream no
-    walker draws from."""
+    walker draws from; the two shared sweeps as one batch
+    (sweeps_per_dispatch=2) end at the same fields."""
     _, tbm, em = holstein_honeycomb_model(2, 1.0, 0.5, 0.0)
     kw = dict(beta=1.0, dtau=0.1, Nt=4, seed=3, preconditioner="kpm", n_walkers=2, symmetric=symmetric)
+    shared_md = None
     for shared in (True, False):
         cfg = SimulationConfig(**kw, shared_precond=shared)
         md = run_updates(tbm, em, cfg, 2, device="cpu")
+        shared_md = shared_md or md
         assert md["all_converged"] and md["walker_converged"] == [True, True]
         assert np.isfinite(md["hmc_delta_H"]).all() and np.asarray(md["hmc_delta_H"]).shape == (2, 2)
         assert (md["kpm_active"], md["kpm_inactive_walkers"], md["kpm_order_clip_count"]) == (True, 0, 0)
@@ -180,8 +183,9 @@ def test_run_updates_kpm_walkers_on_cpu(symmetric, matrix_free):
         assert md3["all_converged"]
         if not shared:
             assert torch.equal(md3["x_final"][:2], md["x_final"])
-    with pytest.raises(NotImplementedError, match="item 18"):
-        run_updates(tbm, em, SimulationConfig(**kw, sweeps_per_dispatch=2), 1, device="cpu")
+    # one batch of both sweeps: the controller's one choice (shared) gives k = 1's chain
+    batched = run_updates(tbm, em, SimulationConfig(**kw, sweeps_per_dispatch=2), 2, device="cpu")
+    assert torch.equal(batched["x_final"], shared_md["x_final"])
 
 
 def test_measured_kpm_walkers_resume_is_bit_identical(tmp_path, matrix_free):

@@ -2,8 +2,8 @@
 draws against the same sweeps composed from JAX functions, `run_simulation`
 on the CPU writing the whole output set through the plain versions,
 runtime-limit interrupts with bit-identical resume (the port's twins of
-tests/test_checkpoint_resume.py), the NotImplementedError of the option
-whose code is not ported yet, and a run with each option ported since.
+tests/test_checkpoint_resume.py), and a run with each option ported since
+the first measured slice (sweep batching among them).
 
 Tolerances: accept flags must be equal; the end field after two sweeps is
 held to 1e-6 relative, as one sweep is in tests/test_torch_hmc.py; the bin
@@ -214,18 +214,10 @@ def test_resume_is_bit_identical(tmp_path, interrupts):
         assert md[k] == ref_md[k], k
 
 
-@pytest.mark.parametrize("field,value,item", [("sweeps_per_dispatch", 4, 18)])
-def test_unported_options_raise(tmp_path, field, value, item):
-    tbm, em, spec = _model()
-    info = SimulationInfo(filepath=str(tmp_path), datafolder_prefix="unported", sID=1)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        run_simulation(info, tbm, em, spec, _config(**{field: value}), device="cpu")
-
-
 @pytest.mark.parametrize("field,value,key", [
     ("hmc_integrator", "omelyan", "hmc_acceptance_rate"), ("target_acceptance", 0.7, "hmc_dt_final"),
     ("use_radial_updates", True, "radial_acceptance_rate"), ("target_density", 1.0, "final_mu"),
-    ("n_walkers", 2, "final_mu_per_walker"),
+    ("n_walkers", 2, "final_mu_per_walker"), ("sweeps_per_dispatch", 4, "n_first_measured_batch"),
 ])
 def test_ported_options_run(tmp_path, field, value, key):
     """Each option that raised before its code was ported now runs to the
