@@ -157,8 +157,23 @@ Phases, one line each:
      honeycomb L=3, beta=2 (W=4): runtime limit 0 leaves one checkpoint a
      process, the relaunched fleet must repeat the uninterrupted fleet's
      bins bit for bit (in memory: the card's machine has no h5py).
+ 35. the example twins (smoqyelphqmc_tpu_torch.examples): each twin's
+     model, measurement set and configuration at its script's defaults
+     (`setup`), N_therm=2, N_measurements=4, N_bins=2, through `simulate`
+     with the bins in memory: holstein_honeycomb (R_cdw from the bins),
+     _checkpoint, _density_tuning (final_mu) and _multiwalker (W=8: K3, K2,
+     K1 f64) at L=3, beta=4, the flux chain (complex, N=8: no kernel) and
+     the five SSH examples (K1, K2 only); every solve converged, the bins
+     finite, the kernels launched and no plain version run; one line a
+     twin with W, N, Ltau, s per measured sweep, acceptance, iterations and
+     launches. Before them, the kernels at the twins' shapes against their
+     plain versions (35a: K3 at the multiwalker tutorial's (8, 2, 80, 18),
+     K1 and K2 on the bond-SSH chain's tau tables) and seven twins' models
+     and configurations GPU against CPU through run_updates, 3 sweeps (35b:
+     the Holstein tutorial at W=1 and W=8 and the five SSH examples;
+     acceptance equal, fields within 1e-4 relative).
 Each path (5, 5a, 7, 10, 10a, 10b, 11, 15, 16, 19, 20, 21, 24, 25, 27, 28,
-29, 32 and each rank's in 33) is driven with every kernel count set to 0
+29, 32, each rank's in 33 and each twin's GPU run in 35 and 35b) is driven with every kernel count set to 0
 just before it and read just after; the launches of K1 and K2 in the kernels line are the measured
 main path's (5a), K3's the measured walker path's (10a), those of the
 tau-table entries the measured SSH path's (24), K6's those of 15 and 27,
@@ -954,9 +969,11 @@ def phase_measured_walkers(results, card, tag, **kw):
     return counts
 
 
-def phase_k3(results):
-    """K3 on N_WALKERS jittered headline fields (per-walker expV and Lambda,
-    one shared preconditioner) against its plain version, cold and warm."""
+def phase_k3(results, h=HEADLINE):
+    """K3 on N_WALKERS jittered fields of model h (per-walker expV and
+    Lambda, one shared preconditioner) against its plain version, cold and
+    warm; at the headline its times and bound go into results, on another
+    model (results None) the check and the launch's shape only."""
     import dataclasses
 
     import torch
@@ -968,10 +985,10 @@ def phase_k3(results):
 
     tol, maxiter, W = 1e-5, 500, N_WALKERS
     dev = torch.device("cuda")
-    tbp, elph = headline_model(dev)
+    tbp, elph = headline_model(dev, h)
     gen = torch.Generator(device="cpu").manual_seed(13)
     xs = elph.x[None] + 0.1 * torch.randn((W,) + tuple(elph.x.shape), generator=gen, dtype=torch.float64).to(dev)
-    fdm = headline_fdm(dev, x=xs)
+    fdm = headline_fdm(dev, x=xs, h=h)
     pre = build_spectral(dataclasses.replace(fdm, exp_nV=fdm.exp_nV.mean(dim=0)))
     fdm32 = dataclasses.replace(fdm, exp_nV=fdm.exp_nV[:, None]).astype(torch.float32)
     Lam = build_lambda(elph, xs, tbp.n_sites).to(torch.float32)
@@ -987,6 +1004,10 @@ def phase_k3(results):
         return float((torch.linalg.vector_norm(b - fdm32.mul_Mt(fdm32.mul_M(x)), dim=(-2, -1)) / nb).max())
 
     x_warm, *_ = pcg_force.pcg_force_plain(fdm32, pre, b, torch.zeros_like(b), Lam, 1e-3, maxiter, True)
+    launch = pcg_force.launch_shape(fdm32, 2 * W)
+    shape = f"{h['name']} {tuple(b.shape)}"
+    say(f"K3 on the {shape}: tau blocks of {launch['tau_block']} rows, grid {launch['grid']} CTAs, "
+        f"{launch['smem']} bytes of shared memory")
     max_err = 0.0
     iters = {}
     for tag, x0 in (("cold", torch.zeros_like(b)), ("warm", x_warm)):
@@ -1005,7 +1026,7 @@ def phase_k3(results):
         res_k, res_p = true_res(xk), true_res(xp)
         max_err = max(max_err, err)
         iters[tag] = sk.iters.tolist()
-        say(f"K3 {tag} W={W}: converged kernel {conv_k} plain {conv_p}; iters/walker kernel "
+        say(f"K3 {tag} {shape}: converged kernel {conv_k} plain {conv_p}; iters/walker kernel "
             f"{sk.iters.tolist()} plain {ip.tolist()}; true residual kernel {res_k:.3e} plain {res_p:.3e}; "
             f"max|x| {scale:.4g} max |x_kernel - x_plain| {err:.3e} (rtol 2e-4, atol 2e-5 max|x|: {x_ok}); "
             f"force max|F| {float(Fp.abs().max()):.4g} max diff {f_err:.3e} (rtol 2e-4, atol 2e-4 max|F|: {f_ok})")
@@ -1015,11 +1036,12 @@ def phase_k3(results):
             fail(f"K3 {tag}: kernel and plain solutions or forces differ beyond the tolerance")
         if not res_k <= max(2 * tol, 2 * res_p):
             fail(f"K3 {tag}: true residual {res_k:.3e} of the kernel's solution exceeds the plain one's")
+    if results is None:
+        return
     zeros = torch.zeros_like(b)
     ms = cuda_ms(lambda: pcg_force.solve_force(fdm32, pre, b, Lam, x0=zeros, tol=tol, maxiter=maxiter), 3)
     warm_ms = cuda_ms(lambda: pcg_force.solve_force(fdm32, pre, b, Lam, x0=x_warm, tol=tol, maxiter=maxiter), 3)
     plain_ms = cuda_ms(lambda: pcg_force.pcg_force_plain(fdm32, pre, b, zeros, Lam, tol, maxiter, True), 1)
-    launch = pcg_force.launch_shape(fdm32, 2 * W)
     # grid-wide syncs per iteration: the waits among the timed instantiation's loop phases
     phases = pcg_force._build.load_library().smoqy_pcg_force_phases().decode().split(",")
     syncs = sum(name.startswith("sync") for name in phases)
@@ -1903,6 +1925,161 @@ def phase_fleet(card, single):
         fail("the killed and resumed fleet did not repeat the uninterrupted fleet's bins bit for bit")
 
 
+# ----------------------------------------------------------------------
+# The example twins (35)
+# ----------------------------------------------------------------------
+
+# the kernels each twin's path must launch (the Holstein honeycomb
+# tutorials at W=1 and the five SSH examples: K1 and K2; the multiwalker
+# tutorial at W=8: K3, K2, K1 f64; the flux chain, complex at N=8 with the
+# doubled-basis spectral preconditioner: none); every twin but the
+# multiwalker one may launch no other (its per-walker fallback sweeps may
+# take K1 f32)
+HOLSTEIN_TWIN = ("mtm_f32", "mtm_f64", "pcg")
+TWIN_KERNELS = {"holstein_honeycomb_multiwalker": ("mtm_f64", "pcg", "pcg_force"), "holstein_flux_chain": ()}
+# the twins' models as the kernel checks take them: the Holstein tutorials'
+# (examples/holstein_honeycomb_multiwalker.py:49-51 defaults: N=18, Ltau=80)
+# and the bond-SSH chain example's (examples/bssh_chain.py defaults: N=16,
+# Ltau=80, a frozen M = inf mode under each bond's live one)
+TUTORIAL = dict(HEADLINE, L=3, beta=4.0, alpha=1.5, name="honeycomb tutorial")
+BSSH_CHAIN = dict(SSH, L=16, beta=4.0, alpha=0.5, name="bond-SSH chain", model="bssh_chain_model")
+# the twins held GPU against CPU on their own models and configurations:
+# every one with a kernel on its update path, but the checkpoint twin (the
+# tutorial's model and configuration) and the density twin (its mu tuning
+# needs the measured run)
+TWIN_REFERENCES = ("holstein_honeycomb", "holstein_honeycomb_multiwalker", "bssh_chain", "bssh_square", "ossh_chain",
+                   "ossh_square", "ossh_honeycomb")
+
+
+def phase_twin_kernels():
+    """35a. The kernels at the twins' shapes against their plain versions:
+    K3 at the multiwalker tutorial's (8, 2, 80, 18) (its tau block depends
+    on the systems, Ltau and N), K1 f32 / f64 and K2 cold / warm on the
+    bond-SSH chain's tau tables (the frozen mode's M = inf in them), at
+    phases 3, 4 and 12's tolerances."""
+    import torch
+
+    phase_k3(None, h=TUTORIAL)
+    fdm64 = headline_fdm(torch.device("cuda"), h=BSSH_CHAIN)
+    C = fdm64.cb.C
+    spread = float((C - C[:, :1]).abs().max())
+    say(f"bond-SSH chain tables (L={BSSH_CHAIN['L']}, beta={BSSH_CHAIN['beta']}, initial field): C, S "
+        f"{tuple(C.shape)}, static_hops {fdm64.static_hops}, max_l |C[:, l] - C[:, 0]| {spread:.3e}")
+    if fdm64.static_hops or not spread > 0:
+        fail("the bond-SSH chain's hopping tables do not differ from one tau row to the next")
+    phase_k1(fdm64, {}, tag="K1 bond-SSH chain", names=None)
+    phase_k2(fdm64, {})
+
+
+def twin_reference(name, n_sweeps=3, f64_forces=False):
+    """35b. One twin's model and configuration (`setup` at its script's
+    defaults) through run_updates on the GPU (the kernels, counted) and on
+    the CPU (the plain versions) from the same seed: the acceptance rates
+    must be equal, every solve converge and the fields agree to 1e-4
+    relative, as in the small-model references. f64_forces also prints how
+    far the CPU chain moves when its forces are solved in f64, the scale
+    of f32 rounding on these chains."""
+    import dataclasses
+    import importlib
+
+    from smoqyelphqmc_tpu_torch.driver import run_updates
+
+    mod = importlib.import_module(f"smoqyelphqmc_tpu_torch.examples.{name}")
+    _, tbm, em, _, cfg = mod.setup()
+    t0 = time.perf_counter()
+    gpu, counts = drive_path(lambda: run_updates(tbm, em, cfg, n_sweeps, device=MAIN_DEVICE),
+                             TWIN_KERNELS.get(name, HOLSTEIN_TWIN), only=name != "holstein_honeycomb_multiwalker")
+    t1 = time.perf_counter()
+    cpu = run_updates(tbm, em, cfg, n_sweeps, device="cpu")
+    t2 = time.perf_counter()
+    xg, xc = gpu["x_final"].cpu(), cpu["x_final"]
+    err = float((xg - xc).abs().max() / xc.abs().max())
+    rates = [k for k in gpu if k.endswith("_acceptance_rate")]
+    same = all(gpu[k] == cpu[k] for k in rates)
+    dH = [(g, c) for gw, cw in zip(gpu["hmc_delta_H"], cpu["hmc_delta_H"])
+          for g, c in (zip(gw, cw) if isinstance(gw, list) else [(gw, cw)])]
+    say(f"twin {name} GPU vs CPU (W={cfg.n_walkers}, N={gpu['n_sites']}, Ltau={gpu['Ltau']}, {n_sweeps} sweeps): "
+        f"field max rel err {err:.3e}; same acceptance {same} ({', '.join(f'{k} {gpu[k]:.3f}' for k in rates)}); "
+        f"dH max abs diff {max(abs(g - c) for g, c in dH):.3e}; hmc iters/solve gpu {gpu['hmc_iters']:.2f} cpu "
+        f"{cpu['hmc_iters']:.2f}; converged gpu {gpu['all_converged']} cpu {cpu['all_converged']}; "
+        f"{t1 - t0:.1f} s GPU, {t2 - t1:.1f} s CPU; launches {({k: v[0] for k, v in counts.items() if v[0]})}")
+    if f64_forces:
+        cpu64 = run_updates(tbm, em, dataclasses.replace(cfg, force_dtype="float64"), n_sweeps, device="cpu")
+        err64 = float((cpu64["x_final"] - xc).abs().max() / xc.abs().max())
+        dH64 = max(abs(a - c) for a, c in zip(cpu64["hmc_delta_H"], cpu["hmc_delta_H"]))
+        say(f"  the same CPU chain with f64 forces: field max rel diff {err64:.3e}, dH max abs diff {dH64:.3e}")
+    if not (same and err <= 1e-4 and gpu["all_converged"] and cpu["all_converged"]):
+        fail(f"the {name} twin's GPU chain disagrees with its CPU reference")
+
+
+def phase_twins(card):
+    """35. Each example twin (smoqyelphqmc_tpu_torch.examples) at its
+    script's defaults through `setup`, the sweep counts cut to MEASURED's
+    (the multiwalker twin at its W=8, the checkpoint twin with its limits),
+    driven through `simulate` with the bins in memory: every solve
+    converged, every bin value finite but the NaN globals, the key the JAX
+    example test asserts in the metadata (holstein_honeycomb's R_cdw from
+    the in-memory bins, by the code that reads it from binned_data.h5),
+    the path's kernels launched and no plain version run. One line a twin.
+    First 35a (phase_twin_kernels) and 35b (twin_reference on
+    TWIN_REFERENCES)."""
+    import importlib
+    import math
+    import tempfile
+
+    from smoqyelphqmc_tpu_torch.examples import TWINS
+    from smoqyelphqmc_tpu_torch.examples.holstein_honeycomb import cdw_neighbors
+    from smoqyelphqmc_tpu_torch.io.correlation_ratio import composite_ratio_from_bins
+
+    cut = {k: MEASURED[k] for k in ("N_therm", "N_measurements", "N_bins")}
+    t_phase = time.perf_counter()
+    phase_twin_kernels()
+    for name in TWIN_REFERENCES:
+        twin_reference(name, f64_forces=name in ("holstein_honeycomb", "bssh_chain"))
+    for name in TWINS:
+        mod = importlib.import_module(f"smoqyelphqmc_tpu_torch.examples.{name}")
+        kernels = TWIN_KERNELS.get(name, HOLSTEIN_TWIN)
+        with tempfile.TemporaryDirectory() as tmp:
+            info, tbm, em, spec, cfg = mod.setup(filepath=tmp, **cut)
+            t0 = time.perf_counter()
+            (bins, md, finished), counts = drive_path(
+                lambda: simulate_in_memory(info, tbm, em, spec, cfg, MAIN_DEVICE), kernels,
+                only=name != "holstein_honeycomb_multiwalker")
+            wall = time.perf_counter() - t0
+        W = cfg.n_walkers
+        check_bins(bins, cfg.N_bins, f"the {name} twin", W)
+        geo = spec.geometry
+        key = ""
+        if name == "holstein_honeycomb":
+            R, dR = composite_ratio_from_bins(bins, "cdw", spec, (0, 0), cdw_neighbors(geo.L[0]))
+            md["Rcdw_mean_real"], md["Rcdw_std"] = float(R.real), float(dR)
+            key = f"R_cdw {R.real:.6f} +- {dR:.6f} (imag {R.imag:.3e}); "
+            ok = math.isfinite(R.real) and math.isfinite(R.imag) and math.isfinite(dR)
+        elif name == "holstein_honeycomb_density_tuning":
+            key = f"final_mu {md['final_mu']:.6f} (target density {cfg.target_density}); "
+            ok = math.isfinite(md["final_mu"])
+        elif name == "holstein_honeycomb_multiwalker":
+            key = f"n_walkers {md['n_walkers']}; precond_fallback_sweeps {md['precond_fallback_sweeps']}; "
+            ok = md["n_walkers"] == W == N_WALKERS
+        else:
+            ok = math.isfinite(md["hmc_acceptance_rate"])
+        n_meas = md["n_measure_timed"]
+        rates = " ".join(f"{k} {md[f'{k}_acceptance_rate']:.3f}"
+                         for k in ("hmc", "reflection", "swap") + (("radial",) if cfg.use_radial_updates else ()))
+        iters = " ".join(f"{k} {md[f'{k}_iters']:.2f}" for k in ("reflection", "swap", "hmc", "radial", "measurement")
+                         if f"{k}_iters" in md)
+        launched = {k: v[0] for k, v in counts.items() if v[0]}
+        say(f"twin {name} on {card}: W={W} N={geo.n_sites} Ltau={round(cfg.beta / cfg.dtau)} beta={cfg.beta} "
+            f"N_therm={cfg.N_therm} N_measurements={cfg.N_measurements} N_bins={cfg.N_bins} Nrv={cfg.Nrv}; "
+            f"s per measured sweep {md['t_measure_s'] / n_meas:.4f} ({n_meas} sweeps {md['t_measure_s']:.3f} s; "
+            f"thermalization {md['t_therm_s']:.3f} s); acceptance {rates}; iters/solve {iters}; {key}"
+            f"all converged {md['all_converged']}; wall {wall:.2f} s; launches {launched}")
+        if not (finished and md["all_converged"] and ok):
+            fail(f"the {name} twin did not finish, converge or give its key ({finished}, {md['all_converged']}, "
+                 f"{ok})")
+    say(f"twins: {len(TWINS)} in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     try:
         import torch
@@ -1994,6 +2171,8 @@ def main() -> None:
                                    N_bins=1)
     # sweep batching and the walker fleet (32-34)
     phase_fleet(card, phase_batching(card))
+    # the example twins (35)
+    phase_twins(card)
     # K8's entry carries its symmetric instantiation's times (the asymmetric
     # one's are on its own line above), the larger error of the two, and the
     # launches of both complex KPM paths

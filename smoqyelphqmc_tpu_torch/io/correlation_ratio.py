@@ -7,14 +7,16 @@ as used by the reference tutorial (tutorials/holstein_honeycomb.jl:760-770):
     R(Q) = 1 - (1/n_dq) sum_dq S(Q + dq) / S(Q)
 
 from the equal-time structure factor S(q), with jackknife error bars over bins.
+h5py is imported only by the functions that read a data folder:
+`composite_ratio_from_bins` computes the ratio from `driver.simulate`'s
+in-memory bins where h5py is absent.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
-import h5py
 import numpy as np
 
 
@@ -42,23 +44,20 @@ def _ratio_from_bins(Sq: np.ndarray, q_point, q_neighbors):
     return _jackknife_ratio(ratios)
 
 
-def compute_composite_correlation_ratio(
-    datafolder: str,
-    name: str,
+def composite_ratio(
+    data: np.ndarray,
+    coefficients,
     q_point: Sequence[int],
     q_neighbors: Sequence[Sequence[int]],
     type: str = "equal-time",
+    pair_displacements=None,
     spec=None,
 ) -> Tuple[complex, float]:
-    """Correlation ratio for a composite correlation measured during the run.
-    Composite data is stored per id-pair; coefficients (and displacement phases
-    when present and `spec` provides the reciprocal lattice) fold in here."""
-    merged = os.path.join(datafolder, "binned_data.h5")
-    with h5py.File(merged, "r") as f:
-        ds = f["composite"][name]
-        data = ds[()]  # (nb, n_pairs, Lt+1, *L)
-        coefs = np.asarray(ds.attrs.get("coefficients", np.ones(data.shape[1])))
-        disps = np.asarray(ds.attrs["pair_displacements"]) if "pair_displacements" in ds.attrs else None
+    """The correlation ratio of a composite correlation from its binned
+    per-pair data (nb, n_pairs, Lt+1, *L): the coefficients (and the
+    displacement phases, when given and `spec` provides the reciprocal
+    lattice) fold in here, then the jackknife over bins."""
+    coefs = np.asarray(coefficients)
     if type == "equal-time":
         Cr = data[:, :, 0]
     else:  # integrated (trapezoid weights, unit dtau scale cancels in the ratio)
@@ -68,7 +67,8 @@ def compute_composite_correlation_ratio(
     Sq_pairs = np.fft.fftn(Cr, axes=tuple(range(2, Cr.ndim)))  # (nb, n_pairs, *L)
     Lshape = Sq_pairs.shape[2:]
     phases = np.ones((len(coefs),) + tuple(Lshape), dtype=complex)
-    if disps is not None and spec is not None:
+    if pair_displacements is not None and spec is not None:
+        disps = np.asarray(pair_displacements)
         B = spec.geometry.unit_cell.reciprocal_vec_matrix
         grids = np.meshgrid(*[np.arange(l) for l in Lshape], indexing="ij")
         for k in range(len(coefs)):
@@ -80,6 +80,46 @@ def compute_composite_correlation_ratio(
     return _ratio_from_bins(Sq, q_point, q_neighbors)
 
 
+def composite_ratio_from_bins(
+    bins: Dict,
+    name: str,
+    spec,
+    q_point: Sequence[int],
+    q_neighbors: Sequence[Sequence[int]],
+    type: str = "equal-time",
+) -> Tuple[complex, float]:
+    """`composite_ratio` of in-memory bins ({bin key: bin tree}, the trees
+    `driver.simulate` yields, keyed by bin index at W = 1 and by (pID, bin
+    index) at W >= 2), stacked in key order as `merge_bins` stacks the bin
+    files, with the coefficients and displacements of spec's request."""
+    data = np.stack([np.asarray(re, dtype=np.float64) + 1j * np.asarray(im, dtype=np.float64)
+                     for re, im in (bins[k]["composite"][name] for k in sorted(bins))])
+    req = spec.composites[name]
+    return composite_ratio(data, np.asarray(req.coefficients, dtype=np.complex128), q_point, q_neighbors, type,
+                           req.pair_displacements, spec)
+
+
+def compute_composite_correlation_ratio(
+    datafolder: str,
+    name: str,
+    q_point: Sequence[int],
+    q_neighbors: Sequence[Sequence[int]],
+    type: str = "equal-time",
+    spec=None,
+) -> Tuple[complex, float]:
+    """Correlation ratio for a composite correlation measured during the run,
+    read from the data folder's binned_data.h5 (`composite_ratio`)."""
+    import h5py
+
+    merged = os.path.join(datafolder, "binned_data.h5")
+    with h5py.File(merged, "r") as f:
+        ds = f["composite"][name]
+        data = ds[()]  # (nb, n_pairs, Lt+1, *L)
+        coefs = np.asarray(ds.attrs.get("coefficients", np.ones(data.shape[1])))
+        disps = np.asarray(ds.attrs["pair_displacements"]) if "pair_displacements" in ds.attrs else None
+    return composite_ratio(data, coefs, q_point, q_neighbors, type, disps, spec)
+
+
 def compute_correlation_ratio(
     datafolder: str,
     correlation: str,
@@ -89,6 +129,8 @@ def compute_correlation_ratio(
     type: str = "equal-time",
 ) -> Tuple[complex, float]:
     """Correlation ratio for a plain correlation (id pairs summed, or a subset)."""
+    import h5py
+
     merged = os.path.join(datafolder, "binned_data.h5")
     with h5py.File(merged, "r") as f:
         data = f["correlations"][correlation][()]  # (nb, pairs, Lt+1, *L)
