@@ -172,8 +172,20 @@ Phases, one line each:
      and configurations GPU against CPU through run_updates, 3 sweeps (35b:
      the Holstein tutorial at W=1 and W=8 and the five SSH examples;
      acceptance equal, fields within 1e-4 relative).
+ 36. the CDW study's twin (smoqyelphqmc_tpu_torch.physics_sweep, the port
+     of scripts/physics_sweep.py: the Holstein honeycomb at alpha 1.5, W=8):
+     36a, the kernels at the study's extreme shapes against their plain
+     versions, with their times and tau blocks: K3 at L=6, beta=2 (8, 2, 40,
+     72) and L=9, beta=10 (8, 2, 200, 162), cold and warm; K1 f32 and f64 at
+     (2, 200, 162); K2 at 2 systems and at the refresh's 20 (20, 200, 162);
+     36b, the twin's command line at L=9, beta=10 and L=6, beta=2 (N_therm=2,
+     N_measurements=4, N_bins=2, each point's seed and W=8): K1 f64, K2 and
+     K3 launch and no plain version runs, every solve converged, the bins
+     finite, R_cdw and its error finite; one line a point; 36c, the L=6,
+     beta=2 point's model and configuration through run_updates, 3 sweeps,
+     GPU against CPU: acceptance equal, fields within 1e-4 relative.
 Each path (5, 5a, 7, 10, 10a, 10b, 11, 15, 16, 19, 20, 21, 24, 25, 27, 28,
-29, 32, each rank's in 33 and each twin's GPU run in 35 and 35b) is driven with every kernel count set to 0
+29, 32, each rank's in 33, each twin's GPU run in 35 and 35b, and 36b-36c) is driven with every kernel count set to 0
 just before it and read just after; the launches of K1 and K2 in the kernels line are the measured
 main path's (5a), K3's the measured walker path's (10a), those of the
 tau-table entries the measured SSH path's (24), K6's those of 15 and 27,
@@ -1979,16 +1991,24 @@ def twin_reference(name, n_sweeps=3, f64_forces=False):
     relative, as in the small-model references. f64_forces also prints how
     far the CPU chain moves when its forces are solved in f64, the scale
     of f32 rounding on these chains."""
-    import dataclasses
     import importlib
-
-    from smoqyelphqmc_tpu_torch.driver import run_updates
 
     mod = importlib.import_module(f"smoqyelphqmc_tpu_torch.examples.{name}")
     _, tbm, em, _, cfg = mod.setup()
+    chain_reference(f"twin {name}", tbm, em, cfg, TWIN_KERNELS.get(name, HOLSTEIN_TWIN),
+                    name != "holstein_honeycomb_multiwalker", n_sweeps, f64_forces)
+
+
+def chain_reference(tag, tbm, em, cfg, kernels, only, n_sweeps=3, f64_forces=False):
+    """A model and configuration through run_updates on the GPU (the path's
+    kernels launched, counted) and on the CPU from the same seed, held as
+    twin_reference holds them."""
+    import dataclasses
+
+    from smoqyelphqmc_tpu_torch.driver import run_updates
+
     t0 = time.perf_counter()
-    gpu, counts = drive_path(lambda: run_updates(tbm, em, cfg, n_sweeps, device=MAIN_DEVICE),
-                             TWIN_KERNELS.get(name, HOLSTEIN_TWIN), only=name != "holstein_honeycomb_multiwalker")
+    gpu, counts = drive_path(lambda: run_updates(tbm, em, cfg, n_sweeps, device=MAIN_DEVICE), kernels, only=only)
     t1 = time.perf_counter()
     cpu = run_updates(tbm, em, cfg, n_sweeps, device="cpu")
     t2 = time.perf_counter()
@@ -1998,7 +2018,7 @@ def twin_reference(name, n_sweeps=3, f64_forces=False):
     same = all(gpu[k] == cpu[k] for k in rates)
     dH = [(g, c) for gw, cw in zip(gpu["hmc_delta_H"], cpu["hmc_delta_H"])
           for g, c in (zip(gw, cw) if isinstance(gw, list) else [(gw, cw)])]
-    say(f"twin {name} GPU vs CPU (W={cfg.n_walkers}, N={gpu['n_sites']}, Ltau={gpu['Ltau']}, {n_sweeps} sweeps): "
+    say(f"{tag} GPU vs CPU (W={cfg.n_walkers}, N={gpu['n_sites']}, Ltau={gpu['Ltau']}, {n_sweeps} sweeps): "
         f"field max rel err {err:.3e}; same acceptance {same} ({', '.join(f'{k} {gpu[k]:.3f}' for k in rates)}); "
         f"dH max abs diff {max(abs(g - c) for g, c in dH):.3e}; hmc iters/solve gpu {gpu['hmc_iters']:.2f} cpu "
         f"{cpu['hmc_iters']:.2f}; converged gpu {gpu['all_converged']} cpu {cpu['all_converged']}; "
@@ -2009,7 +2029,7 @@ def twin_reference(name, n_sweeps=3, f64_forces=False):
         dH64 = max(abs(a - c) for a, c in zip(cpu64["hmc_delta_H"], cpu["hmc_delta_H"]))
         say(f"  the same CPU chain with f64 forces: field max rel diff {err64:.3e}, dH max abs diff {dH64:.3e}")
     if not (same and err <= 1e-4 and gpu["all_converged"] and cpu["all_converged"]):
-        fail(f"the {name} twin's GPU chain disagrees with its CPU reference")
+        fail(f"{tag}: the GPU chain disagrees with its CPU reference")
 
 
 def phase_twins(card):
@@ -2078,6 +2098,87 @@ def phase_twins(card):
             fail(f"the {name} twin did not finish, converge or give its key ({finished}, {md['all_converged']}, "
                  f"{ok})")
     say(f"twins: {len(TWINS)} in {time.perf_counter() - t_phase:.1f} s")
+
+
+# the CDW study (scripts/physics_sweep.py:64-87, smoqyelphqmc_tpu_torch.physics_sweep):
+# the Holstein honeycomb at alpha 1.5, W=8; its largest and smallest points
+STUDY = dict(HEADLINE, alpha=1.5, name="CDW study")
+STUDY_POINTS = ((9, 10.0), (6, 2.0))
+STUDY_KERNELS = ("mtm_f64", "pcg", "pcg_force")
+
+
+def study_model(L, beta):
+    return dict(STUDY, L=L, beta=beta, name=f"CDW study L={L} beta={beta:g}")
+
+
+def phase_study_kernels():
+    """36a. The kernels at the study's extreme shapes against their plain
+    versions (phases 4, 8 and 35a's tolerances), with their times and tau
+    blocks: K3 at L=6, beta=2 (8, 2, 40, 72) and L=9, beta=10 (8, 2, 200,
+    162), cold and warm; K1 f32 / f64, K2 cold / warm and K2 at the
+    refresh's 20 systems on the L=9, beta=10 tables."""
+    import torch
+
+    for L, beta in sorted(STUDY_POINTS):
+        phase_k3({}, h=study_model(L, beta))
+    h = study_model(*max(STUDY_POINTS))
+    fdm64 = headline_fdm(torch.device("cuda"), h=h)
+    phase_k1(fdm64, {}, tag=f"K1 {h['name']}", names=None)
+    two = {}
+    phase_k2(fdm64, two)
+    phase_k2_estimator(two, h=h)
+
+
+def phase_study(card):
+    """36. The CDW study's twin: 36a (phase_study_kernels); 36b, its command
+    line at each of STUDY_POINTS, W=8, cut to MEASURED's depth, through
+    drive_path: K1 f64, K2 and K3 launch and no plain version runs, the row's
+    solves converged, every bin value finite but the NaN globals, R_cdw and
+    its error finite; 36c, the L=6, beta=2 point's model and configuration
+    through run_updates, 3 sweeps, GPU against CPU (chain_reference)."""
+    import math
+    import pickle
+    import tempfile
+
+    from smoqyelphqmc_tpu_torch import physics_sweep
+
+    t_phase = time.perf_counter()
+    phase_study_kernels()
+    cut = ["--therm", str(MEASURED["N_therm"]), "--meas", str(MEASURED["N_measurements"]),
+           "--bins", str(MEASURED["N_bins"]), "--walkers", str(N_WALKERS)]
+    for L, beta in STUDY_POINTS:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--Ls", str(L), "--betas", f"{beta:g}", "--out", tmp, "--device", MAIN_DEVICE] + cut
+            t0 = time.perf_counter()
+            code, counts = drive_path(lambda: physics_sweep.main(argv), STUDY_KERNELS)
+            wall = time.perf_counter() - t0
+            with open(os.path.join(tmp, "results.json")) as f:
+                rows = json.load(f)
+            info, *_ = physics_sweep.point_setup(L, beta, physics_sweep.parse_args(argv))
+            bins = {}
+            for p in range(N_WALKERS):
+                for b in range(MEASURED["N_bins"]):
+                    with open(physics_sweep.bin_path(info, p, b), "rb") as f:
+                        bins[(p, b)] = pickle.load(f)
+        check_bins(bins, MEASURED["N_bins"], f"the CDW study twin at L={L} beta={beta:g}", N_WALKERS)
+        if code != 0 or len(rows) != 1:
+            fail(f"the CDW study twin at L={L} beta={beta:g} exited {code} with {len(rows)} rows")
+        r = rows[0]
+        say(f"CDW study twin on {card}: L={L} beta={beta:g} W={r['walkers']} N={2 * L * L} Ltau={round(beta / 0.05)} "
+            f"seed {r['seed']} N_therm={r['therm']} N_measurements={r['meas']} bins {r['bins_total']}; s per "
+            f"measured sweep {r['s_per_measured_sweep']:.4f}, thermalization sweep {r['s_per_therm_sweep']:.4f}; "
+            f"acceptance hmc {r['hmc_acceptance_rate']:.3f} refl {r['reflection_acceptance_rate']:.3f} swap "
+            f"{r['swap_acceptance_rate']:.3f}; iters/solve hmc {r['hmc_iters']:.2f} refl {r['reflection_iters']:.2f} "
+            f"swap {r['swap_iters']:.2f} measurement {r['measurement_iters']:.2f}; precond_fallback_sweeps "
+            f"{r['precond_fallback_sweeps']}; R_cdw {r['Rcdw_unrounded']:.6f} +- {r['Rcdw_err_unrounded']:.6f} (imag "
+            f"{r['Rcdw_imag']:.3e}); all converged {r['all_converged']}; wall {wall:.2f} s; launches "
+            f"{({k: v[0] for k, v in counts.items() if v[0]})}")
+        if not (r["all_converged"] and all(math.isfinite(r[k]) for k in ("Rcdw_unrounded", "Rcdw_err_unrounded"))):
+            fail(f"the CDW study twin at L={L} beta={beta:g} did not converge or gave no finite R_cdw")
+    L, beta = min(STUDY_POINTS)
+    _, tbm, em, _, cfg = physics_sweep.point_setup(L, beta, physics_sweep.parse_args(cut))
+    chain_reference(f"CDW study L={L} beta={beta:g}", tbm, em, cfg, STUDY_KERNELS, False)
+    say(f"CDW study phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2173,6 +2274,8 @@ def main() -> None:
     phase_fleet(card, phase_batching(card))
     # the example twins (35)
     phase_twins(card)
+    # the CDW study's twin (36)
+    phase_study(card)
     # K8's entry carries its symmetric instantiation's times (the asymmetric
     # one's are on its own line above), the larger error of the two, and the
     # launches of both complex KPM paths

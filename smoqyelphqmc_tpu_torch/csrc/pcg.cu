@@ -291,7 +291,7 @@ extern "C" int smoqy_pcg(const float* b, float* x, float* eps, int* iters, const
   // the timed instantiation when stamps are given: the same grid (its
   // occupancy is the untimed one's or the launch is refused)
   const void* fn = stamps ? (const void*)pcg_kernel<true> : (const void*)pcg_kernel<false>;
-  if (stamps && pcg_smem_bytes(N) > 48 * 1024) {
+  if (stamps) {  // at every size, as cooperative_grid sets it
     e = (int)cudaFuncSetAttribute(pcg_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)pcg_smem_bytes(N));
     if (e) return e;

@@ -449,14 +449,15 @@ struct ResidualSrc {
 };
 
 // CTAs of a cooperative launch of `kernel` (at most kCtasPerSm per SM, at most
-// kMaxGrid), after raising its dynamic shared-memory limit to `smem` bytes.
+// kMaxGrid), after setting its dynamic shared-memory limit to `smem` bytes.
+// The limit is set at every size: the kernels' static arrays (Shared, ~10-13
+// KB) count against the 48 KB a CTA gets without it, so a launch whose
+// dynamic part is under 48 KB but whose sum is over (K3 at N=162, T=13) needs
+// it too.
 template <typename Kernel>
 int cooperative_grid(Kernel kernel, size_t smem, int* grid_out) {
-  cudaError_t e;
-  if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)

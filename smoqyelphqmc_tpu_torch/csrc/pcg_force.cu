@@ -380,7 +380,7 @@ extern "C" int smoqy_pcg_force(const float* b, const float* x0, const float* Lam
   a.stamps = static_cast<unsigned long long*>(stamps);
   // the timed instantiation when stamps are given, on the same grid
   const void* fn = stamps ? (const void*)pcg_force_kernel<true> : (const void*)pcg_force_kernel<false>;
-  if (stamps && smem > 48 * 1024) {
+  if (stamps) {  // at every size, as cooperative_grid sets it
     e = (int)cudaFuncSetAttribute(pcg_force_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                   (int)smem);
     if (e) return e;
