@@ -1,0 +1,8 @@
+"""Per cent of the program's `update` spans (inside the profiled sweeps'
+windows) in which no kernel, copy or set ran on the device."""
+
+from benchmark.spans import idle_share
+
+
+def read(run):
+    return idle_share(run, ("update",))

@@ -107,6 +107,7 @@ from .parallel.walkers import (
     walker_refresh,
     walker_sweep,
 )
+from .tracing import span
 from .tree import tree_map
 from .updates.context import QMCContext, QMCState, complex_hops, initialize_qmc, make_fdm, with_mu
 from .updates.global_updates import radial_update, reflection_update, swap_update
@@ -255,24 +256,26 @@ class MeasuredSweep(NamedTuple):
     stats: SweepStats
     update: EstimatorUpdate  # the refreshed estimator, its solve's iterations and convergence
     out: Dict  # the measurement tree
-    t_refresh_s: float  # host clock around the refresh, synchronised
-    t_measurements_s: float  # host clock around the measurement pass, synchronised
+    t_refresh_s: float  # the `refresh` span's seconds: the refresh, synchronised
+    t_measurements_s: float  # the `measure` span's seconds: the measurement pass, synchronised
 
 
 def measured_sweep(ctx: QMCContext, state: QMCState, params: HMCParams, draws: WalkerDraws, est: GreensEstimator,
                    spec: MeasurementSpec, cfg: SimulationConfig, recenter=None) -> MeasuredSweep:
     """A sweep, the estimator refresh at the new field with draws.theta, and
-    the measurement pass (the JAX package's measured_step at k = 1)."""
-    state, stats = sweep(ctx, state, params, draws, recenter)
-    sync_device(ctx.device)
-    t0 = time.perf_counter()
-    upd = update_greens_estimator(est, make_fdm(ctx, state.x), draws.theta, precond=state.precond,
-                                  **_solve_opts(cfg))
-    sync_device(ctx.device)
-    t1 = time.perf_counter()
-    out = make_measurements(ctx, spec, upd.estimator, state.x)
-    sync_device(ctx.device)
-    return MeasuredSweep(state, stats, upd, out, t1 - t0, time.perf_counter() - t1)
+    the measurement pass (the JAX package's measured_step at k = 1): the
+    `update`, `refresh` and `measure` spans (`tracing`), each synchronised."""
+    with span("update"):
+        state, stats = sweep(ctx, state, params, draws, recenter)
+        sync_device(ctx.device)
+    with span("refresh") as refresh:
+        upd = update_greens_estimator(est, make_fdm(ctx, state.x), draws.theta, precond=state.precond,
+                                      **_solve_opts(cfg))
+        sync_device(ctx.device)
+    with span("measure") as measure:
+        out = make_measurements(ctx, spec, upd.estimator, state.x)
+        sync_device(ctx.device)
+    return MeasuredSweep(state, stats, upd, out, refresh.seconds, measure.seconds)
 
 
 # ----------------------------------------------------------------------
@@ -430,7 +433,8 @@ class _Chains:
         params, radial = self._params(), self.cfg.use_radial_updates
         if self.W == 1:
             draws = draw_walker(self.gens[0], self.ctx, self.state.precond, params, est, radial)
-            self.state, st = sweep(self.context(), self.state, params, draws, self.recenter)
+            with span("update"):
+                self.state, st = sweep(self.context(), self.state, params, draws, self.recenter)
             return [draws.theta], _as_lists(st)
         draws = [draw_walker(g, self.ctx, self.states.precond[i], params, est, radial)
                  for i, g in enumerate(self.gens)]
@@ -534,9 +538,9 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     """`run_updates` from expanded parameters, on the device of `elph` (for a
     caller with tables of its own, such as relabelled sites). The sweeps run
     in batches of cfg.sweeps_per_dispatch on the absolute grid, each batch
-    inside a profiler range named "sweep" that closes after the batch's
+    a `sweep` span (`tracing`, phase 'therm') that closes after the batch's
     device sync (a sweep and its sync at k = 1); sweep_s holds each sweep's
-    seconds (a batch's seconds over its sweeps). The timestep law of
+    seconds (a batch's span seconds over its sweeps). The timestep law of
     `target_acceptance` runs on every sweep; mu tuning needs the measured
     simulation. hmc_delta_H is a list a walker at W >= 2, with
     walker_converged and precond_fallback_sweeps; in a fleet hmc_delta_H and
@@ -569,8 +573,7 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     done = 0
     while done < n_sweeps:
         k = _batch(done, k_disp, n_sweeps)
-        t0 = time.perf_counter()
-        with torch.profiler.record_function("sweep"):
+        with span("sweep", phase="therm", sweep=done) as batch:
             for s in chains.batch(k):
                 _record_rows(meta, s.rows)
                 if cfg.target_acceptance is not None:
@@ -580,7 +583,7 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
                 for dh, h in zip(delta_H, s.stats.hmc):
                     dh.append(h.delta_H)
             sync_device(device)
-        sweep_s += [(time.perf_counter() - t0) / k] * k
+        sweep_s += [batch.seconds / k] * k
         done += k
     n = max(n_sweeps, 1)
     for k in _rates():
@@ -612,6 +615,15 @@ def _tuner_inputs(upds: List[EstimatorUpdate], W: int):
     if W == 1:
         return n[0], N2[0]
     return torch.tensor(n, dtype=torch.float64), torch.tensor(N2, dtype=torch.float64)
+
+
+def _hmc_last(hmc: list, W: int) -> Dict:
+    """The last trajectory of each owned walker (its HMCStats' host values):
+    Delta H, the accept flag and convergence, plain values at W = 1, lists
+    over the owned walkers at W >= 2."""
+    last = {"delta_H": [h.delta_H for h in hmc], "accepted": [h.accepted for h in hmc],
+            "converged": [h.converged for h in hmc]}
+    return {k: v[0] for k, v in last.items()} if W == 1 else last
 
 
 def _copy_leaf(v):
@@ -647,8 +659,14 @@ def simulate(
     n_walkers, precond_fallback_sweeps and final_mu_per_walker at W >= 2,
     final_mu at W = 1, hmc_dt_final with target_acceptance) plus
     `all_converged` (every update and estimator solve converged),
-    `t_refresh_s` and `t_measurements_s` (seconds in estimator refreshes and
-    in measurement passes). With resume, a checkpoint in the data folder
+    `t_refresh_s` and `t_measurements_s` (the summed seconds of the
+    `refresh` and `measure` spans: estimator refreshes and measurement
+    passes) and `hmc_last` (each owned walker's last trajectory,
+    `_hmc_last`). A run the runtime limit stops returns the sums undivided,
+    with hmc_last and, at W >= 2, precond_fallback_sweeps. Each batch of
+    sweeps is a `sweep` span (`tracing`: phase 'therm' or 'measure', the
+    index of its first sweep in the phase; it covers the whole batch at
+    sweeps_per_dispatch k > 1). With resume, a checkpoint in the data folder
     (under sim_info.pID) restores the fields, the preconditioner(s), the
     generators' states, the fallback controller, the loop counters, the
     metadata, dt, mu, the tuner(s) and the tuning history, and each walker's
@@ -763,6 +781,12 @@ def simulate(
     def out_of_time() -> bool:
         return runtime_exceeded(start_time, cfg.runtime_limit_hours)
 
+    def close() -> None:
+        """The keys of every return: KPM diagnostics and the fallback count."""
+        chains.fold_kpm(metadata)
+        if W > 1:
+            metadata["precond_fallback_sweeps"] = chains.fallback
+
     def tune(upds):
         nonlocal tuner
         n, N2 = _tuner_inputs(upds, W)
@@ -780,12 +804,14 @@ def simulate(
     n_timed = 0
     while therm_done < cfg.N_therm:
         k = _batch(therm_done, k_disp, cfg.N_therm)
-        for s in chains.batch(k, est if tuner is not None else None):
-            _record_rows(metadata, s.rows)
-            if cfg.target_acceptance is not None:
-                chains.dt = dt_law(chains.dt, _col_mean(s.rows, _HMC_ACC), cfg.target_acceptance, dt0)
-            if tuner is not None:
-                tune(chains.refresh(est, s.thetas))
+        with span("sweep", phase="therm", sweep=therm_done):
+            for s in chains.batch(k, est if tuner is not None else None):
+                _record_rows(metadata, s.rows)
+                if cfg.target_acceptance is not None:
+                    chains.dt = dt_law(chains.dt, _col_mean(s.rows, _HMC_ACC), cfg.target_acceptance, dt0)
+                if tuner is not None:
+                    tune(chains.refresh(est, s.thetas))
+            metadata["hmc_last"] = _hmc_last(s.stats.hmc, W)
         therm_done += k
         n_timed += k
         if n_timed == k:
@@ -795,7 +821,7 @@ def simulate(
         if save:
             checkpoint()
         if stop:
-            chains.fold_kpm(metadata)
+            close()
             return metadata, False
     if n_timed:
         metadata["t_therm_s"] = round(time.time() - t_phase, 3)
@@ -808,16 +834,18 @@ def simulate(
     n_timed = 0
     while meas_done < cfg.N_measurements:
         k = _batch(meas_done, k_disp, cfg.N_measurements, meas_done + bin_size - meas_done % bin_size)
-        for m in chains.batch(k, est, spec):
-            _record_rows(metadata, m.rows)
-            metadata["measurement_iters"] += _col_mean(m.rows, _MEAS_ITERS)
-            metadata["all_converged"] = metadata["all_converged"] and bool(m.rows[:, _MEAS_CONVERGED].all())
-            metadata["t_refresh_s"] += m.t_refresh_s
-            metadata["t_measurements_s"] += m.t_measurements_s
-            for a, out in zip(accs, m.outs):
-                a.accumulate(out)
-            if tuner is not None:
-                tune(m.updates)
+        with span("sweep", phase="measure", sweep=meas_done):
+            for m in chains.batch(k, est, spec):
+                _record_rows(metadata, m.rows)
+                metadata["measurement_iters"] += _col_mean(m.rows, _MEAS_ITERS)
+                metadata["all_converged"] = metadata["all_converged"] and bool(m.rows[:, _MEAS_CONVERGED].all())
+                metadata["t_refresh_s"] += m.t_refresh_s
+                metadata["t_measurements_s"] += m.t_measurements_s
+                for a, out in zip(accs, m.outs):
+                    a.accumulate(out)
+                if tuner is not None:
+                    tune(m.updates)
+            metadata["hmc_last"] = _hmc_last(m.stats.hmc, W)
         meas_done += k
         n_timed += k
         if n_timed == k:
@@ -835,7 +863,7 @@ def simulate(
         if save:
             checkpoint()
         if stop:
-            chains.fold_kpm(metadata)
+            close()
             return metadata, False
     if n_timed:
         sync_device(device)
@@ -846,9 +874,7 @@ def simulate(
     for k in _rates():
         metadata[k] /= max(n_updates, 1)
     metadata["measurement_iters"] /= max(cfg.N_measurements, 1)
-    chains.fold_kpm(metadata)
-    if W > 1:
-        metadata["precond_fallback_sweeps"] = chains.fallback
+    close()
     if cfg.target_acceptance is not None:
         metadata["hmc_dt_final"] = chains.dt
     if tuner is not None:

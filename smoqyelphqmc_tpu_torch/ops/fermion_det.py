@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..models.fermion_path_integral import FermionPathIntegral
+from ..tracing import KernelCounter
 from .checkerboard import (
     CheckerboardOp,
     CheckerboardStructure,
@@ -33,7 +34,6 @@ from .checkerboard import (
     hop_factors,
     hop_factors_complex,
 )
-from .mtm import KernelCounter
 
 # plain PyTorch by design: counts on plain_calls only, and stays out of the
 # kernel counters that a path must launch

@@ -27,8 +27,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..tracing import KernelCounter
 from .fermion_det import boundary_sign
-from .mtm import (SMEM_MAX, KernelCounter, block_form, fewest_rows, mtm_tables, pair_index,  # noqa: F401
+from .mtm import (SMEM_MAX, block_form, fewest_rows, mtm_tables, pair_index,  # noqa: F401
                   phase_times, require_real, row_ld, stamp_slots)
 
 FORCE = KernelCounter("force")

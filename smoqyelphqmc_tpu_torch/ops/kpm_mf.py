@@ -48,8 +48,8 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..tracing import KernelCounter
 from .kpm import AveragedPropagator
-from .mtm import KernelCounter
 
 KPM_MF = KernelCounter("kpm_mf")
 KPM_MF_ASYM = KernelCounter("kpm_mf_asym")

@@ -15,20 +15,7 @@ import numpy as np
 import torch
 
 from .. import _build
-
-
-class KernelCounter:
-    """Launches of one kernel and calls of its plain version (plain ints)."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-        self.plain_calls = 0
-
-    def reset(self) -> None:
-        self.launches = 0
-        self.plain_calls = 0
-
+from ..tracing import KernelCounter
 
 # one counter per instantiation of the kernel
 MTM = {torch.float32: KernelCounter("mtm_f32"), torch.float64: KernelCounter("mtm_f64")}

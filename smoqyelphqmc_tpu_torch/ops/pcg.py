@@ -11,6 +11,8 @@ tolerances is not needed.
 
 `pcg_unit` is the dispatcher of the solve on unit-norm right-hand sides: a CPU
 tensor takes `pcg_plain`, a CUDA tensor launches `csrc/pcg.cu` or raises.
+While tracing is on, each launch and each plain call leaves a record of its
+systems and its iteration count in `PCG.records` (`tracing.Launch`).
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..tracing import KernelCounter
 from .cg import CGStats
-from .mtm import KernelCounter, mtm_plain, mtm_tables, mul_MtM, require_real
+from .mtm import mtm_plain, mtm_tables, mul_MtM, require_real
 
 PCG = KernelCounter("pcg")
 
@@ -77,7 +80,9 @@ def pcg_plain(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int):
         rdotz = torch.where(on, new_rdotz, rdotz)
         active = on
         it += 1
-    return x, eps, torch.tensor(it, dtype=torch.int32)
+    iters = torch.tensor(it, dtype=torch.int32)
+    PCG.record(b.shape[0], b.shape[1], b.shape[2], iters)
+    return x, eps, iters
 
 
 def pcg_cuda(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int, stamps=None):
@@ -122,7 +127,9 @@ def pcg_cuda(fdm32, pre, b: torch.Tensor, tol: float, maxiter: int, stamps=None)
     )
     _build.check(rc, "pcg kernel launch")
     PCG.launches += 1
-    return x, eps, iters[0]
+    iters = iters[0]
+    PCG.record(B, Ltau, N, iters)
+    return x, eps, iters
 
 
 STAMP_HEAD = 4  # globaltimer and clock64 at the kernel's start and end

@@ -15,7 +15,10 @@ per-walker `converged` (finite and every eps < tol).
 `pcg_force` is the dispatcher: a CPU tensor takes `pcg_force_plain`, a CUDA
 tensor launches `csrc/pcg_force.cu` or raises. The kernel's matvec phases take
 T consecutive tau rows of one system a CTA; `tau_block_rows` picks T (the
-algebra of one block is `ops/mtm.py:mtm_blocked_plain`).
+algebra of one block is `ops/mtm.py:mtm_blocked_plain`). While tracing is
+on, each launch and each plain call leaves a record of its 2W channel
+systems and its per-walker iteration counts in `PCG_FORCE.records`
+(`tracing.Launch`).
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ import math
 import torch
 
 from .. import _build
+from ..tracing import KernelCounter
 from .cg import CGStats
 from .force import check_operands, planes
-from .mtm import KernelCounter, mtm_tables, require_real
+from .mtm import mtm_tables, require_real
 from .pcg import STAMP_HEAD, precond_plain, stamp_phases
 
 PCG_FORCE = KernelCounter("pcg_force")
@@ -141,6 +145,7 @@ def pcg_force_plain(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Te
         active = on
         it += 1
     P1, P2 = planes(fdm32, Lam, x, want_p2)
+    PCG_FORCE.record(2 * W, L, N, iters)
     return x, P1, P2, (eps / torch.clamp(normb, min=_TINY)).reshape(2 * W), iters
 
 
@@ -192,6 +197,7 @@ def pcg_force_cuda(fdm32, pre, b: torch.Tensor, x0: torch.Tensor, Lam: torch.Ten
     )
     _build.check(rc, "pcg_force kernel launch")
     PCG_FORCE.launches += 1
+    PCG_FORCE.record(2 * W, Ltau, N, iters)
     return x, P1, P2, eps, iters
 
 

@@ -25,7 +25,6 @@ walker's preconditioner) and takes its measurement pass.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -36,6 +35,7 @@ from ..measure.greens_estimator import EstimatorUpdate, GreensEstimator, draw_th
 from ..ops.checkerboard import build_checkerboard_op
 from ..ops.kpm import KPMPreconditioner
 from ..ops.preconditioner import refresh_preconditioner
+from ..tracing import span
 from ..updates.context import QMCContext, QMCState, make_fdm, with_mu
 from ..updates.global_updates import (
     RadialDraws,
@@ -241,42 +241,44 @@ def walker_sweep(ctx: QMCContext, states: WalkerStates, params: HMCParams, draws
     after every drift. In a fleet the states and mus are this process's
     block, and the shared refresh and the W >= 2 test take every process's
     walkers (`distributed.gather_walkers`). Returns (states, SweepStats of
-    lists over this block's walkers)."""
-    W = states.n_walkers
-    shared = shared_precond and states.precond[0] is not None
-    ctxs = [ctx if mus is None else with_mu(ctx, mus[w]) for w in range(W)]
-    if shared:
-        if ctx.refresh_precond_global or params.refresh_precond_every_step:
-            raise ValueError("a walker batch shares one preconditioner, refreshed once a sweep: "
-                             "refresh_precond_global and refresh_precond_every_step need shared_precond=False")
-        ctx_mean = ctx if mus is None else with_mu(ctx, gather_walkers(mus).mean())
-        states = shared_precond_refresh(ctx_mean, states, v_shared)
-        params = dataclasses.replace(params, refresh_precond_at_start=False)
-        if W * process_count() >= 2:
-            params = dataclasses.replace(params, fused_step_force=True)
-    xs, pres, rs, ss, rads = [], [], [], [], []
-    for w in range(W):
-        st, r = reflection_update(ctxs[w], states.walker(w), draws[w].reflection)
-        st, s = swap_update(ctxs[w], st, draws[w].swap)
-        if draws[w].radial is not None:
-            st, rad = radial_update(ctxs[w], st, draws[w].radial)
-            rads.append(rad)
-        xs.append(st.x)
-        pres.append(st.precond)
-        rs.append(r)
-        ss.append(s)
-    rads = rads or None
-    if shared:
-        batch_ctx = ctx if mus is None else with_mu(ctx, mus)
-        st, hs = hmc_update(batch_ctx, QMCState(x=torch.stack(xs), precond=pres[0]), params,
-                            [d.hmc for d in draws], recenter=recenter)
-        return WalkerStates(x=st.x, precond=[st.precond] * W), SweepStats(rs, ss, hs, rads)
-    hs = []
-    for w in range(W):
-        st, h = hmc_update(ctxs[w], QMCState(x=xs[w], precond=pres[w]), params, draws[w].hmc, recenter=recenter)
-        xs[w], pres[w] = st.x, st.precond
-        hs.append(h)
-    return WalkerStates(x=torch.stack(xs), precond=pres), SweepStats(rs, ss, hs, rads)
+    lists over this block's walkers). The sweep is the `update` span
+    (`tracing`)."""
+    with span("update"):
+        W = states.n_walkers
+        shared = shared_precond and states.precond[0] is not None
+        ctxs = [ctx if mus is None else with_mu(ctx, mus[w]) for w in range(W)]
+        if shared:
+            if ctx.refresh_precond_global or params.refresh_precond_every_step:
+                raise ValueError("a walker batch shares one preconditioner, refreshed once a sweep: "
+                                 "refresh_precond_global and refresh_precond_every_step need shared_precond=False")
+            ctx_mean = ctx if mus is None else with_mu(ctx, gather_walkers(mus).mean())
+            states = shared_precond_refresh(ctx_mean, states, v_shared)
+            params = dataclasses.replace(params, refresh_precond_at_start=False)
+            if W * process_count() >= 2:
+                params = dataclasses.replace(params, fused_step_force=True)
+        xs, pres, rs, ss, rads = [], [], [], [], []
+        for w in range(W):
+            st, r = reflection_update(ctxs[w], states.walker(w), draws[w].reflection)
+            st, s = swap_update(ctxs[w], st, draws[w].swap)
+            if draws[w].radial is not None:
+                st, rad = radial_update(ctxs[w], st, draws[w].radial)
+                rads.append(rad)
+            xs.append(st.x)
+            pres.append(st.precond)
+            rs.append(r)
+            ss.append(s)
+        rads = rads or None
+        if shared:
+            batch_ctx = ctx if mus is None else with_mu(ctx, mus)
+            st, hs = hmc_update(batch_ctx, QMCState(x=torch.stack(xs), precond=pres[0]), params,
+                                [d.hmc for d in draws], recenter=recenter)
+            return WalkerStates(x=st.x, precond=[st.precond] * W), SweepStats(rs, ss, hs, rads)
+        hs = []
+        for w in range(W):
+            st, h = hmc_update(ctxs[w], QMCState(x=xs[w], precond=pres[w]), params, draws[w].hmc, recenter=recenter)
+            xs[w], pres[w] = st.x, st.precond
+            hs.append(h)
+        return WalkerStates(x=torch.stack(xs), precond=pres), SweepStats(rs, ss, hs, rads)
 
 
 def walker_refresh(ctx: QMCContext, states: WalkerStates, est: GreensEstimator, thetas: Sequence[torch.Tensor],
@@ -302,21 +304,22 @@ def sync_device(device: torch.device) -> None:
 class WalkerMeasurement(NamedTuple):
     outs: List[Dict]  # the measurement trees, one a walker
     updates: List[EstimatorUpdate]  # the refreshed estimators, their iterations and convergence
-    t_refresh_s: float  # host clock around the W refreshes, synchronised
-    t_measurements_s: float  # host clock around the W measurement passes, synchronised
+    t_refresh_s: float  # the `refresh` span's seconds: the W refreshes, synchronised
+    t_measurements_s: float  # the `measure` span's seconds: the W measurement passes, synchronised
 
 
 def walker_measure(ctx: QMCContext, spec, states: WalkerStates, est: GreensEstimator, thetas: Sequence[torch.Tensor],
                    mus: Optional[torch.Tensor] = None, **solve) -> WalkerMeasurement:
     """Refresh each walker's estimator (walker_refresh) and take its
     measurement pass with its own context: the measured half of the driver's
-    W >= 2 measured sweep."""
+    W >= 2 measured sweep, timed by the `refresh` and `measure` spans
+    (`tracing`)."""
     sync_device(ctx.device)
-    t0 = time.perf_counter()
-    upds = walker_refresh(ctx, states, est, thetas, mus, **solve)
-    sync_device(ctx.device)
-    t1 = time.perf_counter()
-    outs = [make_measurements(ctx if mus is None else with_mu(ctx, mus[w]), spec, u.estimator, states.x[w])
-            for w, u in enumerate(upds)]
-    sync_device(ctx.device)
-    return WalkerMeasurement(outs, upds, t1 - t0, time.perf_counter() - t1)
+    with span("refresh") as refresh:
+        upds = walker_refresh(ctx, states, est, thetas, mus, **solve)
+        sync_device(ctx.device)
+    with span("measure") as measure:
+        outs = [make_measurements(ctx if mus is None else with_mu(ctx, mus[w]), spec, u.estimator, states.x[w])
+                for w, u in enumerate(upds)]
+        sync_device(ctx.device)
+    return WalkerMeasurement(outs, upds, refresh.seconds, measure.seconds)

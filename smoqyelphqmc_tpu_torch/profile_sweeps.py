@@ -18,10 +18,10 @@ under torch.profiler. It prints both calls' seconds per sweep, the device time
 per sweep of each kernel with its share of the profiled sweeps' wall time,
 the same summed by kernel family (the port's kernels, cuFFT, the rest), and
 the device's idle share. All shares are read from the trace: the window
-is the union of the driver's "sweep" ranges (initialization excluded), the
-busy time the union of the device's activity inside that window. The
-profiler slows the host, so the profiled sweeps run slower and idle more
-than unprofiled ones.
+is the union of the driver's `sweep` spans (`tracing`; initialization
+excluded), laid on the trace's clock, the busy time the union of the
+device's activity inside that window. The profiler slows the host, so the
+profiled sweeps run slower and idle more than unprofiled ones.
 
 For the complex chain it then times one call of the plain complex M^dag M
 in f32 and in f64 at the initial field (CUDA events, the mean of 20 after
@@ -158,6 +158,7 @@ def main(argv=None) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from . import tracing
     from .driver import SimulationConfig, run_updates
     from .models.library import complex_chain_model, holstein_honeycomb_model
     from .ops.fermion_det import CPLX_MTM
@@ -192,13 +193,15 @@ def main(argv=None) -> dict:
     warm = run_updates(tbm, em, cfg, args.warmup, device=args.device)
     cplx_calls = {dt: c.plain_calls / max(args.warmup, 1) for dt, c in CPLX_MTM.items()}
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if args.device.startswith("cuda") else [])
+    tracing.clear()
     with profile(activities=activities) as prof:
         md = run_updates(tbm, em, cfg, args.sweeps, device=args.device)
     events = prof.events()
-    windows = [(e.time_range.start, e.time_range.end) for e in events
-               if e.name == "sweep" and e.device_type == DeviceType.CPU]
+    # the events' times are microseconds from the trace's start; the spans' Unix-epoch nanoseconds
+    t0_ns = prof.profiler.kineto_results.trace_start_ns()
+    windows = [((s.start_ns - t0_ns) / 1e3, (s.end_ns - t0_ns) / 1e3) for s in tracing.spans() if s.name == "sweep"]
     window_us = _union_us(windows)
-    device = [e for e in events if e.device_type == DeviceType.CUDA and e.name != "sweep"]
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_us = _union_us(_clip([(e.time_range.start, e.time_range.end) for e in device], windows))
     per_kernel = defaultdict(lambda: [0.0, 0])
     for e in device:

@@ -1513,3 +1513,57 @@ def test_simulate_kpm_walkers_on_gpu(cuda_device, tmp_path, model):
     for _, _, tree in bins:
         for name, (re, im) in tree["correlations"].items():
             assert np.all(np.isfinite(re)) and np.all(np.isfinite(im)), name
+
+
+def test_span_brackets_its_operator_and_kernel(cuda_device):
+    """A span around a CUDA operator and the sync after it holds, on the
+    profiler's clock, the operator's host event and its kernel (the spans'
+    time.time_ns() and kineto's events share their base); the span leaves
+    nothing of its own on the device's timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from smoqyelphqmc_tpu_torch import tracing
+
+    x = torch.ones(1 << 20, device=cuda_device)
+    torch.cuda.synchronize()
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with tracing.span("outer") as sp:
+            x.mul_(3.0)
+            torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    ops = [e for e in events if e.name() == "aten::mul_" and e.device_type() == DeviceType.CPU]
+    on_device = [e for e in events if e.device_type() != DeviceType.CPU]
+    assert len(ops) == 1 and on_device and tracing.spans() == [sp]
+    assert all(e.name() != "outer" for e in events)
+    for e in ops + on_device:
+        assert sp.start_ns <= e.start_ns() <= e.end_ns() <= sp.end_ns, (e.name(), e.start_ns(), sp.start_ns)
+    tracing.clear()
+
+
+def test_pcg_kernels_record_their_launches(cuda_device):
+    """Under a profiler each K2 and K3 launch records its systems, sizes and
+    the iteration tensor it returned, on the card, with no host read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from smoqyelphqmc_tpu_torch import tracing
+
+    fdm = _fdm(cuda_device)
+    pre = build_spectral(fdm)
+    fdm32 = fdm.astype(torch.float32)
+    gen = torch.Generator().manual_seed(7)
+    L, N = fdm.Ltau, fdm.n_sites
+    b = torch.randn((3, L, N), generator=gen).to(cuda_device, torch.float32)
+    b = b / torch.linalg.vector_norm(b, dim=(1, 2), keepdim=True)
+    fdm32w, prew, Lam, bw = _walker_problem(cuda_device, 2, 1.0)
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        _, _, it2 = pcg.pcg_cuda(fdm32, pre, b, 1e-5, 500)
+        *_, it3 = pcg_force.pcg_force_cuda(fdm32w, prew, bw, torch.zeros_like(bw), Lam, 1e-5, 500, True)
+    (r2,), (r3,) = pcg.PCG.records, pcg_force.PCG_FORCE.records
+    assert (r2.kernel, r2.n_systems, r2.Ltau, r2.N) == ("pcg", 3, L, N) and r2.iters is it2
+    assert (r3.kernel, r3.n_systems, r3.Ltau, r3.N) == ("pcg_force", 4, fdm32w.Ltau, fdm32w.n_sites)
+    assert r3.iters is it3 and r3.iters.shape == (2,) and bool((r3.iters > 0).all())
+    assert r2.iters.is_cuda and int(r2.iters) > 0
+    tracing.clear()
