@@ -17,16 +17,16 @@ Phases, one line each:
      launch, iterations and us per iteration beside the 2-system solve's;
   5. the update path: `run_updates` on the headline model (Holstein honeycomb
      L=12, beta=12, dtau=0.05) for a few sweeps; every solve must converge,
-     every Delta H be finite, K1 and K2 must have launched and the plain
-     versions must not have run;
+     every Delta H be finite, K1, K2 and K4 (the trajectory's force planes)
+     must have launched and the plain versions must not have run;
   5a. the measured main path: run_simulation's loop (`driver.simulate`) on
      the headline model with the tutorial measurement set (N_therm=2,
      N_measurements=4, N_bins=2, Nrv=10, f32 measurements) into a fresh
      folder, the bins in memory (the card's machine has no h5py; the HDF5
      output is held on the CPU by tests/test_torch_simulation.py and
      test_torch_io.py); the model summary must be written, every bin value
-     be finite except the six NaN globals, every solve converge, K1 and K2
-     launch and no plain version run; the line gives acceptance, iterations
+     be finite except the six NaN globals, every solve converge, K1, K2 and
+     K4 launch and no plain version run; the line gives acceptance, iterations
      per solve, s per measured sweep, the estimator refresh's share, the
      density and the launches;
   6. the same sweeps on a small model on the GPU and on the CPU (plain
@@ -63,9 +63,13 @@ Phases, one line each:
      to 1e-4 of each observable's largest magnitude, and the GPU run
      interrupted after every sweep until its first bins, then resumed, must
      repeat its bins, final mu and dt bit for bit;
- 11. the W = 1 path with fused_force: the trajectory forces through K2 + K4;
- 12. the small model at W = 2 on the GPU and on the CPU, then at W = 1 with
-     fused_force (K4 on the GPU): the chains must agree;
+ 11. K4 against its plain version at the other shapes the paths here run
+     it at: the benchmark cells' (2, 80, 288), the Holstein tutorials'
+     (2, 80, 18), the permuted lattice of 7 and the large model's
+     (2, 240, 4608) in K4's memory form; each line gives the error, the
+     device's time and the launch;
+ 12. the small model at W = 2 on the GPU and on the CPU: the chains must
+     agree;
  13. K6 (matrix-free KPM apply, symmetric) against its plain version on the
      large model's tables (Holstein honeycomb L=48, N=4608, alpha=1.5,
      beta=12, Ltau=240) with live Lanczos bounds, u (2 vectors, re and im
@@ -184,10 +188,10 @@ Phases, one line each:
      finite, R_cdw and its error finite; one line a point; 36c, the L=6,
      beta=2 point's model and configuration through run_updates, 3 sweeps,
      GPU against CPU: acceptance equal, fields within 1e-4 relative.
-Each path (5, 5a, 7, 10, 10a, 10b, 11, 15, 16, 19, 20, 21, 24, 25, 27, 28,
+Each path (5, 5a, 7, 10, 10a, 10b, 15, 16, 19, 20, 21, 24, 25, 27, 28,
 29, 32, each rank's in 33, each twin's GPU run in 35 and 35b, and 36b-36c) is driven with every kernel count set to 0
-just before it and read just after; the launches of K1 and K2 in the kernels line are the measured
-main path's (5a), K3's the measured walker path's (10a), those of the
+just before it and read just after; the launches of K1, K2 and K4 in the kernels line are the
+measured main path's (5a), K3's the measured walker path's (10a), those of the
 tau-table entries the measured SSH path's (24), K6's those of 15 and 27,
 K7's of 16 and 28, K8's of 19 and 29. Then one JSON line of kernel results,
 each with its bound: the larger of the bytes it must move over 3.35 TB/s
@@ -219,6 +223,9 @@ HEADLINE = dict(L=12, beta=12.0, dtau=0.05, alpha=0.6, Omega=1.0, mu=0.0, Nt=24,
 SSH = dict(HEADLINE, alpha=0.5, name="optical-SSH honeycomb", model="ossh_honeycomb_model", spec="basic_spec")
 # the JAX package's whole-driver large-N record (scripts/e2e_scaling.py:62,68-71)
 LARGE = dict(HEADLINE, L=48, alpha=1.5)
+# the benchmark cells' model (benchmark/configs/holstein_honeycomb_l12_b4.json:
+# the tutorial's couplings and temperature at L=12; N=288, Ltau=80)
+CELL = dict(HEADLINE, beta=4.0, alpha=1.5, name="benchmark cells' honeycomb")
 # the complex chain of the JAX package's K8 record (scripts/kpm_cplx_ab.py:8,49,69;
 # tests/test_complex_hoppings.py:32): t e^{0.7 i}, N = 1152 > 1024 sites
 COMPLEX = dict(L=1152, beta=12.0, dtau=0.05, phase=0.7, alpha=0.5, Omega=1.0, mu=0.1, Nt=24, tol=1e-10,
@@ -640,7 +647,7 @@ def phase_main(results, card):
     h = HEADLINE
     geo, tbm, em = model_of(h)
     md, counts = drive_path(lambda: run_updates(tbm, em, headline_config(), N_SWEEPS, device=MAIN_DEVICE),
-                            ("mtm_f32", "mtm_f64", "pcg"))
+                            ("mtm_f32", "mtm_f64", "pcg", "force"))
     for k in ("mtm_f32", "mtm_f64", "pcg"):
         results[k]["launches"] = counts[k][0]
     sweep_s = md["sweep_s"]
@@ -665,19 +672,18 @@ def rounded(v, nd=6):
     return [rounded(u, nd) for u in v] if isinstance(v, list) else round(v, nd)
 
 
-def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral", fused_force=False, h=HEADLINE,
-                          **kw):
+def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral", h=HEADLINE, **kw):
     """The same chain on model h at L on the GPU (kernels) and the CPU (plain
     versions): the accept decisions must match and the fields agree to 1e-4
     relative (the f32 force solves stop at 1e-5 relative in both, with sums in
-    another order, so forces may differ at that level); fused_force takes the
-    W = 1 trajectory forces through K4 on the GPU; `kw` sets other config
-    fields (shared_precond)."""
+    another order, so forces may differ at that level); the GPU takes the
+    trajectory forces through K4 where it applies, the CPU the eager chain;
+    `kw` sets other config fields (shared_precond)."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
 
     geo, tbm, em = model_of(h, L)
     cfg = SimulationConfig(beta=beta, dtau=0.1, Nt=12, seed=5, preconditioner=preconditioner, n_walkers=n_walkers,
-                           fused_force=fused_force, **kw)
+                           **kw)
     t0 = time.perf_counter()
     gpu = run_updates(tbm, em, cfg, 3, device="cuda")
     t1 = time.perf_counter()
@@ -687,7 +693,7 @@ def phase_small_reference(n_walkers=1, L=3, beta=2.0, preconditioner="spectral",
     err = float((xg - xc).abs().max() / xc.abs().max())
     same = all(gpu[f"{k}_acceptance_rate"] == cpu[f"{k}_acceptance_rate"] for k in ("reflection", "swap", "hmc"))
     kpm = {d: md.get("kpm_active") for d, md in (("gpu", gpu), ("cpu", cpu))}
-    model = h["name"] + (", fused_force" if fused_force else "") + "".join(f", {k}={v}" for k, v in kw.items())
+    model = h["name"] + "".join(f", {k}={v}" for k, v in kw.items())
     say(f"small-model reference ({model} L={L}, N={gpu['n_sites']}, beta={beta}, {preconditioner}, W={n_walkers}): "
         f"GPU vs "
         f"CPU field max rel err {err:.3e}; same acceptance {same}; dH gpu {rounded(gpu['hmc_delta_H'])} "
@@ -777,8 +783,8 @@ def measured_config(h=HEADLINE, **kw):
 def phase_measured(results, card):
     """The measured main path: run_simulation's loop (`simulate`) on the
     headline model with the tutorial measurement set (Nrv=10, f32
-    measurements) into a fresh folder, the bins in memory; K1 and K2 must
-    launch and no plain version run."""
+    measurements) into a fresh folder, the bins in memory; K1, K2 and K4
+    must launch and no plain version run. Returns the path's counts."""
     import tempfile
 
     from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
@@ -791,7 +797,7 @@ def phase_measured(results, card):
         info = SimulationInfo(filepath=tmp, datafolder_prefix="measured", sID=1)
         t0 = time.perf_counter()
         (bins, md, finished), counts = drive_path(lambda: simulate_in_memory(info, tbm, em, spec, cfg, MAIN_DEVICE),
-                                                  ("mtm_f32", "mtm_f64", "pcg"))
+                                                  ("mtm_f32", "mtm_f64", "pcg", "force"))
         wall = time.perf_counter() - t0
         summary = os.path.exists(os.path.join(info.datafolder, "model_summary.toml"))
     check_bins(bins, cfg.N_bins, "the measured main path")
@@ -812,6 +818,7 @@ def phase_measured(results, card):
     if not (finished and summary and md["all_converged"]):
         fail(f"the measured main path did not finish, write its model summary or converge ({finished}, {summary}, "
              f"{md['all_converged']})")
+    return counts
 
 
 class SweepSpy:
@@ -1076,31 +1083,54 @@ def phase_k3(results, h=HEADLINE):
                                 max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def phase_k4(results):
-    """K4 on one channel pair at the headline size (the fused_force path's
-    shape) against its plain version: the device's time (a CUDA graph of
-    launches; the eager call's is the host's) and the timed instantiation's
-    per-phase breakdown."""
+def k4_against_plain(fdm32, Lam, psi):
+    """K4 against its plain version on one channel pair, want_p2 on and off:
+    (max abs err, the plain planes' max |P|, every element within rtol 1e-4,
+    atol 1e-5 max|P|)."""
     import torch
 
     from smoqyelphqmc_tpu_torch.ops import force
-    from smoqyelphqmc_tpu_torch.ops.lambda_shift import build_lambda
 
-    dev = torch.device("cuda")
-    tbp, elph = headline_model(dev)
-    fdm32 = headline_fdm(dev).astype(torch.float32)
-    Lam = build_lambda(elph, elph.x, tbp.n_sites).to(torch.float32)
-    psi = torch.randn((2, fdm32.Ltau, fdm32.n_sites), generator=torch.Generator().manual_seed(14),
-                      dtype=torch.float32).to(dev)
-    err, ok = 0.0, True
+    err, top, ok = 0.0, 0.0, True
     for want_p2 in (True, False):
         got = force.force_planes_cuda(fdm32, Lam, psi, want_p2)
         ref = force.force_planes_plain(fdm32, Lam, psi, want_p2)
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
             d = (g - r).abs()
-            err = max(err, float(d.max()))
+            err, top = max(err, float(d.max())), max(top, float(r.abs().max()))
             ok = ok and bool((d <= 1e-5 * float(r.abs().max()) + 1e-4 * r.abs()).all())
+    return err, top, ok
+
+
+def k4_operands(h=HEADLINE, neighbor_table=None):
+    """Model h's f32 fermion matrix (optionally on a relabelled hopping
+    graph), Lambda at its initial field and a seeded channel pair psi."""
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops.lambda_shift import build_lambda
+
+    dev = torch.device("cuda")
+    tbp, elph = headline_model(dev, h)
+    fdm32 = headline_fdm(dev, neighbor_table=neighbor_table, h=h).astype(torch.float32)
+    Lam = build_lambda(elph, elph.x, tbp.n_sites).to(torch.float32)
+    psi = torch.randn((2, fdm32.Ltau, fdm32.n_sites), generator=torch.Generator().manual_seed(14),
+                      dtype=torch.float32).to(dev)
+    return fdm32, Lam, psi
+
+
+def phase_k4(results):
+    """K4 on one channel pair at the headline size (the W = 1 trajectory's
+    shape) against its plain version: the device's time (a CUDA graph of
+    launches; the eager call's is the host's) and the timed instantiation's
+    per-phase breakdown."""
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops import force
+
+    dev = torch.device("cuda")
+    fdm32, Lam, psi = k4_operands()
+    err, top, ok = k4_against_plain(fdm32, Lam, psi)
     ms = graph_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, True), 100)
     eager_ms = cuda_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, True), 20)
     plain_ms = cuda_ms(lambda: force.force_planes_plain(fdm32, Lam, psi, True), 5)
@@ -1116,15 +1146,42 @@ def phase_k4(results):
     say(f"K4 launch: tau blocks of {shape['tau_block']} rows, grid {shape['grid']} CTAs of {shape['threads']} "
         f"threads, form K={shape['form']}, {shape['smem']} bytes of shared memory; timed launch "
         f"{us['kernel']:.2f} us, CTA 0 {us['cta0']['us']:.2f} us by phase group {groups}")
-    say(f"K4 planes (2, {fdm32.Ltau}, {fdm32.n_sites}): max abs err {err:.3e} at max|P| "
-        f"{max(float(r.abs().max()) for r in ref):.4g} (rtol 1e-4, atol 1e-5 max|P|, want_p2 on and off: {ok}); "
-        f"kernel {ms:.4f} ms (device; eager call {eager_ms:.4f} ms) plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms "
-        f"by {bound_by}")
+    say(f"K4 planes (2, {fdm32.Ltau}, {fdm32.n_sites}): max abs err {err:.3e} at max|P| {top:.4g} (rtol 1e-4, "
+        f"atol 1e-5 max|P|, want_p2 on and off: {ok}); kernel {ms:.4f} ms (device; eager call {eager_ms:.4f} ms) "
+        f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}")
     if not ok:
         fail("K4 disagrees with its plain version")
     results["force"] = dict(name="force", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/force.cu",
                             replaces="smoqyelphqmc_tpu/ops/pallas_fused.py:934", max_abs_err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_k4_shapes():
+    """11. K4 against its plain version at the other shapes the paths here
+    run it at, one line each with its launch and device time: the benchmark
+    cells' (2, 80, 288), the Holstein tutorials' (2, 80, 18), the permuted
+    headline lattice of phase 7 and the large model's (2, 240, 4608), which
+    takes K4's memory form."""
+    import numpy as np
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops import force
+
+    tbp, _ = headline_model(torch.device("cpu"))
+    perm = np.random.default_rng(15).permutation(tbp.n_sites)
+    permuted = perm[np.asarray(tbp.neighbor_table)].astype(np.int32)
+    for h, nt in ((CELL, None), (TUTORIAL, None), (dict(HEADLINE, name="permuted headline"), permuted),
+                  (dict(LARGE, name="large"), None)):
+        fdm32, Lam, psi = k4_operands(h, nt)
+        err, top, ok = k4_against_plain(fdm32, Lam, psi)
+        ms = graph_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, True), 20)
+        shape = force.launch_shape(fdm32, 1)
+        say(f"K4 planes, {h['name']} (2, {fdm32.Ltau}, {fdm32.n_sites}): max abs err {err:.3e} at max|P| "
+            f"{top:.4g} (rtol 1e-4, atol 1e-5 max|P|, want_p2 on and off: {ok}); kernel {ms:.4f} ms (device); "
+            f"tau blocks of {shape['tau_block']} rows, grid {shape['grid']}, form K={shape['form']}, staged "
+            f"{shape['staged']}, {shape['smem']} bytes of shared memory")
+        if not ok:
+            fail(f"K4 disagrees with its plain version on the {h['name']} model")
 
 
 def phase_k5(results, card):
@@ -1192,25 +1249,6 @@ def phase_walkers(results, card):
     x = md["x_final"]
     if tuple(x.shape) != (W, 2 * h["L"] ** 2, md["Ltau"]) or not bool(x.isfinite().all()):
         fail(f"walker fields have shape {tuple(x.shape)} or non-finite values")
-
-
-def phase_fused_force(results, card):
-    """The W = 1 path with fused_force: K2 solves, K4 force planes."""
-    import math
-
-    from smoqyelphqmc_tpu_torch.driver import run_updates
-
-    h = HEADLINE
-    geo, tbm, em = model_of(h)
-    md, counts = drive_path(
-        lambda: run_updates(tbm, em, headline_config(fused_force=True), N_WALKER_SWEEPS, device=MAIN_DEVICE),
-        ("mtm_f32", "mtm_f64", "pcg", "force"))
-    results["force"]["launches"] = counts["force"][0]
-    say(f"fused_force path on {card}: {N_WALKER_SWEEPS} sweeps; s/sweep {[round(t, 4) for t in md['sweep_s']]}; "
-        f"acceptance hmc {md['hmc_acceptance_rate']:.3f}; iters/solve hmc {md['hmc_iters']:.2f}; "
-        f"dH {rounded(md['hmc_delta_H'], 5)}; launches/plain calls {counts}")
-    if not md["all_converged"] or not all(math.isfinite(d) for d in md["hmc_delta_H"]):
-        fail("the fused_force path did not converge or has a non-finite Delta H")
 
 
 def large_model_kpm(symmetric):
@@ -1942,13 +1980,15 @@ def phase_fleet(card, single):
 # ----------------------------------------------------------------------
 
 # the kernels each twin's path must launch (the Holstein honeycomb
-# tutorials at W=1 and the five SSH examples: K1 and K2; the multiwalker
-# tutorial at W=8: K3, K2, K1 f64; the flux chain, complex at N=8 with the
-# doubled-basis spectral preconditioner: none); every twin but the
-# multiwalker one may launch no other (its per-walker fallback sweeps may
-# take K1 f32)
-HOLSTEIN_TWIN = ("mtm_f32", "mtm_f64", "pcg")
-TWIN_KERNELS = {"holstein_honeycomb_multiwalker": ("mtm_f64", "pcg", "pcg_force"), "holstein_flux_chain": ()}
+# tutorials at W=1: K1, K2 and K4 after each trajectory solve; the five SSH
+# examples: K1 and K2; the multiwalker tutorial at W=8: K3, K2, K1 f64; the
+# flux chain, complex at N=8 with the doubled-basis spectral preconditioner:
+# none); every twin but the multiwalker one may launch no other (its
+# per-walker fallback sweeps may take K1 f32 and K4)
+HOLSTEIN_TWIN = ("mtm_f32", "mtm_f64", "pcg", "force")
+SSH_TWIN = ("mtm_f32", "mtm_f64", "pcg")
+TWIN_KERNELS = {"holstein_honeycomb_multiwalker": ("mtm_f64", "pcg", "pcg_force"), "holstein_flux_chain": (),
+                **{n: SSH_TWIN for n in ("bssh_chain", "bssh_square", "ossh_chain", "ossh_square", "ossh_honeycomb")}}
 # the twins' models as the kernel checks take them: the Holstein tutorials'
 # (examples/holstein_honeycomb_multiwalker.py:49-51 defaults: N=18, Ltau=80)
 # and the bond-SSH chain example's (examples/bssh_chain.py defaults: N=16,
@@ -2221,12 +2261,13 @@ def main() -> None:
     phase_k2(fdm64, results)
     phase_k2_estimator(results)
     phase_main(results, card)
-    phase_measured(results, card)
+    measured = phase_measured(results, card)
     phase_small_reference()
     phase_measured_small_reference()
     phase_k5(results, card)
     phase_k3(results)
     phase_k4(results)
+    results["force"]["launches"] = measured["force"][0]
     phase_walkers(results, card)
     counts = phase_measured_walkers(results, card, "main")
     results["pcg_force"]["launches"] = counts["pcg_force"][0]
@@ -2234,9 +2275,8 @@ def main() -> None:
                            target_acceptance=0.7, target_density=0.9)
     phase_measured_small_reference(n_walkers=2, use_radial_updates=True, hmc_integrator="omelyan", Nt=4,
                                    target_acceptance=0.7, target_density=0.9)
-    phase_fused_force(results, card)
+    phase_k4_shapes()
     phase_small_reference(n_walkers=2)
-    phase_small_reference(fused_force=True)
     phase_kpm_kernel(results, symmetric=True)
     phase_kpm_kernel(results, symmetric=False)
     phase_large_path(results, card, symmetric=True, n_sweeps=N_LARGE_SWEEPS)

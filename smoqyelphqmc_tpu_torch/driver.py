@@ -107,7 +107,7 @@ from .parallel.walkers import (
     walker_refresh,
     walker_sweep,
 )
-from .tracing import span
+from .tracing import FORCE_ROUTES, force_routes_since, span
 from .tree import tree_map
 from .updates.context import QMCContext, QMCState, complex_hops, initialize_qmc, make_fdm, with_mu
 from .updates.global_updates import radial_update, reflection_update, swap_update
@@ -117,7 +117,7 @@ from .updates.mu_tuner import MuTunerState, init_mu_tuner, mu_tuner_update
 
 @dataclasses.dataclass
 class SimulationConfig:
-    """The JAX package's SimulationConfig, field for field, plus `fused_force`."""
+    """The JAX package's SimulationConfig, field for field."""
 
     beta: float
     dtau: float = 0.05
@@ -151,9 +151,6 @@ class SimulationConfig:
     force_dtype: str = "float32"
     # estimator-refresh solve dtype; None follows measurement_dtype
     measure_solve_dtype: Optional[str] = None
-    # the W = 1 trajectory forces through the K2 solve and kernel K4 (the JAX
-    # package's SMOQY_FUSED_FORCE=1)
-    fused_force: bool = False
     n_walkers: int = 1
     # W >= 2: one preconditioner refresh per sweep from the walker-mean
     # fermion matrix, guarded by PrecondFallbackController (per-walker refresh
@@ -304,8 +301,7 @@ def _init_chain(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg
 
 
 def _hmc_params(cfg: SimulationConfig) -> HMCParams:
-    return HMCParams(Nt=cfg.Nt, dt=cfg.hmc_dt, jitter=cfg.hmc_jitter, integrator=cfg.hmc_integrator,
-                     fused_force=cfg.fused_force)
+    return HMCParams(Nt=cfg.Nt, dt=cfg.hmc_dt, jitter=cfg.hmc_jitter, integrator=cfg.hmc_integrator)
 
 
 def _as_lists(st: SweepStats) -> SweepStats:
@@ -544,7 +540,9 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     `target_acceptance` runs on every sweep; mu tuning needs the measured
     simulation. hmc_delta_H is a list a walker at W >= 2, with
     walker_converged and precond_fallback_sweeps; in a fleet hmc_delta_H and
-    x_final cover this process's walkers, the rest every walker."""
+    x_final cover this process's walkers, the rest every walker. force_routes
+    counts the call's trajectory force evaluations by route
+    (`tracing.FORCE_ROUTES`)."""
     if cfg.target_density is not None:
         raise ValueError("SimulationConfig.target_density tunes mu from measurements: use simulate / run_simulation")
     device = elph.device
@@ -552,6 +550,7 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     params = _hmc_params(cfg)
     chains = _Chains(ctx, state, gen, cfg, params)
     W = cfg.n_walkers
+    routes0 = dict(FORCE_ROUTES)
     dt0 = chains.dt
     meta: Dict = {
         "n_sweeps": n_sweeps,
@@ -588,7 +587,7 @@ def run_sweeps(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg:
     n = max(n_sweeps, 1)
     for k in _rates():
         meta[k] /= n
-    meta.update({"sweep_s": sweep_s, "x_final": chains.x})
+    meta.update({"sweep_s": sweep_s, "x_final": chains.x, "force_routes": force_routes_since(routes0)})
     if cfg.target_acceptance is not None:
         meta["hmc_dt_final"] = chains.dt
     chains.fold_kpm(meta)
@@ -661,9 +660,11 @@ def simulate(
     `all_converged` (every update and estimator solve converged),
     `t_refresh_s` and `t_measurements_s` (the summed seconds of the
     `refresh` and `measure` spans: estimator refreshes and measurement
-    passes) and `hmc_last` (each owned walker's last trajectory,
-    `_hmc_last`). A run the runtime limit stops returns the sums undivided,
-    with hmc_last and, at W >= 2, precond_fallback_sweeps. Each batch of
+    passes), `hmc_last` (each owned walker's last trajectory, `_hmc_last`)
+    and `force_routes` (this call's trajectory force evaluations by route,
+    `tracing.FORCE_ROUTES`, its owned walkers'). A run the runtime limit
+    stops returns the sums undivided, with hmc_last, force_routes and, at
+    W >= 2, precond_fallback_sweeps. Each batch of
     sweeps is a `sweep` span (`tracing`: phase 'therm' or 'measure', the
     index of its first sweep in the phase; it covers the whole batch at
     sweeps_per_dispatch k > 1). With resume, a checkpoint in the data folder
@@ -699,6 +700,7 @@ def simulate(
     params = _hmc_params(cfg)
     chains = _Chains(ctx, state, gen, cfg, params, recenter)
     dt0 = chains.dt
+    routes0 = dict(FORCE_ROUTES)
     tuner: Optional[MuTunerState] = None
     history: list = []  # one (mu, n, N^2) a tuner update
     if cfg.target_density is not None:
@@ -782,8 +784,10 @@ def simulate(
         return runtime_exceeded(start_time, cfg.runtime_limit_hours)
 
     def close() -> None:
-        """The keys of every return: KPM diagnostics and the fallback count."""
+        """The keys of every return: KPM diagnostics, the trajectory force
+        evaluations by route and the fallback count."""
         chains.fold_kpm(metadata)
+        metadata["force_routes"] = force_routes_since(routes0)
         if W > 1:
             metadata["precond_fallback_sweeps"] = chains.fallback
 

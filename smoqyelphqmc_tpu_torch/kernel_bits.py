@@ -3,7 +3,7 @@
     python smoqyelphqmc_tpu_torch/kernel_bits.py [--package-root DIR] [--label NAME]
 
 Runs K1 (headline and L=48 shapes, both factorizations, f32 and f64), K2
-(a cold solve at the headline), K4 (the fused_force shape, want_p2 on) and
+(a cold solve at the headline), K4 (the W=1 trajectory's shape, want_p2 on) and
 K6 / K7 / K8 (the large-N and complex-chain KPM applies) once each on
 inputs made from seeds, and prints one JSON line per output: its shape and
 the SHA-256 of its bytes. Two versions of the package give the same

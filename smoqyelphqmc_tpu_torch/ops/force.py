@@ -15,7 +15,8 @@ Symmetric factorization, real hoppings, float32. psi_raw is
 fermion matrix's exp_nV as (W, 1, Ltau, N) (`updates.context.make_fdm`).
 `force_planes` is the dispatcher: a CPU tensor takes `force_planes_plain`, a
 CUDA tensor launches `csrc/force.cu` or raises. K3 (`ops/pcg_force.py`) runs
-the same epilogue after its solve, one row at a time.
+the same epilogue after its solve, one row at a time. `fits` is the shape
+part of the trajectory's route to K4 (`updates.hmc.force_route`).
 
 K4 takes tau blocks of T rows a CTA with both channels in one stage, on K1's
 pair tables (csrc/force.cu, csrc/pair_ops.cuh); `force_blocked_plain` is the
@@ -160,6 +161,12 @@ def staged_form(N: int) -> bool:
     """Whether a block of one row fits with x and Lambda staged in shared
     memory (the faster form); above it K4 reads them from device memory."""
     return smem_bytes(N, 1, True) <= SMEM_MAX
+
+
+def fits(N: int) -> bool:
+    """Whether K4 takes N sites: a block of one row fits a CTA's shared
+    memory in the memory form (`launch_shape` refuses the rest)."""
+    return smem_bytes(N, 1, False) <= SMEM_MAX
 
 
 def tau_block_rows(n_walkers: int, Ltau: int, N: int, resident, staged: bool = True) -> int:

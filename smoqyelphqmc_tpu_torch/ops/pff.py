@@ -6,10 +6,11 @@ carried as a (2, Ltau, N) channel pair; one CG solve of
 argument: the caller draws it (updates/), so a test can feed the JAX
 package's exact draws.
 
-The f32 trajectory force has three forms, all the same function: the plain
-chain (K2 solve, then mul_M / checkerboard / mul_Mt products), `fused_force`
-(K2 solve, then kernel K4 for the product planes) and `fused_step` (kernel K3:
-solve and planes in one launch, with a leading walker axis allowed).
+The f32 trajectory force has three routes, all the same function: 'plain'
+(K2 solve, then mul_M / checkerboard / mul_Mt products), 'k4' (K2 solve, then
+kernel K4 for the product planes) and 'k3' (kernel K3: solve and planes in one
+launch, with a leading walker axis allowed). The caller picks the route
+(`updates.hmc.force_route`).
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ from .lambda_shift import (
     mul_lambda_T,
 )
 from .pcg_force import solve_force
-from .spectral_precond import SpectralPreconditioner
 
 
 class ActionResult(NamedTuple):
@@ -71,9 +71,12 @@ def fermionic_action(
     maxiter: int = 1000,
     mixed: bool = False,
     warm_start: Optional[torch.Tensor] = None,
+    Lam: Optional[torch.Tensor] = None,
 ) -> ActionResult:
-    """S_f = Phi^dag Lambda^{-1} [M^T M]^{-1} Lambda^{-T} Phi: one CG solve."""
-    Lam = build_lambda(elph, x, fdm.n_sites)
+    """S_f = Phi^dag Lambda^{-1} [M^T M]^{-1} Lambda^{-T} Phi: one CG solve.
+    `Lam`, Lambda at x when the caller has built it."""
+    if Lam is None:
+        Lam = build_lambda(elph, x, fdm.n_sites)
     rhs = ldiv_lambda_T(Lam, Phi)
     psi_raw, stats = solve_MtM(fdm, rhs, precond=precond, tol=tol, maxiter=maxiter, mixed=mixed, x0=warm_start)
     psi = ldiv_lambda(Lam, psi_raw)
@@ -94,21 +97,22 @@ def fermionic_action_and_force(
     mixed: bool = False,
     solve_dtype: str = "float64",
     warm_start: Optional[torch.Tensor] = None,
-    fused_step: bool = False,
-    fused_force: bool = False,
+    route: str = "plain",
 ) -> ForceResult:
     """dS_f/dx = -2 Re([A psi]^T [dM/dx][Lambda psi]) - 2 Re([M^T A psi]^T [dLambda/dx] psi),
     A = M Lambda. solve_dtype='float32' runs the whole evaluation in f32 (the
     trajectory force path; Metropolis exactness rests on the f64 endpoint
     actions).
 
-    For an f32, symmetric, real-hopping evaluation without SSH couplings,
-    fused_step=True runs the
-    solve and the force planes as kernel K3 (spectral preconditioner; Phi, x
-    and the fermion matrix may then carry a leading walker axis, and the
-    stats are per walker) and fused_force=True runs the K2 solve and then
-    kernel K4 for the planes (the JAX package's ops/pff.py:157-227). Complex
-    hoppings take the plain chain on channel pairs."""
+    route='k3' runs the solve and the force planes as kernel K3 (Phi, x and
+    the fermion matrix may then carry a leading walker axis, and the stats
+    are per walker) and route='k4' runs the K2 solve and then kernel K4 for
+    the planes (the JAX package's ops/pff.py:157-227); both give Sf as
+    rhs . psi_raw. The planes are the Holstein force: the caller takes those
+    routes only for an f32, symmetric, real-hopping evaluation without SSH
+    couplings, K3 with the spectral preconditioner (`updates.hmc.force_route`).
+    route='plain' runs the derivative chain, on channel pairs for complex
+    hoppings. Lambda is built once an evaluation."""
     if solve_dtype != "float64":
         dt = {"float32": torch.float32}[solve_dtype]
         elph = elph.to_dtype(dt)
@@ -118,28 +122,23 @@ def fermionic_action_and_force(
         if warm_start is not None:
             warm_start = warm_start.to(dt)
     mixed = mixed and Phi.dtype == torch.float64
-    # the planes of K3 / K4 are the Holstein force: they need f32, the
-    # symmetric factorization, real hoppings and no SSH couplings (the JAX
-    # package gates K3 and K4 so, ops/pff.py:157,196, pallas_fused.py:1031)
-    planes_apply = (Phi.dtype == torch.float32 and fdm.symmetric and not fdm.complex_hops
-                    and elph.n_ssh == 0)
-    want_p2 = bool(np.any(elph.hol_ph_sym))
-    if fused_step and planes_apply and isinstance(precond, SpectralPreconditioner):
-        Lam = build_lambda(elph, x, fdm.n_sites)
+    Lam = build_lambda(elph, x, fdm.n_sites)
+    if route != "plain":
+        want_p2 = bool(np.any(elph.hol_ph_sym))
         rhs = ldiv_lambda_T(Lam.unsqueeze(-3), Phi)
-        psi_raw, P1, P2, stats = solve_force(fdm, precond, rhs, Lam, x0=warm_start, tol=tol, maxiter=maxiter,
-                                             want_p2=want_p2)
+        if route == "k3":
+            psi_raw, P1, P2, stats = solve_force(fdm, precond, rhs, Lam, x0=warm_start, tol=tol, maxiter=maxiter,
+                                                 want_p2=want_p2)
+        else:
+            psi_raw, stats = solve_MtM(fdm, rhs, precond=precond, tol=tol, maxiter=maxiter, mixed=mixed,
+                                       x0=warm_start)
+            P1, P2 = force_planes(fdm, Lam, psi_raw, want_p2)
         # Sf = Re(Phi^dag psi) = rhs . psi_raw (Lambda is real diagonal)
         Sf = torch.sum(rhs * psi_raw, dim=(-3, -2, -1))
         force = holstein_force_from_planes(P1, P2, elph, x, Lam, plan)
         return ForceResult(Sf=Sf, force=force.to(torch.float64), psi_raw=psi_raw, stats=stats)
     res = fermionic_action(Phi, elph, fdm, x, precond=precond, tol=tol, maxiter=maxiter, mixed=mixed,
-                           warm_start=warm_start)
-    Lam = build_lambda(elph, x, fdm.n_sites)
-    if fused_force and planes_apply:
-        P1, P2 = force_planes(fdm, Lam, res.psi_raw, want_p2)
-        force = holstein_force_from_planes(P1, P2, elph, x, Lam, plan)
-        return ForceResult(Sf=res.Sf, force=force.to(torch.float64), psi_raw=res.psi_raw, stats=res.stats)
+                           warm_start=warm_start, Lam=Lam)
     lam_psi = mul_lambda(Lam, res.psi)
     A_psi = fdm.mul_M(lam_psi)
     force = torch.zeros((elph.n_phonon, elph.Ltau), dtype=Phi.dtype, device=Phi.device)

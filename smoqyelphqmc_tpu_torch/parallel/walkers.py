@@ -237,7 +237,9 @@ def walker_sweep(ctx: QMCContext, states: WalkerStates, params: HMCParams, draws
     W >= 2 with fused_step_force (every force solve through K3, as the JAX
     package's walker_sweep sets it); otherwise each walker refreshes its own
     preconditioner at trajectory start and runs its own trajectory (the JAX
-    package drops K3 in that mode). `recenter` acts on each walker's field
+    package drops K3 in that mode), its forces through the K2 solve and
+    kernel K4 where `updates.hmc.force_route` takes them (the card, the
+    Holstein planes). `recenter` acts on each walker's field
     after every drift. In a fleet the states and mus are this process's
     block, and the shared refresh and the W >= 2 test take every process's
     walkers (`distributed.gather_walkers`). Returns (states, SweepStats of

@@ -8,8 +8,8 @@ with one kernel's outputs nudged by one unit in the last place (float32,
 each element up or down by a seeded coin), the size of the difference a
 change of the kernel's operation order makes:
 
-- the fused_force path (the headline model, W=1, `fused_force=True`: K4's
-  planes P1, P2 nudged);
+- the W=1 path (the headline model, its trajectory forces through K2 +
+  K4: K4's planes P1, P2 nudged);
 - the complex path (the complex chain of chip_smoke.py, N=1152, with
   preconditioner='kpm', both factorizations: K8's outputs nudged).
 
@@ -70,8 +70,8 @@ def main() -> None:
     paths = []
     geo, tbm, em = holstein_honeycomb_model(HEADLINE["L"], HEADLINE["Omega"], HEADLINE["alpha"], HEADLINE["mu"])
     cfg = SimulationConfig(beta=HEADLINE["beta"], dtau=HEADLINE["dtau"], Nt=24, tol=1e-10, seed=1,
-                           mixed_precision=True, force_dtype="float32", fused_force=True)
-    paths.append(("fused_force", tbm, em, cfg, force, "force_planes_cuda"))
+                           mixed_precision=True, force_dtype="float32")
+    paths.append(("w1", tbm, em, cfg, force, "force_planes_cuda"))
     c = COMPLEX
     _, ctbm, cem = complex_chain_model(c["L"], 1.0, c["phase"], c["mu"], c["Omega"], c["alpha"])
     for symmetric in (True, False):

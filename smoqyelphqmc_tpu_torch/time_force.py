@@ -4,8 +4,8 @@
         [--package-root DIR] [--label NAME] [--tau-rows T ...] [--sweeps n]
 
 Builds the headline model (Holstein honeycomb L=12, beta=12, dtau=0.05,
-alpha=0.6: N=288, Ltau=240; the fused_force path's shape) from a seed in
-float32, at W walkers: W=1 at the initial field (the fused_force path's
+alpha=0.6: N=288, Ltau=240; the W=1 trajectory's shape) from a seed in
+float32, at W walkers: W=1 at the initial field (the W=1 trajectory's
 operands, psi_raw (2, 240, 288)), W>1 at fields jittered from it (seed 13;
 psi_raw (W, 2, 240, 288), exp_nV and Lambda one plane per walker). For each W
 and want_p2 on and off it prints one JSON line (`k4`): ms per launch, the
@@ -21,8 +21,8 @@ to finish, the mean of 10 timed launches). A package without a timed
 instantiation gives its split only as want_p2 on against off (the P2 part).
 `--tau-rows T ...` times the launch again with its tau blocks forced to each
 T (`k4_tau_rows`), where the package takes it. `--sweeps n` runs n sweeps
-of the fused_force path (`run_updates` at W=1 with fused_force=True, the
-headline's SimulationConfig of chip_smoke.py) and prints s/sweep, CG
+of the W=1 path (`run_updates` with the headline's SimulationConfig of
+chip_smoke.py, its trajectory forces through K2 + K4) and prints s/sweep, CG
 iterations per solve, acceptance, Delta H and K4's launches (`sweeps`).
 
 `--package-root DIR` imports smoqyelphqmc_tpu_torch from DIR (an unpacked
@@ -64,7 +64,7 @@ def main() -> None:
     ap.add_argument("--label", default="change")
     ap.add_argument("--tau-rows", type=int, nargs="*", default=[],
                     help="also time each launch with its tau blocks forced to these row counts")
-    ap.add_argument("--sweeps", type=int, default=0, help="also run this many fused_force sweeps")
+    ap.add_argument("--sweeps", type=int, default=0, help="also run this many W=1 sweeps")
     args = ap.parse_args()
     sys.path.insert(0, args.package_root)
 
@@ -211,10 +211,10 @@ def main() -> None:
         from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
 
         cfg = SimulationConfig(beta=h["beta"], dtau=h["dtau"], Nt=24, tol=1e-10, seed=1, mixed_precision=True,
-                               force_dtype="float32", fused_force=True)
+                               force_dtype="float32")
         launches = force.FORCE.launches
         md = run_updates(tbm, em, cfg, args.sweeps, device="cuda")
-        say(kind="sweeps", path="fused_force", sweep_s=[float(t) for t in md["sweep_s"]], hmc_iters=md["hmc_iters"],
+        say(kind="sweeps", path="w1", sweep_s=[float(t) for t in md["sweep_s"]], hmc_iters=md["hmc_iters"],
             reflection_iters=md["reflection_iters"], swap_iters=md["swap_iters"],
             acceptance=dict(reflection=md["reflection_acceptance_rate"], swap=md["swap_acceptance_rate"],
                             hmc=md["hmc_acceptance_rate"]),

@@ -35,13 +35,14 @@ While tracing is on, the whole-solve kernels K2 and K3 also keep one record
 of each launch or plain call (`Launch`: its systems, sizes and the solve's
 iteration counts as the tensor the launch returned, read only by whoever
 reads the records after the run). `clear()` empties the span list and every
-counter's records.
+counter's records. `FORCE_ROUTES` counts the trajectory force evaluations by
+route, a plain integer a kick.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -135,6 +136,18 @@ class KernelCounter:
 
 
 _COUNTERS: List[KernelCounter] = []
+
+# The trajectory force evaluations by route (`updates.hmc.force_route`), one
+# a walker a kick, whether tracing is on or off: 'k3' (kernel K3, solve and
+# planes), 'k4' (the K2 solve, then kernel K4's planes), 'plain' (the solve,
+# then the eager derivative chain). `driver.simulate` reports its own run's
+# as `force_routes`.
+FORCE_ROUTES: Dict[str, int] = {"k3": 0, "k4": 0, "plain": 0}
+
+
+def force_routes_since(start: Dict[str, int]) -> Dict[str, int]:
+    """The evaluations by route since `start`, a copy of FORCE_ROUTES."""
+    return {k: n - start[k] for k, n in FORCE_ROUTES.items()}
 
 
 def clear() -> None:

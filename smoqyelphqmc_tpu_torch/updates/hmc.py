@@ -11,7 +11,9 @@ makes them from a torch.Generator.
 `hmc_update` runs one chain, or W chains with a shared preconditioner, each
 with its own draws (and, when the context carries one a walker, its own mu);
 with `fused_step_force` (set by the walker sweep at W >= 2) every force
-solve of all W walkers goes through one launch of kernel K3 per kick. The
+solve of all W walkers goes through one launch of kernel K3 per kick;
+otherwise `force_route` takes the K2 solve and kernel K4 where the input
+allows it on the card, and the eager derivative chain elsewhere. The
 per-step convergence flags and iteration counts stay on the device and are
 read once per trajectory. Options: `recenter`, a callable on one walker's
 tau-space field applied after every drift (the drift then transforms in
@@ -26,6 +28,8 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
+from .. import tracing
+from ..ops import force as k4
 from ..ops.bosonic import add_anharmonic_force, add_dispersive_force, bosonic_action
 from ..ops.cg import CGStats
 from ..ops.kpm import KPMPreconditioner
@@ -53,9 +57,10 @@ class HMCParams:
     # the trajectory force solves through kernel K3 (solve + force planes; the
     # walker sweep sets it at W >= 2 with the shared preconditioner)
     fused_step_force: bool = False
-    # the trajectory forces through the K2 solve and kernel K4 (the port's
-    # counterpart of the JAX package's SMOQY_FUSED_FORCE=1)
-    fused_force: bool = False
+    # None: the trajectory force route is decided by the input
+    # (`force_route`); True / False force K4 (its plain version on the CPU)
+    # or the plain chain where the planes apply, for tests
+    fused_force: Optional[bool] = None
 
     def timestep(self) -> float:
         return self.dt if self.dt > 0 else math.pi / (2 * self.Nt)
@@ -214,12 +219,34 @@ def _linear_warm_start(hist, c: float) -> torch.Tensor:
     return hist[0] + c * (hist[0] - hist[1]) if c else hist[0]
 
 
+def planes_apply(ctx: QMCContext) -> bool:
+    """Whether the force planes of kernels K3 / K4 are the trajectory force:
+    f32 forces, the symmetric factorization, real hoppings and no SSH
+    couplings (the planes are the Holstein force; ops/pff.py's gate)."""
+    return ctx.force_dtype == "float32" and ctx.symmetric and not ctx.complex_hops and ctx.elph.n_ssh == 0
+
+
 def k3_trajectory_applies(ctx: QMCContext, precond) -> bool:
-    """Whether kernel K3 can run the trajectory force solves: f32 forces, the
-    symmetric factorization, real hoppings, no SSH couplings (its planes are
-    the Holstein force) and the spectral preconditioner."""
-    return (ctx.force_dtype == "float32" and ctx.symmetric and not ctx.complex_hops and ctx.elph.n_ssh == 0
-            and isinstance(precond, SpectralPreconditioner))
+    """Whether kernel K3 can run the trajectory force solves: where the
+    planes apply, with the spectral preconditioner."""
+    return planes_apply(ctx) and isinstance(precond, SpectralPreconditioner)
+
+
+def force_route(ctx: QMCContext, precond, params: HMCParams, device: torch.device) -> str:
+    """The route of a trajectory's force evaluations on `device`: 'k3' where
+    params.fused_step_force asks for K3 and it applies; else 'k4' (the K2
+    solve, then K4's planes) where the planes apply and params.fused_force
+    is True, or is None on a CUDA device whose K4 takes the lattice
+    (`ops.force.fits`); else 'plain' (the solve, then the eager derivative
+    chain). On the CPU, with fused_force None, the plain chain: the planes
+    save no launch there."""
+    if params.fused_step_force and k3_trajectory_applies(ctx, precond):
+        return "k3"
+    if not planes_apply(ctx) or params.fused_force is False:
+        return "plain"
+    if params.fused_force or (device.type == "cuda" and k4.fits(ctx.n_sites)):
+        return "k4"
+    return "plain"
 
 
 def _stack_forces(results: Sequence[ForceResult]) -> ForceResult:
@@ -242,7 +269,7 @@ def hmc_update(ctx: QMCContext, state: QMCState, params: HMCParams, draws,
     ctx.tbp.mu has one a walker. With params.fused_step_force, and where K3
     applies, every force solve runs through kernel K3, the W walkers' in one
     launch per kick; otherwise each walker's force runs on its own (the K2
-    solve, then the plain chain or, with params.fused_force, kernel K4). The
+    solve, then kernel K4 or the plain chain: `force_route`). The
     f64 pieces (pseudofermion sampling, endpoint action, Metropolis decision)
     run walker by walker. `recenter` maps one walker's tau-space field to a
     field and runs after every drift. Returns (state, HMCStats), the stats a
@@ -274,7 +301,8 @@ def hmc_update(ctx: QMCContext, state: QMCState, params: HMCParams, draws,
     Phi = torch.stack(Phis) if batched else Phis[0]
     pw = tuple(torch.stack(p) for p in zip(*pws)) if batched else pws[0]
     force_tab_dt = None if ctx.force_dtype == "float64" else ctx.force_dtype
-    use_k3 = params.fused_step_force and k3_trajectory_applies(ctx, precond)
+    route = force_route(ctx, precond, params, x0.device)
+    use_k3 = route == "k3"
     # the per-step refreshes' KPM start vectors, in order (kicks, endpoint)
     v_steps = iter(ds[0].v_steps or ())
 
@@ -282,11 +310,12 @@ def hmc_update(ctx: QMCContext, state: QMCState, params: HMCParams, draws,
         return fermionic_action_and_force(
             phi, elph, fdm, x, ctx.plan, precond=precond, tol=ctx.tol_force,
             maxiter=ctx.maxiter, mixed=ctx.mixed_precision, solve_dtype=ctx.force_dtype, warm_start=psi_warm,
-            fused_step=use_k3, fused_force=params.fused_force,
+            route=route,
         )
 
     def force(x, psi_warm, refresh):
         nonlocal precond
+        tracing.FORCE_ROUTES[route] += len(ds)
         if use_k3 or not batched:
             fdm = make_fdm(ctx, x, dtype=force_tab_dt)
             if refresh and precond is not None:

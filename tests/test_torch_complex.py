@@ -61,7 +61,7 @@ from smoqyelphqmc_tpu_torch.ops.pff import fermionic_action_and_force, sample_ps
 from smoqyelphqmc_tpu_torch.ops.spectral_precond import build_spectral, spectral_apply
 from smoqyelphqmc_tpu_torch.updates.context import initialize_qmc, make_fdm
 from smoqyelphqmc_tpu_torch.updates.global_updates import _candidate_modes, _type_pairs, reflection_update, swap_update
-from smoqyelphqmc_tpu_torch.updates.hmc import HMCParams, hmc_update
+from smoqyelphqmc_tpu_torch.updates.hmc import HMCParams, force_route, hmc_update
 
 SYM = [pytest.param(True, id="sym"), pytest.param(False, id="asym")]
 CHAIN = dict(L=6, beta=1.0, dtau=0.1)
@@ -265,8 +265,13 @@ def test_complex_cg_with_kpm_matches_jax(symmetric, matrix_free):
 @pytest.mark.parametrize("symmetric", SYM)
 def test_complex_force_matches(symmetric):
     """The plain force chain on channel pairs (f32 solve, spectral
-    preconditioner): the K3 / K4 planes stay off for complex hoppings."""
-    jfdm, pfdm, (_, jelph), (_, pelph), x = cplx_fdm_pair(symmetric=symmetric, x_seed=14, **CHAIN)
+    preconditioner): the K3 / K4 planes stay off for complex hoppings (the
+    route asked for K3 and K4 on the card is the plain chain)."""
+    jfdm, pfdm, (_, jelph), (ptbp, pelph), x = cplx_fdm_pair(symmetric=symmetric, x_seed=14, **CHAIN)
+    ctx, _ = initialize_qmc(ptbp, pelph, symmetric=symmetric, force_dtype="float32", preconditioner="spectral")
+    route = force_route(ctx, build_spectral(pfdm), HMCParams(fused_step_force=True, fused_force=True),
+                        torch.device("cuda"))
+    assert route == "plain"
     R = _pair(pfdm, 15) / np.sqrt(2.0)
     pPhi, _ = sample_pseudofermion_fields(t64(R), pelph, pfdm, t64(x))
     jres = jforce(jnp.asarray(pPhi.numpy()), jelph, jfdm, jnp.asarray(x),
@@ -275,7 +280,7 @@ def test_complex_force_matches(symmetric):
     k3k4 = [(c.launches, c.plain_calls) for c in (pcg_force.PCG_FORCE, force.FORCE, pcg.PCG)]
     pres = fermionic_action_and_force(pPhi, pelph, pfdm, t64(x), build_force_plan(pelph, pfdm.structure),
                                       precond=build_spectral(pfdm), tol=1e-5, maxiter=400, solve_dtype="float32",
-                                      fused_step=True, fused_force=True)
+                                      route=route)
     assert [(c.launches, c.plain_calls) for c in (pcg_force.PCG_FORCE, force.FORCE, pcg.PCG)] == k3k4
     assert bool(pres.stats.converged)
     ref = np64(jres.force)

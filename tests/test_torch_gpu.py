@@ -484,7 +484,7 @@ def test_force_kernel_matches_plain(cuda_device, want_p2):
 def _k4_problem(device, W, beta):
     """K4's operands: the walker batch of `_walker_problem` with psi_raw
     from a seed; at W = 1 one channel pair (exp_nV (Ltau, N)), as the
-    fused_force path passes it."""
+    W = 1 trajectory passes it."""
     fdm32, _, Lam, b = _walker_problem(device, max(W, 2), beta)
     psi = torch.randn(b.shape, generator=torch.Generator().manual_seed(9), dtype=torch.float32).to(device)
     if W == 1:
@@ -591,19 +591,70 @@ def test_run_updates_walkers_launch_k3(cuda_device):
     assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
     assert md["x_final"].shape == (2, 18, 20)
     assert pcg_force.PCG_FORCE.launches == 2 * 8 and force.FORCE.launches == 0
+    assert md["force_routes"] == {"k3": 2 * 2 * 8, "k4": 0, "plain": 0}
     for c in counters:
         assert c.plain_calls == 0, c.name
 
 
-def test_run_updates_fused_force_launches_k4(cuda_device):
+@pytest.mark.parametrize("n_walkers", [1, 2])
+def test_run_updates_default_route_launches_k4(cuda_device, n_walkers):
+    """The default route on the card (decided by the input): at W = 1, and at
+    W = 2 without the shared refresh (each walker's trajectory on its own),
+    every trajectory force is the K2 solve and one K4 launch, a walker a
+    kick; no K3, no plain chain, no plain version of a kernel."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+
+    geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.6, 0.0)
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE, force.FORCE)
+    for c in counters:
+        c.reset()
+    cfg = SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2, n_walkers=n_walkers, shared_precond=False)
+    md = run_updates(tbm, em, cfg, 2, device=cuda_device)
+    assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
+    kicks = 2 * n_walkers * 8
+    assert force.FORCE.launches == kicks and pcg_force.PCG_FORCE.launches == 0 and pcg.PCG.launches > kicks
+    assert md["force_routes"] == {"k3": 0, "k4": kicks, "plain": 0}
+    for c in counters:
+        assert c.plain_calls == 0, c.name
+
+
+@pytest.mark.parametrize("case", ["ssh", "complex", "f64-forces", "asymmetric"])
+def test_run_updates_default_route_off_k4(cuda_device, case):
+    """The default route on the card keeps the eager chain where K4's planes
+    are not the force: SSH couplings, complex hoppings, f64 forces and the
+    asymmetric factorization launch no K4 (and no K3 at W = 1)."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model, ossh_honeycomb_model
+
+    model = {"ssh": lambda: ossh_honeycomb_model(3, 1.0, 0.5, 0.0), "complex": lambda: complex_chain_model(8)}
+    geo, tbm, em = model.get(case, lambda: holstein_honeycomb_model(3, 1.0, 0.6, 0.0))()
+    kw = {"f64-forces": {"force_dtype": "float64"}, "asymmetric": {"symmetric": False}}.get(case, {})
+    force.FORCE.reset()
+    pcg_force.PCG_FORCE.reset()
+    md = run_updates(tbm, em, SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2, **kw), 2, device=cuda_device)
+    assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
+    assert force.FORCE.launches == 0 and pcg_force.PCG_FORCE.launches == 0
+    assert force.FORCE.plain_calls == 0 and md["force_routes"] == {"k3": 0, "k4": 0, "plain": 2 * 8}
+
+
+@pytest.fixture
+def forced_k4(monkeypatch):
+    """run_updates with HMCParams.fused_force=True: the trajectory forces
+    through K2 + K4 wherever the planes apply, whatever the input's route."""
+    from smoqyelphqmc_tpu_torch import driver
+
+    make = driver._hmc_params
+    monkeypatch.setattr(driver, "_hmc_params", lambda cfg: dataclasses.replace(make(cfg), fused_force=True))
+
+
+def test_run_updates_fused_force_launches_k4(cuda_device, forced_k4):
     """fused_force=True at W = 1: every trajectory force through K2 + K4."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
 
     geo, tbm, em = holstein_honeycomb_model(3, 1.0, 0.6, 0.0)
     force.FORCE.reset()
     pcg_force.PCG_FORCE.reset()
-    md = run_updates(tbm, em, SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2, fused_force=True), 2,
-                     device=cuda_device)
+    md = run_updates(tbm, em, SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2), 2, device=cuda_device)
     assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
     assert force.FORCE.launches == 2 * 8 and force.FORCE.plain_calls == 0 and pcg_force.PCG_FORCE.launches == 0
 
@@ -1290,7 +1341,7 @@ def test_ssh_chain_gpu_matches_cpu(cuda_device, n_walkers):
     assert float((xg - xc).abs().max() / xc.abs().max()) <= 1e-4
 
 
-def test_fused_force_ssh_launches_no_k4(cuda_device):
+def test_fused_force_ssh_launches_no_k4(cuda_device, forced_k4):
     """fused_force=True on an SSH model: the forces take the plain chain (K4
     computes Holstein planes only), so K4 never launches; K1 and K2 do."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
@@ -1300,8 +1351,7 @@ def test_fused_force_ssh_launches_no_k4(cuda_device):
     counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE, force.FORCE)
     for c in counters:
         c.reset()
-    md = run_updates(tbm, em, SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2, fused_force=True), 2,
-                     device=cuda_device)
+    md = run_updates(tbm, em, SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2), 2, device=cuda_device)
     assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
     assert force.FORCE.launches == 0 and pcg_force.PCG_FORCE.launches == 0
     for c in counters[:3]:

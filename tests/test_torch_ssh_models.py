@@ -56,7 +56,7 @@ from smoqyelphqmc_tpu_torch.ops.pcg_force import PCG_FORCE
 from smoqyelphqmc_tpu_torch.ops.pff import fermionic_action_and_force, sample_pseudofermion_fields
 from smoqyelphqmc_tpu_torch.ops.spectral_precond import build_spectral
 from smoqyelphqmc_tpu_torch.updates.context import initialize_qmc, make_fdm
-from smoqyelphqmc_tpu_torch.updates.hmc import k3_trajectory_applies
+from smoqyelphqmc_tpu_torch.updates.hmc import HMCParams, force_route, k3_trajectory_applies
 
 torch.set_num_threads(2)
 
@@ -336,9 +336,10 @@ def test_table_caches_follow_the_matrix():
 
 def test_holstein_kernels_gated_off_ssh():
     """Kernels K3 and K4 compute the Holstein force planes: with SSH
-    couplings fused_step and fused_force must not reach them (their plain
-    versions count no call) and the force is the plain chain's; the HMC gate
-    of K3 says no."""
+    couplings the trajectory's route (`force_route`, on the card) keeps
+    fused_step_force and fused_force off them, their plain versions count
+    no call and the force is the plain chain's; the HMC gate of K3 says
+    no."""
     _, _, ptbp, _, pelph = build(P, "ossh_honeycomb")
     ctx, state = initialize_qmc(ptbp, pelph, mixed_precision=True, force_dtype="float32", preconditioner="spectral")
     assert not k3_trajectory_applies(ctx, state.precond)
@@ -348,9 +349,11 @@ def test_holstein_kernels_gated_off_ssh():
     Phi, _ = sample_pseudofermion_fields(R, pelph, fdm, x)
     pre = build_spectral(fdm)
     calls = (PCG_FORCE.plain_calls, FORCE.plain_calls)
+    routes = [force_route(ctx, pre, HMCParams(fused_step_force=fs, fused_force=ff), torch.device("cuda"))
+              for fs, ff in ((True, True), (False, True), (False, False))]
+    assert routes == ["plain"] * 3
     res = [fermionic_action_and_force(Phi, pelph, make_fdm(ctx, x, dtype="float32"), x, ctx.plan, precond=pre,
-                                      tol=1e-5, solve_dtype="float32", fused_step=fs, fused_force=ff)
-           for fs, ff in ((True, True), (False, True), (False, False))]
+                                      tol=1e-5, solve_dtype="float32", route=r) for r in routes]
     assert (PCG_FORCE.plain_calls, FORCE.plain_calls) == calls
     assert float(res[-1].force.abs().max()) > 1e-3
     for r in res[:2]:

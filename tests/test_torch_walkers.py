@@ -176,8 +176,8 @@ def test_force_planes_plain_matches_fused_force(name, kw):
 
 @pytest.mark.parametrize("fused", ["step", "force"])
 def test_fused_forces_match_jax_force_path(fused, fused_env, monkeypatch):
-    """fermionic_action_and_force with fused_step (K3) and with fused_force
-    (K2 + K4) against the JAX package's fused paths on the same Phi."""
+    """fermionic_action_and_force on the 'k3' route (K3) and on the 'k4'
+    route (K2 + K4) against the JAX package's fused paths on the same Phi."""
     from smoqyelphqmc_tpu.ops.pff import fermionic_action_and_force as jforce
     from smoqyelphqmc_tpu_torch.ops.pff import fermionic_action_and_force
 
@@ -191,38 +191,53 @@ def test_fused_forces_match_jax_force_path(fused, fused_env, monkeypatch):
     ppre = convert.spectral_preconditioner(jpre.Q, jpre.filt, jfdm.Ltau, device="cpu")
     pres = fermionic_action_and_force(t64(Phi), pelph, pfdm, t64(x), build_force_plan(pelph, pfdm.structure),
                                       precond=ppre, tol=TOL, maxiter=MAXITER, solve_dtype="float32",
-                                      fused_step=fused == "step", fused_force=fused == "force")
+                                      route={"step": "k3", "force": "k4"}[fused])
     assert bool(jres.stats.converged) and bool(pres.stats.converged) and pres.force.dtype == torch.float64
     _assert_force_close(pres.force.numpy(), np64(jres.force))
     np.testing.assert_allclose(float(pres.Sf), float(jres.Sf), rtol=2e-5)
 
 
-@pytest.mark.parametrize("flag", ["fused_step_force", "fused_force"])
+@pytest.mark.parametrize("flag", ["fused_step_force", "fused_force", "walker_sweep_fused_force"])
 def test_hmc_update_fused_paths_match_plain_chain(flag):
     """Trajectories with their forces through K3 (fused_step_force: a W = 2
     batch, both walkers' solves in one K3 call per leapfrog step, as the
-    walker sweep runs them) or K2 + K4 (fused_force, one chain) against each
-    walker's default trajectory (K2 + plain force chain, held to the JAX
-    package in test_torch_hmc.py): the same accept decisions, Delta H to 1e-6
-    and end field to 1e-6 relative."""
+    walker sweep runs them), K2 + K4 (fused_force, one chain) or K2 + K4
+    walker by walker (a W = 2 walker_sweep without the shared refresh, each
+    walker's trajectory on its own with fused_force) against each walker's
+    trajectory through the plain force chain (K2 + the eager chain, held to
+    the JAX package in test_torch_hmc.py): the same accept decisions, Delta
+    H to 1e-6 and end field to 1e-6 relative."""
     from smoqyelphqmc_tpu_torch.updates.context import QMCState
     from smoqyelphqmc_tpu_torch.updates.hmc import hmc_update
 
-    W = 2 if flag == "fused_step_force" else 1
+    W = 1 if flag == "fused_force" else 2
     _, jstates, pctx, pstates = _both_walker_chains(W, 3, L=2, beta=1.0, alpha=0.5)
     draws = [_hmc_draws(jstates.key[w], pctx.elph.n_phonon, pctx.Ltau, pctx.n_sites)[0] for w in range(W)]
-    params = HMCParams(Nt=8, refresh_precond_at_start=False)
-    refs = [hmc_update(pctx, pstates.walker(w), params, draws[w]) for w in range(W)]
+    params = HMCParams(Nt=8, refresh_precond_at_start=False, fused_force=False)
+    if flag == "walker_sweep_fused_force":
+        gen = torch.Generator().manual_seed(31)
+        wdraws = [dataclasses.replace(walkers.draw_walker(gen, pctx, pstates.precond[w]), hmc=draws[w])
+                  for w in range(W)]
+        sweep = lambda p: walkers.walker_sweep(pctx, pstates, p, wdraws, shared_precond=False)  # noqa: E731
+        ref_states, ref_stats = sweep(params)
+        refs = [(ref_states.walker(w), h) for w, h in enumerate(ref_stats.hmc)]
+    else:
+        refs = [hmc_update(pctx, pstates.walker(w), params, draws[w]) for w in range(W)]
     plain = (pcg_force.PCG_FORCE.plain_calls, pforce.FORCE.plain_calls)
-    fused = dataclasses.replace(params, **{flag: True})
-    if W > 1:
+    fused = dataclasses.replace(params, **{flag.replace("walker_sweep_", ""): True})
+    if flag == "walker_sweep_fused_force":
+        got_states, got_stats = sweep(fused)
+        got, got_x = got_stats.hmc, got_states.x
+        assert [(r.accepted, s.accepted) for r, s in zip(got_stats.reflection, got_stats.swap)] == [
+            (r.accepted, s.accepted) for r, s in zip(ref_stats.reflection, ref_stats.swap)]
+    elif W > 1:
         got_state, got = hmc_update(pctx, QMCState(x=pstates.x, precond=pstates.precond[0]), fused, draws)
         got_x = got_state.x
     else:
         got_state, got = hmc_update(pctx, pstates.walker(0), fused, draws[0])
         got, got_x = [got], got_state.x[None]
     k3, k4 = pcg_force.PCG_FORCE.plain_calls - plain[0], pforce.FORCE.plain_calls - plain[1]
-    assert (k3, k4) == ((8, 0) if flag == "fused_step_force" else (0, 8))
+    assert (k3, k4) == ((8, 0) if flag == "fused_step_force" else (0, 8 * W))
     assert len(got) == W
     for w, (ref_state, ref) in enumerate(refs):
         assert ref.converged and got[w].converged and got[w].accepted == ref.accepted
