@@ -9,12 +9,12 @@ are compared:
 
 - `field_gap`: max over walkers of max|x_program - x_reference| / max|x_reference|
   after the sweep. The reference's field is its own trajectory's end when
-  it accepts, the field after its reflection and swap moves when it
-  rejects. Where its Delta H lies within `dH_band` of the acceptance
+  it accepts, the field after its reflection, swap and (with radial
+  updates) radial moves when it rejects. Where its Delta H lies within `dH_band` of the acceptance
   threshold (-log u), rounding legitimately decides, and the program's own
-  choice (whether it moved the field) stands. This covers M^T M, the solves,
-  the action, the forces and Delta H of the trajectory, and the global
-  moves' Metropolis decisions.
+  choice (whether it moved the field) stands. This covers M^T M (with SSH
+  couplings, its per-slice hoppings), the solves, the action, the forces and
+  Delta H of the trajectory, and the global moves' Metropolis decisions.
 - `measure_gap`: max over walkers of the larger of max|G_program - G_reference|
   / max|G_reference| over the time-displaced Green's function pairs and
   |n_program - n_reference| / |n_reference| of the density, the reference

@@ -3,9 +3,12 @@ the comparison with the plain reference.
 
 A cell (`workloads/<name>.json`) names a configuration (`configs/<name>.json`:
 the model's builder in `smoqyelphqmc_tpu_torch.models.library` by its
-`model` name, `<model>_model` and `<model>_spec`, which take the keys of the
-file that match their parameters; every key that names a field of the
-port's `SimulationConfig` goes there) and a traffic mix (`traffic/<name>.json`:
+`model` name, `<model>_model`, which takes the keys of the file that match
+its parameters, and the measurement set's, `spec` where the file names one
+and `<model>_spec` where it does not, given every bond of the model where it
+takes `bond_ids`; every key that names a field of the port's
+`SimulationConfig` goes there; the reference's model is
+`references/<model>.py`) and a traffic mix (`traffic/<name>.json`:
 walkers, shared refresh, sweeps a dispatch, thermalization sweeps), the
 limits of its compared numbers and how many sweeps a traced run profiles.
 
@@ -68,12 +71,45 @@ class Cell:
     def settings(self) -> Settings:
         """The reference's settings. A KPM preconditioner ('kpm', or 'auto'
         above 4000 sites) makes the program draw a Lanczos start vector
-        after each trajectory's draws."""
+        after each trajectory's draws; `use_radial_updates` adds the radial
+        move. Raises ValueError for a trajectory the reference does not
+        replay: another integrator than the leapfrog, a timestep law
+        (`target_acceptance`) or a fixed timestep (`hmc_dt`) in place of
+        pi / (2 Nt)."""
         c = self.config
+        off = {k: c[k] for k, plain in (("hmc_integrator", "leapfrog"), ("target_acceptance", None), ("hmc_dt", 0.0))
+               if c.get(k, plain) != plain}
+        if off:
+            raise ValueError(f"the plain reference replays the leapfrog at pi / (2 Nt) alone, not {off}")
         kind = c.get("preconditioner", "auto")
         kpm = kind == "kpm" or (kind == "auto" and check.reference_model(c)[0].n_sites > 4000)
         return Settings(beta=c["beta"], dtau=c["dtau"], mu=c["mu"], Nt=c["Nt"], jitter=c["hmc_jitter"], tol=c["tol"],
-                        Nrv=c["Nrv"], kpm=kpm)
+                        Nrv=c["Nrv"], kpm=kpm, radial=bool(c.get("use_radial_updates", False)))
+
+
+def unreplayed(tbm, em) -> List[str]:
+    """What of the program's tight-binding and electron-phonon models the
+    plain reference does not replay: it replays real hoppings and energies,
+    live harmonic modes, and Holstein and SSH couplings linear in the fields
+    with real constants, none of them disordered."""
+    found = []
+    if any(complex(t).imag for t in tbm.t_mean) or any(tbm.t_std or ()) or any(tbm.eps_std or ()):
+        found.append("complex or disordered hoppings or energies")
+    if any(not math.isfinite(m.M) for m in em.phonon_modes):
+        found.append("a frozen phonon mode (bond SSH)")
+    if any(m.Omega_std or m.Omega4_mean or m.Omega4_std for m in em.phonon_modes):
+        found.append("disordered or anharmonic phonon modes")
+    for kind, couplings in (("Holstein", em.holstein_couplings), ("SSH", em.ssh_couplings)):
+        for c in couplings:
+            if any(complex(getattr(c, f"alpha{k}_mean")).imag for k in ("", "2", "3", "4")):
+                found.append(f"complex {kind} constants")
+            if any(getattr(c, f"alpha{k}_mean") for k in ("2", "3", "4")):
+                found.append(f"higher-order {kind} constants")
+            if any(getattr(c, f"alpha{k}_std") for k in ("", "2", "3", "4")):
+                found.append(f"disordered {kind} constants")
+    if em.dispersion_couplings:
+        found.append("dispersion couplings")
+    return sorted(set(found))
 
 
 def build(cell: Cell, seed: int, datadir: Path):
@@ -86,7 +122,12 @@ def build(cell: Cell, seed: int, datadir: Path):
     c = cell.config
     model_fn = getattr(lib, f"{c['model']}_model")
     geo, tbm, em = model_fn(**{k: c[k] for k in inspect.signature(model_fn).parameters if k in c})
-    spec = getattr(lib, f"{c['model']}_spec")(geo)
+    off = unreplayed(tbm, em)
+    if off:
+        raise ValueError(f"the plain reference cannot replay {c['model']}: {', '.join(off)}")
+    spec_fn = getattr(lib, c.get("spec", f"{c['model']}_spec"))
+    bonds = {"bond_ids": list(tbm.bond_ids)} if "bond_ids" in inspect.signature(spec_fn).parameters else {}
+    spec = spec_fn(geo, **bonds)
     fields = {f.name for f in dataclasses.fields(SimulationConfig)}
     t = cell.traffic
     cfg = SimulationConfig(
@@ -262,7 +303,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     comparison; with `control` also the control's numbers and the
     configuration precision's (`check.control`, in `extra`). The program's
     data folder lives under `scratch` (a directory under TMPDIR by default)
-    and is removed at the end."""
+    and is removed at the end. Raises ValueError, before set-up, for a
+    configuration the reference does not replay (`Cell.settings`,
+    `unreplayed`)."""
+    settings = cell.settings()
     scratch = Path(scratch or Path(tempfile.gettempdir()) / "smoqy-benchmark" / cell.name)
     shutil.rmtree(scratch, ignore_errors=True)
     scratch.mkdir(parents=True)
@@ -279,7 +323,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
         limits = {k: float(v) for k, v in cell.spec["limits"].items()}
-        judge = check.Judge(cell.config, cell.settings(), device, chk.x0, chk.gens,
+        judge = check.Judge(cell.config, settings, device, chk.x0, chk.gens,
                             float(cell.spec.get("dH_band", 0.0)), tuple(limits))
         out = judge(chk.x1, *check.program_measurements(chk.trees, device))
         marks["checked"] = time.time()

@@ -1,33 +1,40 @@
-"""Plain PyTorch reference of one measured sweep of a Holstein model.
+"""Plain PyTorch reference of one measured sweep of an electron-phonon
+model with Holstein and optical-SSH couplings.
 
 This file imports nothing of the program under test. It rebuilds from the
 configuration what the program derives (the lattice's hops and their
-checkerboard colours, exp(-dtau V), the shift matrix Lambda, the exact
-Fourier-accelerated leapfrog) and replays one measured sweep of each walker
-from a state and a random-generator state: a reflection move, a swap move,
-an HMC trajectory (each a Metropolis decision), then the Green's-estimator
-refresh and the measurements compared (the time-displaced Green's function
-and the density).
+checkerboard colours, exp(-dtau V), the hoppings the SSH couplings modulate,
+the shift matrix Lambda, the exact Fourier-accelerated leapfrog) and replays
+one measured sweep of each walker from a state and a random-generator state:
+a reflection move, a swap move, with `Settings.radial` a radial move, an HMC
+trajectory (each a Metropolis decision), then the Green's-estimator refresh
+and the measurements compared (the time-displaced Green's function and the
+density).
 
 Definitions (one walker; fields are (Ltau, N) planes, phonon fields
 (n_phonon, Ltau)):
 
-  B_l = CB exp(-dtau V_l) CB^T,  CB = product of the colours' exact hop
-        rotations exp(dtau/2 t (c_i^+ c_j + h.c.)), colour 0 applied first
+  t_h(x_l) = t0_h - sum_{SSH c on h} alpha_c (x_{final_c, l} - x_{initial_c, l})
+  B_l = CB_l exp(-dtau V_l) CB_l^T,  CB_l = product of the colours' exact hop
+        rotations exp(dtau/2 t_h(x_l) (c_i^+ c_j + h.c.)), colour 0 applied first
   M v [l] = v[l] - B_l v[l-1] (l >= 1),   M v [0] = v[0] + B_0 v[Ltau-1]
   S_f(x) = rhs^T (M^T M)^{-1} rhs,  rhs[l] = Phi[l+1] / Lambda[l+1]
-  Lambda[l, i] = s_l exp(dtau/2 sum alpha x),  s_0 = 1, s_l = -1
+  Lambda[l, i] = s_l exp(dtau/2 sum alpha x) over the Holstein couplings,
+        s_0 = 1, s_l = -1
   Phi = Lambda (.) roll(M^T R, +1) at the field the pseudofermions are drawn at
 
 The force dS_f/dx is taken by autograd of 2 psi.rhs(x) - |M(x) psi|^2 with
 psi = (M^T M)^{-1} rhs held fixed, which has the gradient of S_f; each kick's
 solve starts from the previous kick's solution. Solves are
 conjugate gradients in float64 preconditioned by the tau-averaged propagator
-(exact in its eigenbasis and antiperiodic frequencies); the preconditioner
-moves iteration counts only.
+of the bare hoppings t0 (exact in its eigenbasis and antiperiodic
+frequencies); the preconditioner moves iteration counts only. The radial
+move scales every field by e^gamma, gamma = z / sqrt(d) over the d = n_phonon
+Ltau fields, and weighs its acceptance by the Jacobian term d gamma.
 
 `precision` selects the operand precision of the fermion operator: "exact"
-keeps every table in float64; "config" rounds the force and measurement
+keeps every table (exp(-dtau V) and, with SSH couplings, the per-slice hop
+rotations) in float64; "config" rounds the force and measurement
 solves' tables to the float32 the configuration states, at the program's
 tolerances (1e-5 for forces, 2e-5 for the refresh); "control" rounds them one
 step below, to bfloat16 (the step a kernel of those float32 solves would
@@ -66,12 +73,19 @@ def greedy_colors(neighbor_table: np.ndarray) -> List[List[int]]:
     return colors
 
 
+def _empty(dtype=np.float64, shape=(0,)):
+    return dataclasses.field(default_factory=lambda: np.zeros(shape, dtype=dtype))
+
+
 @dataclasses.dataclass
-class HolsteinModel:
-    """A Holstein model on a lattice of cells: hops (2, n_hops) with real
-    amplitudes t, on-site energies eps (N,), cells L (C order, site = cell *
-    n_orb + orbital), phonon p = type * n_cells + cell with mass and Omega,
-    and Holstein couplings (phonon, site, alpha, particle-hole form)."""
+class ElPhModel:
+    """An electron-phonon model on a lattice of cells: hops (2, n_hops) with
+    real bare amplitudes t, on-site energies eps (N,), cells L (C order, site
+    = cell * n_orb + orbital), phonon p = type * n_cells + cell with mass and
+    Omega, Holstein couplings (phonon, site, alpha, particle-hole form) and
+    SSH couplings (hop, (initial, final) phonon pair, alpha), each linear in
+    the fields with a real constant. Every mode is live: a frozen one (infinite
+    mass, as bond-SSH models have) is refused."""
 
     neighbor_table: np.ndarray
     t: np.ndarray
@@ -81,10 +95,21 @@ class HolsteinModel:
     mass: np.ndarray
     Omega: np.ndarray
     n_types: int
-    hol_phonon: np.ndarray
-    hol_site: np.ndarray
-    hol_alpha: np.ndarray
-    hol_ph_sym: np.ndarray
+    hol_phonon: np.ndarray = _empty(np.int64)
+    hol_site: np.ndarray = _empty(np.int64)
+    hol_alpha: np.ndarray = _empty()
+    hol_ph_sym: np.ndarray = _empty(bool)
+    ssh_hop: np.ndarray = _empty(np.int64)
+    ssh_phonon: np.ndarray = _empty(np.int64, (2, 0))
+    ssh_alpha: np.ndarray = _empty()
+
+    def __post_init__(self):
+        if not np.all(np.isfinite(self.mass)):
+            raise ValueError("the reference replays live phonon modes only: a frozen mode (infinite mass, "
+                             "bond SSH) is not replayed")
+        for name in ("t", "eps", "hol_alpha", "ssh_alpha"):
+            if np.iscomplexobj(getattr(self, name)):
+                raise ValueError(f"the reference replays real {name} only: complex values are not replayed")
 
     @property
     def n_cells(self) -> int:
@@ -97,6 +122,10 @@ class HolsteinModel:
     @property
     def n_phonon(self) -> int:
         return self.n_types * self.n_cells
+
+    @property
+    def n_ssh(self) -> int:
+        return int(self.ssh_hop.shape[0])
 
 
 @dataclasses.dataclass
@@ -111,6 +140,7 @@ class Settings:
     tol: float
     Nrv: int
     kpm: bool  # the program draws a Lanczos start vector after each trajectory's draws
+    radial: bool = False  # a radial move after the swap move
 
     @property
     def Ltau(self) -> int:
@@ -120,26 +150,28 @@ class Settings:
 class Operator:
     """The fermion operator's tables for a batch of fields x (W, n_phonon, Ltau)."""
 
-    def __init__(self, model: HolsteinModel, s: Settings, device):
+    def __init__(self, model: ElPhModel, s: Settings, device):
         self.model, self.s, self.device = model, s, torch.device(device)
         N, Lt = model.n_sites, s.Ltau
         nt = model.neighbor_table
         colors = greedy_colors(nt)
         partner = np.tile(np.arange(N), (len(colors), 1))
-        t_site = np.zeros((len(colors), N))
+        site_hop = np.zeros((len(colors), N), dtype=np.int64)
         covered = np.zeros((len(colors), N), dtype=bool)
         for c, hops in enumerate(colors):
             for h in hops:
                 i, j = int(nt[0, h]), int(nt[1, h])
                 partner[c, i], partner[c, j] = j, i
-                t_site[c, i] = t_site[c, j] = model.t[h]
+                site_hop[c, i] = site_hop[c, j] = h
                 covered[c, i] = covered[c, j] = True
-        half = s.dtau / 2.0
         self.partner = torch.as_tensor(partner, dtype=torch.long, device=self.device)
-        cov = torch.as_tensor(covered, device=self.device)
-        ts = torch.as_tensor(t_site, dtype=F64, device=self.device)
-        self.C = torch.where(cov, torch.cosh(half * ts), torch.ones_like(ts))
-        self.S = torch.where(cov, torch.sinh(half * ts), torch.zeros_like(ts))
+        self.site_hop = torch.as_tensor(site_hop, dtype=torch.long, device=self.device)
+        self.cov = torch.as_tensor(covered, device=self.device)
+        self.t0 = torch.as_tensor(model.t, dtype=F64, device=self.device)
+        self.C, self.S = self._planes(self.t0[self.site_hop])  # of the bare hoppings t0
+        self.ssh_hop = torch.as_tensor(model.ssh_hop, dtype=torch.long, device=self.device)
+        self.ssh_phonon = torch.as_tensor(model.ssh_phonon, dtype=torch.long, device=self.device)
+        self.ssh_alpha = torch.as_tensor(model.ssh_alpha, dtype=F64, device=self.device)
         self.hol_phonon = torch.as_tensor(model.hol_phonon, dtype=torch.long, device=self.device)
         self.hol_site = torch.as_tensor(model.hol_site, dtype=torch.long, device=self.device)
         self.hol_alpha = torch.as_tensor(model.hol_alpha, dtype=F64, device=self.device)
@@ -165,12 +197,33 @@ class Operator:
         out = out.index_add(1, self.hol_site, vals)
         return out.transpose(1, 2)
 
+    def _planes(self, ts: torch.Tensor):
+        """The colours' planes (C, S) = (cosh, sinh)(dtau/2 t) of the hop
+        amplitudes ts (..., n_colors, N) on each site's hop, (1, 0) where a
+        colour leaves a site out."""
+        half = self.s.dtau / 2.0
+        C = torch.where(self.cov, torch.cosh(half * ts), torch.ones_like(ts))
+        S = torch.where(self.cov, torch.sinh(half * ts), torch.zeros_like(ts))
+        return C, S
+
+    def hoppings(self, x: torch.Tensor) -> torch.Tensor:
+        """t_h(x_l) = t0_h - sum_{SSH c on h} alpha_c (x_final - x_initial)
+        (W, Ltau, n_hops) of fields x (W, n_phonon, Ltau)."""
+        dx = x[:, self.ssh_phonon[1], :] - x[:, self.ssh_phonon[0], :]
+        shift = torch.zeros(x.shape[0], self.t0.shape[0], x.shape[-1], dtype=x.dtype, device=x.device)
+        shift = shift.index_add(1, self.ssh_hop, self.ssh_alpha[:, None] * dx)
+        return (self.t0[:, None] - shift).transpose(1, 2)
+
     def tables(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
-        """(E, C, S): E = exp(-dtau V) (W, 1, Ltau, N), the colours' planes,
-        rounded to `dtype` and back when it is given."""
+        """(E, C, S): E = exp(-dtau V) (W, 1, Ltau, N) and the colours' planes,
+        (n_colors, N) of the bare hoppings or, with SSH couplings, slice l's
+        in row l, (n_colors, W, 1, Ltau, N); rounded to `dtype` and back when
+        it is given."""
         V = (self.eps - self.s.mu) + self._site_sum(x, self.hol_alpha)
         E = torch.exp(-self.s.dtau * V)[:, None]
         C, S = self.C, self.S
+        if self.model.n_ssh:
+            C, S = (a.movedim(-2, 0)[:, :, None] for a in self._planes(self.hoppings(x)[..., self.site_hop]))
         if dtype is not None:
             E, C, S = (a.to(dtype).to(F64) for a in (E, C, S))
         return E, C, S
@@ -201,7 +254,7 @@ class Operator:
         return self.Mt(self.M(v, tabs), tabs)
 
     def cb_matrix(self) -> torch.Tensor:
-        """CB as a dense (N, N) matrix."""
+        """CB of the bare hoppings as a dense (N, N) matrix."""
         N = self.model.n_sites
         eye = torch.eye(N, dtype=F64, device=self.device)
         return self._cb(eye, self.C, self.S, False).T
@@ -323,10 +376,15 @@ class Draws:
     xi: torch.Tensor
     u_acc: float
     theta: torch.Tensor
+    z: Optional[float] = None  # the radial move's, with Settings.radial
+    R_rad: Optional[torch.Tensor] = None
+    u_rad: Optional[float] = None
 
 
-def draw(gen_state, model: HolsteinModel, s: Settings) -> Draws:
-    """Replay a walker's draws from its generator state (a uint8 array)."""
+def draw(gen_state, model: ElPhModel, s: Settings) -> Draws:
+    """Replay a walker's draws from its generator state (a uint8 array):
+    reflection, swap, radial (z, then its noise; with `s.radial`), HMC, the
+    refresh's phases."""
     g = torch.Generator(device="cpu")
     g.set_state(torch.as_tensor(np.asarray(gen_state), dtype=torch.uint8))
     Lt, N, Nc = s.Ltau, model.n_sites, model.n_cells
@@ -342,6 +400,11 @@ def draw(gen_state, model: HolsteinModel, s: Settings) -> Draws:
     R1, u1 = noise()
     pair, c1, shift, c2 = randint(0, model.n_types), randint(0, Nc), randint(1, max(Nc, 2)), randint(0, Nc)
     R2, u2 = noise()
+    radial = {}
+    if s.radial:
+        z = float(torch.randn((), generator=g, dtype=F64))
+        R_rad, u_rad = noise()
+        radial = dict(z=z, R_rad=R_rad, u_rad=u_rad)
     u_dt = float(torch.rand((), generator=g, dtype=F64))
     R3 = torch.randn((2, Lt, N), generator=g, dtype=F64) / math.sqrt(2.0)
     xi = torch.randn((model.n_phonon, Lt), generator=g, dtype=F64)
@@ -349,7 +412,7 @@ def draw(gen_state, model: HolsteinModel, s: Settings) -> Draws:
     if s.kpm:
         torch.randn((N,), generator=g, dtype=F64)
     theta = 2.0 * math.pi * torch.rand((s.Nrv, Lt, N), generator=g, dtype=F64)
-    return Draws(mode, R1, u1, pair, c1, shift, c2, R2, u2, u_dt, R3, xi, u_acc, theta)
+    return Draws(mode, R1, u1, pair, c1, shift, c2, R2, u2, u_dt, R3, xi, u_acc, theta, **radial)
 
 
 @dataclasses.dataclass
@@ -377,15 +440,15 @@ class Plan:
 class Sweep:
     """The replayed update sweep of a batch of walkers."""
 
-    x_moved: torch.Tensor  # after reflection and swap (W, n_phonon, Ltau)
+    x_moved: torch.Tensor  # after reflection, swap and radial (W, n_phonon, Ltau)
     x_prop: torch.Tensor  # the trajectory's end
     dH: torch.Tensor  # (W,)
     log_u: torch.Tensor  # (W,) log of the acceptance draw
-    global_accepted: list  # [(reflection, swap)] a walker
+    global_accepted: list  # [(reflection, swap)], with radial moves (reflection, swap, radial), a walker
 
 
 class Reference:
-    def __init__(self, model: HolsteinModel, s: Settings, device, precision: str = "exact"):
+    def __init__(self, model: ElPhModel, s: Settings, device, precision: str = "exact"):
         self.model, self.s = model, s
         self.op = Operator(model, s, device)
         self.plan = Plan.of(precision, s.tol)
@@ -423,17 +486,28 @@ class Reference:
             (grad,) = torch.autograd.grad(f, xg)
         return grad
 
-    def _metropolis(self, x_old, x_new, R, u):
-        """Accept flags (W,) of a global move with fresh pseudofermions at x_old."""
+    def _metropolis(self, x_old, x_new, R, u, log_weight=None):
+        """Accept flags (W,) of a global move with fresh pseudofermions at
+        x_old, its proposal weighed by e^log_weight (W,) when given."""
         Phi = self._phi(x_old, R)
         S_old = (R * R).sum(dim=(-3, -2, -1)) + bosonic_action(self.op, x_old)
         S_new = self.action(x_new, Phi) + bosonic_action(self.op, x_new)
         dS = S_new - S_old
-        return torch.log(u) < -dS
+        return torch.log(u) < (-dS if log_weight is None else -dS + log_weight)
+
+    def radial(self, x: torch.Tensor, z: Sequence[float]):
+        """The radial move's proposal of fields x (W, n_phonon, Ltau): e^gamma x
+        with gamma = z / sqrt(d) over the d = n_phonon Ltau fields, and its log
+        weight, the Jacobian term d gamma (W,)."""
+        d = x.shape[-2] * x.shape[-1]
+        gamma = [zw * (1.0 / math.sqrt(d)) for zw in z]
+        scale = torch.stack([torch.exp(torch.tensor(g, dtype=F64, device=x.device)) for g in gamma])
+        return x * scale[:, None, None], torch.tensor([d * g for g in gamma], dtype=F64, device=x.device)
 
     def sweep(self, x0: torch.Tensor, draws: Sequence[Draws]) -> Sweep:
-        """Reflection, swap and the trajectory of every walker (no decision on
-        the trajectory: its end and Delta H are returned)."""
+        """Reflection, swap, with `Settings.radial` the radial move, and the
+        trajectory of every walker (no decision on the trajectory: its end and
+        Delta H are returned)."""
         model, dev = self.model, self.device
         W, Nc = x0.shape[0], model.n_cells
         R = lambda name: torch.stack([getattr(d, name) for d in draws]).to(dev)  # noqa: E731
@@ -453,6 +527,12 @@ class Reference:
             swapped[w, p1], swapped[w, p2] = x[w, p2], x[w, p1]
         acc_s = self._metropolis(x, swapped, R("R_swap"), u("u_swap"))
         x_moved = torch.where(acc_s[:, None, None], swapped, x)
+        accepted = [acc_r.tolist(), acc_s.tolist()]
+        if self.s.radial:
+            scaled, log_weight = self.radial(x_moved, [d.z for d in draws])
+            acc_g = self._metropolis(x_moved, scaled, R("R_rad"), u("u_rad"), log_weight)
+            x_moved = torch.where(acc_g[:, None, None], scaled, x_moved)
+            accepted.append(acc_g.tolist())
 
         Rh = R("R_hmc")
         Phi = self._phi(x_moved, Rh)
@@ -471,8 +551,7 @@ class Reference:
             xw, pw = fo.drift(xw, pw, dt if t < self.s.Nt - 1 else dt / 2.0)
         x1 = fo.tau(*xw)
         H1 = self.action(x1, Phi) + bosonic_action(self.op, x1) + fo.kinetic(pw)
-        return Sweep(x_moved, x1, H1 - H0, torch.log(u("u_acc")),
-                     list(zip(acc_r.tolist(), acc_s.tolist())))
+        return Sweep(x_moved, x1, H1 - H0, torch.log(u("u_acc")), list(zip(*accepted)))
 
     def green(self, x: torch.Tensor, theta: torch.Tensor):
         """GR = M^{-1} R for R = e^{i theta} (W, Nrv, 2, Ltau, N) as (re, im)
@@ -486,7 +565,7 @@ class Reference:
         return R, GR.reshape(W, Nrv, 2, Lt, N)
 
 
-def measurements(model: HolsteinModel, R: torch.Tensor, GR: torch.Tensor, pairs) -> dict:
+def measurements(model: ElPhModel, R: torch.Tensor, GR: torch.Tensor, pairs) -> dict:
     """Per walker: the density 2 (1 - <conj(R) GR>) and the time-displaced
     Green's function G_ab(tau, r) = (1 / (Nrv Ltau Nc)) sum_{n,l,i} s GR_n,a
     [(l + tau) mod Ltau, i + r] conj(R_n,b[l, i]), s = -1 where l + tau wraps,

@@ -75,6 +75,31 @@ def test_the_replayed_sweep_agrees_with_the_program(tiny_cell):
     assert len(res.window.durations) >= 1 and res.window.metadata["all_converged"]
 
 
+# The exact reference's Delta H a walker and the numbers compared of the reference at the configuration's
+# precisions, judged as the program is, on a fixed state of the tiny cell (below): taken from the reference as it
+# stood before it replayed SSH couplings and radial moves, one intra-op thread; four threads read the same.
+PINNED = {
+    "dH": [0.020830508334256592, 0.023203635125355504, 0.030880259964760626, 0.02110597522369062],
+    "field_gap": 1.1698518598417499e-05,
+    "measure_gap": 6.743741758128482e-06,
+    "dH_config": [0.020779246975507704, 0.02318227671457862, 0.03085688233113615, 0.02106139389798045],
+}
+
+
+def test_the_holstein_replay_has_not_moved(tiny_cell):
+    from benchmark import check
+
+    g = torch.Generator().manual_seed(2024)
+    x0 = 0.7 * torch.randn((4, 18, 40), generator=g, dtype=torch.float64)
+    gens = [torch.Generator().manual_seed(100 + w).get_state() for w in range(4)]
+    judge = check.Judge(tiny_cell.config, tiny_cell.settings(), "cpu", x0, gens, float(tiny_cell.spec["dH_band"]),
+                        tuple(tiny_cell.spec["limits"]))
+    config = check.control(judge, ("config",))["config"]
+    got = {"dH": judge.dH, "field_gap": config["field_gap"], "measure_gap": config["measure_gap"],
+           "dH_config": config["dH"]}
+    assert got == PINNED
+
+
 def test_the_traced_run_profiles_its_sweeps_and_checks_the_next(tiny_cell):
     res = run_cell(tiny_cell, 12345, 0.5, trace=True, device="cpu")
     assert res.correct, res.compared
