@@ -232,7 +232,8 @@ def sweep(ctx: QMCContext, state: QMCState, params: HMCParams, draws: WalkerDraw
     state, s = swap_update(ctx, state, draws.swap)
     rad = None
     if draws.radial is not None:
-        state, rad = radial_update(ctx, state, draws.radial)
+        with span("radial", walker=0):
+            state, rad = radial_update(ctx, state, draws.radial)
     state, h = hmc_update(ctx, state, params, draws.hmc, recenter=recenter)
     return state, SweepStats(r, s, h, rad)
 

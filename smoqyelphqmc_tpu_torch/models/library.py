@@ -182,3 +182,9 @@ def basic_spec(geo, bond_ids=()) -> MeasurementSpec:
         spec.add_correlation("bond", [(bid, bid)], integrated=True)
         spec.add_correlation("current", [(bid, bid)], integrated=True)
     return spec
+
+
+def ossh_honeycomb_spec(geo, bond_ids=()) -> MeasurementSpec:
+    """Measurement set of the reference package's examples/ossh_honeycomb.jl:
+    `basic_spec` on the given bonds (the example measures all three)."""
+    return basic_spec(geo, bond_ids)

@@ -263,7 +263,8 @@ def walker_sweep(ctx: QMCContext, states: WalkerStates, params: HMCParams, draws
             st, r = reflection_update(ctxs[w], states.walker(w), draws[w].reflection)
             st, s = swap_update(ctxs[w], st, draws[w].swap)
             if draws[w].radial is not None:
-                st, rad = radial_update(ctxs[w], st, draws[w].radial)
+                with span("radial", walker=w):
+                    st, rad = radial_update(ctxs[w], st, draws[w].radial)
                 rads.append(rad)
             xs.append(st.x)
             pres.append(st.precond)

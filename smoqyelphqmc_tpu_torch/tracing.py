@@ -12,23 +12,38 @@ profiler's kineto events on Linux, so a span can be laid over a trace), the
 index of the enclosing recorded span in that list (-1 at the top), its
 identifiers and its seconds. A span inherits its parent's identifiers: the
 `sweep` spans give the phase ('therm' or 'measure') and the index of the
-sweep in that phase; no span is one walker's (at W >= 2 each covers every
-walker). Whether a span is recorded is decided when it opens. Spans are
-host ranges only: unlike
+sweep in that phase. Only the `radial` spans are one walker's (their
+`walker` id, the index in this process's block of walkers); every other
+span covers every walker of its sweep or kick. Whether a span is recorded
+is decided when it opens. Spans are host ranges only: unlike
 `torch.profiler.record_function`, they leave no copy on the device's
 timeline.
 
-The spans of a sweep of `driver.simulate` and `driver.run_sweeps`:
+The spans of a sweep of `driver.simulate` and `driver.run_sweeps`, as a
+tree:
 
 - `sweep`: one batch of the sweep loop, from the fallback controller's
   choice to the end of its accumulation and tuning (one sweep at
   `sweeps_per_dispatch` 1), closed before the bin's yield and the
   checkpoint decision;
-- `update`: the update sweep of every walker (`driver.sweep` with the sync
-  after it in `measured_sweep`; `parallel.walkers.walker_sweep` with the
-  shared preconditioner refresh);
-- `refresh`: the Green's-estimator refresh of every walker, synchronised;
-- `measure`: the measurement pass of every walker, synchronised.
+  - `update`: the update sweep of every walker (`driver.sweep` with the
+    sync after it in `measured_sweep`; `parallel.walkers.walker_sweep`
+    with the shared preconditioner refresh);
+    - `radial`: one walker's radial move (`updates.global_updates.
+      radial_update`, with `use_radial_updates`), id `walker`;
+    - `force`: one trajectory force evaluation (a kick) of every walker the
+      trajectory runs (`updates.hmc.hmc_update`: the kick's fermion
+      matrix, any per-kick preconditioner refresh, the solve and the
+      force), ids `route` ('k3', 'k4' or 'plain', as `FORCE_ROUTES` counts
+      it) and `walkers` (how many it covers: W on a shared sweep, 1
+      walker by walker);
+  - `refresh`: the Green's-estimator refresh of every walker, synchronised;
+  - `measure`: the measurement pass of every walker, synchronised.
+
+The `radial` and `force` spans are not synchronised: they time the host's
+side of the work, which waits on the device only where it reads a value
+from it (the radial move's Metropolis decision does; a kick's solve leaves
+its flags on the device).
 
 `KernelCounter` counts a kernel's launches and its plain version's calls.
 While tracing is on, the whole-solve kernels K2 and K3 also keep one record

@@ -316,13 +316,14 @@ def hmc_update(ctx: QMCContext, state: QMCState, params: HMCParams, draws,
     def force(x, psi_warm, refresh):
         nonlocal precond
         tracing.FORCE_ROUTES[route] += len(ds)
-        if use_k3 or not batched:
-            fdm = make_fdm(ctx, x, dtype=force_tab_dt)
-            if refresh and precond is not None:
-                precond = refresh_preconditioner(precond, fdm, next(v_steps, None))
-            return force_of(Phi, ctx, x, psi_warm, fdm)
-        return _stack_forces([force_of(Phi[w], c, x[w], psi_warm[w], make_fdm(c, x[w], dtype=force_tab_dt))
-                              for w, c in enumerate(ctxs)])
+        with tracing.span("force", route=route, walkers=len(ds)):
+            if use_k3 or not batched:
+                fdm = make_fdm(ctx, x, dtype=force_tab_dt)
+                if refresh and precond is not None:
+                    precond = refresh_preconditioner(precond, fdm, next(v_steps, None))
+                return force_of(Phi, ctx, x, psi_warm, fdm)
+            return _stack_forces([force_of(Phi[w], c, x[w], psi_warm[w], make_fdm(c, x[w], dtype=force_tab_dt))
+                                  for w, c in enumerate(ctxs)])
 
     x, pw, psi_last, iters_sum, ok, n_solves = _integrate(ctx, params, x0, pw, dt, force, recenter)
     xs, psis = (x, psi_last) if batched else (x[None], psi_last[None])

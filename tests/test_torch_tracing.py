@@ -78,7 +78,7 @@ def test_span_tree_of_simulate(tmp_path, W):
     index; every span lies inside its parent."""
     cfg = _config(W)
     *_, spans = _simulate(tmp_path, "tree", cfg, traced=True)
-    assert {s.name for s in spans} == {"sweep", "update", "refresh", "measure"}
+    assert {s.name for s in spans} == {"sweep", "update", "force", "refresh", "measure"}
     sweeps = [i for i, s in enumerate(spans) if s.name == "sweep"]
     assert [(spans[i].ids["phase"], spans[i].ids["sweep"]) for i in sweeps] == (
         [("therm", j) for j in range(cfg.N_therm)] + [("measure", j) for j in range(cfg.N_measurements)])
