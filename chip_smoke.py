@@ -67,7 +67,11 @@ Phases, one line each:
      it at: the benchmark cells' (2, 80, 288), the Holstein tutorials'
      (2, 80, 18), the permuted lattice of 7 and the large model's
      (2, 240, 4608) in K4's memory form; each line gives the error, the
-     device's time and the launch;
+     device's time and the launch; then K4's SSH form (`force_ssh`: P1, P2
+     and the hop plane H of both color walks) at the optical-SSH cell's
+     (2, 80, 288) with hop tables on every tau row, want_p2 off and on,
+     each plane within 1e-5 of its plain plane's largest value, with its
+     time, bound and phases;
  12. the small model at W = 2 on the GPU and on the CPU: the chains must
      agree;
  13. K6 (matrix-free KPM apply, symmetric) against its plain version on the
@@ -114,8 +118,9 @@ Phases, one line each:
  24. the measured SSH path: `simulate` on that model with the SSH examples'
      configuration (radial updates, Nt=24, the package defaults) and
      `basic_spec`, N_therm=2, N_measurements=4, N_bins=2, Nrv=10, at W=1;
-     every solve converged and Delta H finite, K1 and K2 launched and K3,
-     K4, the KPM kernels and every plain version not; the line gives s per
+     every solve converged and Delta H finite, K1, K2 and K4's SSH form
+     launched and K3, the KPM kernels and every plain version not; the line
+     gives s per
      measured sweep, the shares, iterations, acceptances (HMC, reflection,
      swap, radial), Delta H and ssh_energy per bin;
  25. the same at W=8 (walker by walker trajectories, the shared refresh from
@@ -167,7 +172,7 @@ Phases, one line each:
      with the bins in memory: holstein_honeycomb (R_cdw from the bins),
      _checkpoint, _density_tuning (final_mu) and _multiwalker (W=8: K3, K2,
      K1 f64) at L=3, beta=4, the flux chain (complex, N=8: no kernel) and
-     the five SSH examples (K1, K2 only); every solve converged, the bins
+     the five SSH examples (K1, K2, K4's SSH form); every solve converged, the bins
      finite, the kernels launched and no plain version run; one line a
      twin with W, N, Ltau, s per measured sweep, acceptance, iterations and
      launches. Before them, the kernels at the twins' shapes against their
@@ -226,6 +231,9 @@ LARGE = dict(HEADLINE, L=48, alpha=1.5)
 # the benchmark cells' model (benchmark/configs/holstein_honeycomb_l12_b4.json:
 # the tutorial's couplings and temperature at L=12; N=288, Ltau=80)
 CELL = dict(HEADLINE, beta=4.0, alpha=1.5, name="benchmark cells' honeycomb")
+# the optical-SSH cell's model (benchmark/configs/ossh_honeycomb_l12_b4.json:
+# the example's couplings at L=12, beta=4; N=288, Ltau=80)
+SSH_CELL = dict(SSH, beta=4.0, name="optical-SSH cell")
 # the complex chain of the JAX package's K8 record (scripts/kpm_cplx_ab.py:8,49,69;
 # tests/test_complex_hoppings.py:32): t e^{0.7 i}, N = 1152 > 1024 sites
 COMPLEX = dict(L=1152, beta=12.0, dtau=0.05, phase=0.7, alpha=0.5, Omega=1.0, mu=0.1, Nt=24, tol=1e-10,
@@ -1184,6 +1192,69 @@ def phase_k4_shapes():
             fail(f"K4 disagrees with its plain version on the {h['name']} model")
 
 
+def ssh_epilogue_ops(Ltau, N, n_colors, P):
+    """K4's SSH form per channel pair without P2: per channel and site one B,
+    both walks' colors on both buffers (4 x 3 n_colors), expV on both and ~10
+    products and sums; per pair slot of each color and walk, its product (8)."""
+    return 2 * Ltau * N * (b_flops(n_colors, True) + 12 * n_colors + 12) + 2 * Ltau * n_colors * P * 8
+
+
+def phase_k4_ssh(results):
+    """11b. K4's SSH form at the optical-SSH cell's shape (2, 80, 288), its
+    hop tables on every tau row (the initial field), against its plain
+    version with want_p2 off (the cell's launch) and on: P1, P2 and the hop
+    plane H each within 1e-5 of its plain plane's largest value; the
+    device's time (a CUDA graph of launches; the eager call's is the
+    host's), the plain version's, the bound and the timed instantiation's
+    per-phase breakdown."""
+    import torch
+
+    from smoqyelphqmc_tpu_torch.ops import force
+
+    dev = torch.device("cuda")
+    fdm32, Lam, psi = k4_operands(SSH_CELL)
+    C = fdm32.cb.C
+    if fdm32.static_hops or not float((C - C[:, :1]).abs().max()) > 0:
+        fail("the optical-SSH cell's hopping tables do not differ from one tau row to the next")
+    rel, err = {}, 0.0
+    for want_p2 in (False, True):
+        got = force.force_planes_cuda(fdm32, Lam, psi, want_p2, hops=True)
+        ref = force.force_planes_plain(fdm32, Lam, psi, want_p2, hops=True)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("P1", "P2", "H"), got, ref):
+            d, top = float((g - r).abs().max()), float(r.abs().max())
+            err = max(err, d)
+            rel[f"{name}{'' if want_p2 else ' no-p2'}"] = d / top if top > 0 else d
+    ok = all(v <= 1e-5 for v in rel.values())
+    ms = graph_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, False, hops=True), 100)
+    hol_ms = graph_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, False), 100)
+    eager_ms = cuda_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi, False, hops=True), 20)
+    plain_ms = cuda_ms(lambda: force.force_planes_plain(fdm32, Lam, psi, False, hops=True), 5)
+    Ltau, N, nc = fdm32.Ltau, fdm32.n_sites, fdm32.cb.n_colors
+    shape = force.launch_shape(fdm32, 1, hops=True)
+    # psi (2 planes), Lambda and expV in, P1 and P2 out, H out
+    bound_ms, bound_by = bound(6 * Ltau * N * 4 + Ltau * nc * shape["P"] * 4 + table_bytes(fdm32, 4),
+                               {"f32": ssh_epilogue_ops(Ltau, N, nc, shape["P"])})
+    stamps = torch.zeros(force.stamp_slots(), dtype=torch.int64, device=dev)
+    force.force_planes_cuda(fdm32, Lam, psi, False, stamps=stamps, hops=True)
+    torch.cuda.synchronize()
+    us = force.phase_times(stamps, force.phase_names(nc, False, hops=True))
+    groups = {k: round(v, 2) for k, v in us["cta0"]["groups"].items()}
+    say(f"K4 SSH form launch: tau blocks of {shape['tau_block']} rows, grid {shape['grid']} CTAs of "
+        f"{shape['threads']} threads, form K={shape['form']}, staged {shape['staged']}, {shape['smem']} bytes of "
+        f"shared memory; timed launch {us['kernel']:.2f} us, CTA 0 {us['cta0']['us']:.2f} us by phase group {groups}")
+    rel_s = ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+    say(f"K4 SSH form, {SSH_CELL['name']} (2, {Ltau}, {N}), C, S {tuple(C.shape)}: max |err| / max |plain| "
+        f"{rel_s} (tol 1e-5 each: {ok}); kernel {ms:.4f} ms (device; Holstein form on the same operands "
+        f"{hol_ms:.4f} ms; eager call {eager_ms:.4f} ms) plain {plain_ms:.4f} ms; bound {bound_ms:.5f} ms by "
+        f"{bound_by}")
+    if not ok:
+        fail("K4's SSH form disagrees with its plain version")
+    results["force_ssh"] = dict(name="force_ssh", route="cuda", source="smoqyelphqmc_tpu_torch/csrc/force.cu",
+                                replaces="smoqyelphqmc_tpu/ops/derivatives.py:259", max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_k5(results, card):
     """K5's function (M^T M on an irregular partner map) through K1: the
     headline honeycomb with its site labels permuted. K1 is held against its
@@ -1689,8 +1760,9 @@ def phase_ssh_measured(results, card, W=1):
     measurements, 'auto' (spectral at N=288), seed 1) and `basic_spec`,
     N_therm=2, N_measurements=4, N_bins=2, Nrv=10, at W walkers (walker by
     walker trajectories, the shared walker-mean refresh); every solve must
-    converge, every Delta H be finite, K1 and K2 launch and K3, K4, the KPM
-    kernels and every plain version not. Returns the launch counts."""
+    converge, every Delta H be finite, K1, K2 and K4 (its SSH form, once a
+    kick a walker) launch and K3, the KPM kernels and every plain version
+    not. Returns the launch counts."""
     import math
     import tempfile
 
@@ -1707,8 +1779,8 @@ def phase_ssh_measured(results, card, W=1):
         t0 = time.perf_counter()
         with SweepSpy() as spy:
             (bins, md, finished), counts = drive_path(
-                lambda: simulate_in_memory(info, tbm, em, spec, cfg, MAIN_DEVICE), ("mtm_f32", "mtm_f64", "pcg"),
-                only=True)
+                lambda: simulate_in_memory(info, tbm, em, spec, cfg, MAIN_DEVICE),
+                ("mtm_f32", "mtm_f64", "pcg", "force"), only=True)
         wall = time.perf_counter() - t0
     check_bins(bins, cfg.N_bins, f"the measured SSH path (W={W})", W)
     dH = [d for row in spy.dH for d in (row if isinstance(row, list) else [row])]
@@ -1981,12 +2053,12 @@ def phase_fleet(card, single):
 
 # the kernels each twin's path must launch (the Holstein honeycomb
 # tutorials at W=1: K1, K2 and K4 after each trajectory solve; the five SSH
-# examples: K1 and K2; the multiwalker tutorial at W=8: K3, K2, K1 f64; the
+# examples: K1, K2 and K4's SSH form; the multiwalker tutorial at W=8: K3, K2, K1 f64; the
 # flux chain, complex at N=8 with the doubled-basis spectral preconditioner:
 # none); every twin but the multiwalker one may launch no other (its
 # per-walker fallback sweeps may take K1 f32 and K4)
 HOLSTEIN_TWIN = ("mtm_f32", "mtm_f64", "pcg", "force")
-SSH_TWIN = ("mtm_f32", "mtm_f64", "pcg")
+SSH_TWIN = ("mtm_f32", "mtm_f64", "pcg", "force")
 TWIN_KERNELS = {"holstein_honeycomb_multiwalker": ("mtm_f64", "pcg", "pcg_force"), "holstein_flux_chain": (),
                 **{n: SSH_TWIN for n in ("bssh_chain", "bssh_square", "ossh_chain", "ossh_square", "ossh_honeycomb")}}
 # the twins' models as the kernel checks take them: the Holstein tutorials'
@@ -2276,6 +2348,7 @@ def main() -> None:
     phase_measured_small_reference(n_walkers=2, use_radial_updates=True, hmc_integrator="omelyan", Nt=4,
                                    target_acceptance=0.7, target_density=0.9)
     phase_k4_shapes()
+    phase_k4_ssh(results)
     phase_small_reference(n_walkers=2)
     phase_kpm_kernel(results, symmetric=True)
     phase_kpm_kernel(results, symmetric=False)
@@ -2294,6 +2367,7 @@ def main() -> None:
     counts = phase_ssh_measured(results, card, W=1)
     results["mtm_tau_f32"]["launches"] = counts["mtm_f32"][0]
     results["pcg_tau"]["launches"] = counts["pcg"][0]
+    results["force_ssh"]["launches"] = counts["force"][0]
     phase_ssh_measured(results, card, W=N_WALKERS)
     phase_ssh_small_references()
     # the walker path with KPM and complex hoppings (27-31)
@@ -2322,7 +2396,7 @@ def main() -> None:
     results["kpm_mf_cplx"]["max_abs_err"] = max(results[k]["max_abs_err"] for k in ("kpm_mf_cplx", "kpm_mf_cplx_asym"))
     kernels = []
     for k in ("mtm_f32", "mtm_f64", "pcg", "pcg_force", "force", "mtm_irregular_f32", "kpm_mf", "kpm_mf_asym",
-              "kpm_mf_cplx", "mtm_tau_f32", "pcg_tau"):
+              "kpm_mf_cplx", "mtm_tau_f32", "pcg_tau", "force_ssh"):
         r = results[k]
         # no single PyTorch call computes any of these functions from their
         # operands (checkerboard tables, a whole preconditioned solve, a

@@ -1,4 +1,5 @@
-// Kernel K4: the Holstein force planes P1 and P2 from a given psi_raw.
+// Kernel K4: the Holstein force planes P1 and P2 from a given psi_raw, and in
+// its SSH form the hop plane H of the SSH couplings.
 //
 // Replaces `_force_kernel` (the JAX package's ops/pallas_fused.py:934, its
 // pallas_call in FusedForce.__call__ at :1004). For one walker's channel pair
@@ -13,6 +14,26 @@
 // with sgn1 = +1 at tau 0 and sgnL = +1 at tau Ltau-1 (-1 elsewhere). K3
 // (pcg_force.cu) runs the same function after its solve, one row at a time
 // (force_epilogue.cuh:force_row).
+//
+// The SSH form (kSSH) adds the hop plane of the two color walks of the
+// hopping derivative (ops/derivatives.py:add_M_derivative_force, symmetric
+// factorization, both walks at dtau/2): with U = A_l and V = sw_l,
+//
+//   reverse walk, c = nc-1 .. 0:  h_c += sum_ch (U_b V_a + U_a V_b) over the
+//                                 pairs (a, b) of color c; U <- K_c U, V <- K_c^{-1} V
+//   (then U = CB^T A_l, V = CB^{-1} sw_l: P1)
+//   U <- expV_l U,  V <- V / expV_l
+//   forward walk, c = 0 .. nc-1:  h_c += the same products; U <- K_c U, V <- K_c^{-1} V
+//
+// H (Ltau, nc, P) a walker holds h_c at the color's pair slot q, 0 at the
+// slots of self pairs (sites the color leaves alone, the padding);
+// derivatives.ssh_force_from_hops contracts it with the couplings. The
+// products ride on the half sweeps' stages, which load both buffers' pair
+// values anyway, and the forward walk's U is P2's B_l A_l (expV before color
+// 0, the colors forward), so the SSH form adds nc stages a block and no shared
+// memory: H goes to device memory, and the forward walk adds to the reverse
+// walk's value, which the same thread stored. SSH couplings make the hop
+// tables tau-dependent, so the SSH form is the memory form alone.
 //
 // What bounds it on the H100: the depth of its color stages, not device
 // memory (each input is read about once: ~0.5 us of bytes at the headline).
@@ -66,6 +87,7 @@ struct ForceArgs {
   const float* Lam;  // (W, Ltau, N)
   float* P1;         // (W, Ltau, N)
   float* P2;         // (W, Ltau, N)
+  float* H;          // (W, Ltau, n_colors, P): the SSH form's hop plane
   int tau_rows;      // T
   int nblk;          // tau blocks a walker
   int want_p2;
@@ -118,6 +140,81 @@ __device__ __forceinline__ void half_stage(const PairTabs<float>& tb, const RegT
   }
 }
 
+// The SSH form's color c of either walk on nrows rows, in one pass over the
+// pairs (the memory form's tables): for each pair (a, b), its product
+// sum_ch (U_b V_a + U_a V_b) (0 for a self pair) into the hop plane H (row i
+// at H + i nc P, slot q of color c), stored or, with kAdd, added to what this
+// thread stored there; then U <- K_c U and V <- K_c^{-1} V. kScale first
+// takes U <- expV U and V <- V / expV (the forward walk's color 0).
+template <bool kAdd, bool kScale>
+__device__ void ssh_stage(const PairTabs<float>& tb, int c, f2* U, f2* V, float* H, int nrows, int tau0) {
+  constexpr int G = 4;
+  const int Km = tb.P / blockDim.x;
+  const int rows = tb.tau_tabs ? tb.Ltau : 1;
+  for (int k0 = 0; k0 < Km; k0 += G) {
+    const int g = Km - k0 < G ? Km - k0 : G;
+    unsigned ab[G];
+    int q[G];
+    float cv[G], sv[G];
+    size_t t0[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {  // a short group repeats its first pair: the same values written twice
+      q[j] = threadIdx.x + (j < g ? k0 + j : k0) * blockDim.x;
+      ab[j] = __ldg(tb.ab + (size_t)c * tb.P + q[j]);
+      t0[j] = (size_t)c * rows * tb.P + q[j];
+      cv[j] = __ldg(tb.C + t0[j]);
+      sv[j] = __ldg(tb.S + t0[j]);
+    }
+    for (int i = 0; i < nrows; ++i) {
+      const int tau = smoqy::wrap_row(tau0 + i, tb.Ltau);
+      if (tb.tau_tabs) {
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          cv[j] = __ldg(tb.C + t0[j] + (size_t)tau * tb.P);
+          sv[j] = __ldg(tb.S + t0[j] + (size_t)tau * tb.P);
+        }
+      }
+      f2* u = U + (size_t)i * tb.ld;
+      f2* v = V + (size_t)i * tb.ld;
+      float* h = H + ((size_t)i * tb.n_colors + c) * tb.P;
+      const float* E = tb.expV + (size_t)tau * tb.ld;
+      f2 ua[G], ub[G], va[G], vb[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int a = ab[j] & 0xffffu, b = ab[j] >> 16;
+        ua[j] = u[a];
+        ub[j] = u[b];
+        va[j] = v[a];
+        vb[j] = v[b];
+        if (kScale) {
+          const float ea = __ldg(E + a), eb = __ldg(E + b);
+          ua[j] *= ea;
+          ub[j] *= eb;
+          va[j] = {va[j].x / ea, va[j].y / ea};
+          vb[j] = {vb[j].x / eb, vb[j].y / eb};
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (j >= g) break;
+        const int a = ab[j] & 0xffffu, b = ab[j] >> 16;
+        const float hv = a == b ? 0.f
+                                : ub[j].x * va[j].x + ub[j].y * va[j].y + ua[j].x * vb[j].x + ua[j].y * vb[j].y;
+        h[q[j]] = kAdd ? h[q[j]] + hv : hv;
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int a = ab[j] & 0xffffu, b = ab[j] >> 16;
+        const float cs = cv[j], sn = sv[j];
+        u[a] = madd(cs, ua[j], sn * ub[j]);
+        u[b] = madd(cs, ub[j], sn * ua[j]);
+        v[a] = madd(cs, va[j], (-sn) * vb[j]);
+        v[b] = madd(cs, vb[j], (-sn) * va[j]);
+      }
+    }
+  }
+}
+
 // The block's reads of x and Lam: from the rows staged in shared memory
 // (kStaged: x_{l0-2} .. x_{l0+nr-1} of both channels and Lam_{l0-1} ..
 // Lam_{l0+nr}, by cp.async) or from device memory. Row i of either is
@@ -146,9 +243,10 @@ struct BlockRows {
 // One CTA a tau block: walker blockIdx.x / nblk, rows l0 .. l0+nr-1 with
 // l0 = (blockIdx.x % nblk) * tau_rows. tb.expV holds every walker's (Ltau, ld)
 // rows one after the other.
-template <int K, bool kTimed, bool kStaged>
+template <int K, bool kTimed, bool kStaged, bool kSSH>
 __global__ void __launch_bounds__(kMaxThreads)
 force_kernel(const ForceArgs a, PairTabs<float> tb, unsigned long long* stamps) {
+  static_assert(!kSSH || K == 0, "the SSH form is the memory form");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ unsigned long long st_sh[kTimed ? kMaxStamps : 1];
   Stamps<kTimed> st;
@@ -160,6 +258,8 @@ force_kernel(const ForceArgs a, PairTabs<float> tb, unsigned long long* stamps) 
   const int nr = min(a.tau_rows, L - l0);
   const size_t plane = (size_t)L * N;
   tb.expV += (size_t)walker * L * ld;
+  float* H = nullptr;  // the SSH form: the block's rows of the hop plane
+  if constexpr (kSSH) H = a.H + ((size_t)walker * L + l0) * nc * tb.P;
   const float* x0 = a.x + 2 * walker * plane;  // channel 1 one plane on
   const float* lam = a.Lam + walker * plane;
   f2* Wb = reinterpret_cast<f2*>(smem_raw);  // nr + 1 rows: lam_psi, w, sw, CB^{-1} sw
@@ -210,8 +310,10 @@ force_kernel(const ForceArgs a, PairTabs<float> tb, unsigned long long* stamps) 
 
   // Ub = CB^T A_l and Wb[1..] = CB^{-1} sw_l: the colors reversed, the inverse
   // with the sinh negated, in the same stages
+  // (the SSH form: each color's hop products first, the reverse walk)
   for (int c = nc - 1; c >= 0; --c) {
-    half_stage<K>(tb, r, c, Ub, Wb + ld, nr, l0);
+    if constexpr (kSSH) ssh_stage<false, false>(tb, c, Ub, Wb + ld, H, nr, l0);
+    else half_stage<K>(tb, r, c, Ub, Wb + ld, nr, l0);
     __syncthreads();
     st.mark();
   }
@@ -223,6 +325,18 @@ force_kernel(const ForceArgs a, PairTabs<float> tb, unsigned long long* stamps) 
     for (int n = threadIdx.x; n < N; n += blockDim.x) P1[(size_t)i * N + n] = u[n].x * v[n].x + u[n].y * v[n].y;
   }
   float* P2 = a.P2 + walker * plane + (size_t)l0 * N;
+  if constexpr (kSSH) {
+    // the forward walk: Ub = B_l A_l as below, Wb[1..] carried through
+    // expV^{-1} and the inverse colors, each color's hop products added
+    __syncthreads();
+    st.mark();
+    for (int c = 0; c < nc; ++c) {
+      if (c == 0) ssh_stage<true, true>(tb, c, Ub, Wb + ld, H, nr, l0);
+      else ssh_stage<true, false>(tb, c, Ub, Wb + ld, H, nr, l0);
+      __syncthreads();
+      st.mark();
+    }
+  }
   if (!a.want_p2) {
     for (int i = 0; i < nr; ++i)
       for (int n = threadIdx.x; n < N; n += blockDim.x) P2[(size_t)i * N + n] = 0.f;
@@ -230,19 +344,21 @@ force_kernel(const ForceArgs a, PairTabs<float> tb, unsigned long long* stamps) 
     st.finish(stamps);
     return;
   }
-  __syncthreads();
-  st.mark();
+  if constexpr (!kSSH) {
+    __syncthreads();
+    st.mark();
 
-  // Ub = B_l A_l = CB (expV_l (CB^T A_l)): expV before color 0, the colors forward
-  if (nc == 0) {
-    scale_rows(tb, Ub, nr, l0);
-    __syncthreads();
-    st.mark();
-  }
-  for (int c = 0; c < nc; ++c) {
-    color_stage<float, K, f2, false>(tb, r, c, c == 0 ? kBefore : kNone, Ub, nr, l0);
-    __syncthreads();
-    st.mark();
+    // Ub = B_l A_l = CB (expV_l (CB^T A_l)): expV before color 0, the colors forward
+    if (nc == 0) {
+      scale_rows(tb, Ub, nr, l0);
+      __syncthreads();
+      st.mark();
+    }
+    for (int c = 0; c < nc; ++c) {
+      color_stage<float, K, f2, false>(tb, r, c, c == 0 ? kBefore : kNone, Ub, nr, l0);
+      __syncthreads();
+      st.mark();
+    }
   }
 
   // P2_l = sum_ch (A_{l-1} + sgnL_{l-1} B_l A_l) x_{l-1} / Lam_l, l = l0 + i:
@@ -271,21 +387,22 @@ size_t smem_bytes(int N, int tau_rows, bool staged) {
 }
 
 template <bool kTimed, bool kStaged>
-const void* kernel_for(int K) {
+const void* kernel_for(int K, bool ssh) {
+  if (ssh) return K == 0 ? (const void*)force_kernel<0, kTimed, kStaged, true> : nullptr;
   switch (K) {
-    case 0: return (const void*)force_kernel<0, kTimed, kStaged>;
-    case 1: return (const void*)force_kernel<1, kTimed, kStaged>;
-    case 2: return (const void*)force_kernel<2, kTimed, kStaged>;
-    case 3: return (const void*)force_kernel<3, kTimed, kStaged>;
-    case 4: return (const void*)force_kernel<4, kTimed, kStaged>;
-    case 5: return (const void*)force_kernel<5, kTimed, kStaged>;
+    case 0: return (const void*)force_kernel<0, kTimed, kStaged, false>;
+    case 1: return (const void*)force_kernel<1, kTimed, kStaged, false>;
+    case 2: return (const void*)force_kernel<2, kTimed, kStaged, false>;
+    case 3: return (const void*)force_kernel<3, kTimed, kStaged, false>;
+    case 4: return (const void*)force_kernel<4, kTimed, kStaged, false>;
+    case 5: return (const void*)force_kernel<5, kTimed, kStaged, false>;
     default: return nullptr;
   }
 }
 
-const void* kernel_for(int K, bool timed, bool staged) {
-  if (timed) return staged ? kernel_for<true, true>(K) : kernel_for<true, false>(K);
-  return staged ? kernel_for<false, true>(K) : kernel_for<false, false>(K);
+const void* kernel_for(int K, bool timed, bool staged, bool ssh) {
+  if (timed) return staged ? kernel_for<true, true>(K, ssh) : kernel_for<true, false>(K, ssh);
+  return staged ? kernel_for<false, true>(K, ssh) : kernel_for<false, false>(K, ssh);
 }
 
 cudaError_t allow_smem(const void* fn, size_t smem) {
@@ -303,8 +420,8 @@ extern "C" int smoqy_force_smem_bytes(int N, int tau_rows, int staged) {
 
 // CTAs of K4 resident on the card at once for a launch of this form (the
 // occupancy API times the SM count); negative: a CUDA error.
-extern "C" int smoqy_force_resident(int K, int staged, int threads, int smem) {
-  const void* fn = kernel_for(K, false, staged != 0);
+extern "C" int smoqy_force_resident(int K, int staged, int ssh, int threads, int smem) {
+  const void* fn = kernel_for(K, false, staged != 0, ssh != 0);
   if (fn == nullptr) return -(int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem(fn, smem);
   int per_sm = 0, dev = 0, sms = 0;
@@ -318,17 +435,19 @@ extern "C" int smoqy_force_resident(int K, int staged, int threads, int smem) {
 // x: (W, 2, Ltau, N); Lam, P1, P2: (W, Ltau, N); ab, C, S: K1's pair tables
 // (pair sites, cosh, sinh: (n_colors, [rows,] P)); expV: (W, Ltau, ld) with 1
 // in the padding columns. K: pairs a thread a color of the register form, 0
-// the memory form; staged: x and Lam staged in shared memory. stamps: null,
-// or the timed instantiation's buffer.
-extern "C" int smoqy_force(const float* x, const float* Lam, float* P1, float* P2, const unsigned* ab,
+// the memory form; staged: x and Lam staged in shared memory; ssh: the SSH
+// form, H (W, Ltau, n_colors, P) its hop plane (the memory form, at least one
+// color). stamps: null, or the timed instantiation's buffer.
+extern "C" int smoqy_force(const float* x, const float* Lam, float* P1, float* P2, float* H, const unsigned* ab,
                            const float* C, const float* S, const float* expV, int n_walkers, int Ltau, int N,
-                           int n_colors, int P, int tau_tabs, int tau_rows, int threads, int K, int staged,
-                           int want_p2, void* stamps, void* stream) {
+                           int n_colors, int P, int tau_tabs, int tau_rows, int threads, int K,
+                           int staged, int want_p2, int ssh, void* stamps, void* stream) {
   if (n_walkers < 1 || tau_rows < 1 || tau_rows > Ltau || threads < 32 || threads > kMaxThreads || threads % 32 ||
       P < threads || P % threads || N >= 0xffff ||
-      (K > 0 && (tau_tabs || n_colors > kRegColors || K != P / threads)))
+      (K > 0 && (tau_tabs || n_colors > kRegColors || K != P / threads)) ||
+      (ssh && (K != 0 || n_colors < 1 || H == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const void* fn = kernel_for(K, stamps != nullptr, staged != 0);
+  const void* fn = kernel_for(K, stamps != nullptr, staged != 0, ssh != 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   PairTabs<float> tb;
   tb.ab = ab;
@@ -342,7 +461,7 @@ extern "C" int smoqy_force(const float* x, const float* Lam, float* P1, float* P
   tb.P = P;
   tb.tau_tabs = tau_tabs;
   tb.symmetric = 1;
-  ForceArgs a{x, Lam, P1, P2, tau_rows, (Ltau + tau_rows - 1) / tau_rows, want_p2};
+  ForceArgs a{x, Lam, P1, P2, H, tau_rows, (Ltau + tau_rows - 1) / tau_rows, want_p2};
   const size_t smem = smem_bytes(N, tau_rows, staged != 0);
   cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;

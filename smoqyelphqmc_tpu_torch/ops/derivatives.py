@@ -10,13 +10,13 @@ Holstein (potential-derivative) term is one pass.
 
 u, v carry a leading complex-channel axis (2, Ltau, N); with real couplings
 Re <u|A|v> is the channel sum of elementwise products. The force from the
-product planes of kernels K3 / K4 (`holstein_force_from_planes`) takes a
-leading walker axis."""
+product planes of kernels K3 / K4 (`holstein_force_from_planes`) and from
+K4's hop plane (`ssh_force_from_hops`) takes a leading walker axis."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +24,7 @@ import torch
 from ..models.electron_phonon import ElectronPhononParameters
 from .checkerboard import CheckerboardStructure
 from .fermion_det import FermionDetMatrix, boundary_sign
+from .mtm import hop_slots
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,17 +48,43 @@ class SSHColorGroup:
 class ForcePlan:
     """Static grouping of the SSH couplings by checkerboard color (one group
     a color, empty without SSH couplings) and the finite-mass mask of the
-    Holstein couplings."""
+    Holstein couplings; for K4's hop plane (`ssh_force_from_hops`) each SSH
+    coupling's slot there and its two phonons, and for each phonon the
+    couplings it takes a term from with their signed finite-mass masks
+    (-finite_i where it is p_i, +finite_f where it is p_f; weight 0 pads a
+    row), summed in a fixed order."""
 
     hol_finite: np.ndarray  # (n_holstein,) float64
     ssh_groups: Tuple[SSHColorGroup, ...] = ()
+    ssh_slot: Optional[torch.Tensor] = None  # (n_ssh,) long
+    ssh_phonon: Optional[torch.Tensor] = None  # (2 n_ssh,) long: p_i, then p_f
+    ssh_gather: Optional[torch.Tensor] = None  # (n_phonon, K) long: coupling indices
+    ssh_weight: Optional[torch.Tensor] = None  # (n_phonon, K) float64
 
 
 def build_force_plan(elph: ElectronPhononParameters, structure: CheckerboardStructure) -> ForcePlan:
     frozen = elph.frozen_mask
     hol_finite = (~frozen[elph.hol_to_phonon]).astype(np.float64) if elph.n_holstein else np.zeros(0)
     groups = []
+    hop_plane = {}
     if elph.n_ssh:
+        p_i, p_f = elph.ssh_to_phonon
+        phonon = np.concatenate([p_i, p_f]).astype(np.int64)
+        sign = np.concatenate([-(~frozen[p_i]).astype(np.float64), (~frozen[p_f]).astype(np.float64)])
+        # row p of gather / weight: the couplings whose p_i or p_f is p, with their signs (0 pads)
+        counts = np.bincount(phonon, minlength=elph.n_phonon)
+        order = np.argsort(phonon, kind="stable")
+        col = np.arange(phonon.size) - np.repeat(np.cumsum(counts) - counts, counts)
+        gather = np.zeros((elph.n_phonon, counts.max()), dtype=np.int64)
+        weight = np.zeros(gather.shape)
+        gather[phonon[order], col] = order % elph.n_ssh
+        weight[phonon[order], col] = sign[order]
+        hop_plane = dict(
+            ssh_slot=torch.as_tensor(hop_slots(structure)[elph.ssh_to_hop], device=elph.device),
+            ssh_phonon=torch.as_tensor(phonon, device=elph.device),
+            ssh_gather=torch.as_tensor(gather, device=elph.device),
+            ssh_weight=torch.as_tensor(weight, device=elph.device),
+        )
         color_of_hop = np.zeros(structure.n_hops, dtype=np.int64)
         for c, (start, stop) in enumerate(structure.color_slices):
             color_of_hop[structure.perm[start:stop]] = c
@@ -77,7 +104,7 @@ def build_force_plan(elph: ElectronPhononParameters, structure: CheckerboardStru
                 finite_i=torch.as_tensor((~frozen[p_i]).astype(np.float64), device=dev),
                 finite_f=torch.as_tensor((~frozen[p_f]).astype(np.float64), device=dev),
             ))
-    return ForcePlan(hol_finite=hol_finite, ssh_groups=tuple(groups))
+    return ForcePlan(hol_finite=hol_finite, ssh_groups=tuple(groups), **hop_plane)
 
 
 def _add_ssh_color_force(
@@ -228,6 +255,33 @@ def add_M_derivative_force(
             vp = vp / fdm.exp_nV
             force, _, _ = walk(force, up, vp, reversed(range(n_colors)), dtau)
     return force
+
+
+def ssh_force_from_hops(
+    force: torch.Tensor,
+    H: torch.Tensor,
+    elph: ElectronPhononParameters,
+    x: torch.Tensor,
+    plan: ForcePlan,
+) -> torch.Tensor:
+    """force + the SSH couplings' dS_f/dx from kernel K4's hop plane H
+    (..., Ltau, n_colors, P), every coupling at once: H holds each hop's
+    products sum_ch (u'_j v'_i + u'_i v'_j) over both color walks of
+    `add_M_derivative_force` (u = A psi, v = Lambda psi, both walks at
+    dtau / 2), so the coupling's term is 2 (dtau / 2) g(dx) H[slot] with g the
+    coupling polynomial's derivative at dx = x_f - x_i, taken from p_i and
+    given to p_f (frozen phonons take none). Each phonon sums its terms in
+    the plan's order, not by an atomic scatter, so the force is the same
+    bits on every run. force and x are (..., n_phonon, Ltau)."""
+    n = elph.n_ssh
+    if n == 0:
+        return force
+    xs = x[..., plan.ssh_phonon, :]
+    dx = xs[..., n:, :] - xs[..., :n, :]
+    a1, a2, a3, a4 = (a[:, None] for a in (elph.ssh_alpha, elph.ssh_alpha2, elph.ssh_alpha3, elph.ssh_alpha4))
+    g = a1 + dx * (2.0 * a2 + dx * (3.0 * a3 + dx * (4.0 * a4)))
+    val = elph.dtau * g * H.flatten(-2)[..., plan.ssh_slot].transpose(-1, -2)
+    return force + torch.sum(val[..., plan.ssh_gather, :] * plan.ssh_weight.to(val.dtype)[:, :, None], dim=-2)
 
 
 def holstein_force_from_planes(

@@ -97,9 +97,8 @@ def pair_B_plain(fdm, u: torch.Tensor, tau: int, transpose: bool) -> torch.Tenso
     of the symmetric B's first sweep, after the asymmetric B's last color and
     before the asymmetric B^T's first. The plain model of the kernel's stage
     order, for tests."""
-    ab, C, S, _ = pair_tables(fdm)
-    abl = ab.to(torch.int64) & 0xFFFFFFFF
-    a_all, b_all = abl & 0xFFFF, abl >> 16
+    _, C, S, _ = pair_tables(fdm)
+    a_all, b_all = pair_sites(fdm.structure, C.device, C.element_size())
     row = tau if C.shape[1] > 1 else 0
     N, nc = fdm.n_sites, C.shape[0]
     E = torch.cat([fdm.exp_nV[tau], torch.ones(1, dtype=u.dtype, device=u.device)])
@@ -208,6 +207,29 @@ def pair_index(structure, device, es: int):
            torch.as_tensor(gather, device=device))
     _PAIR_INDEX[key] = (structure, out)
     return out
+
+
+def pair_sites(structure, device, es: int):
+    """`pair_index`'s pairs as (first sites, second sites), each a long
+    (n_colors, P) tensor; padding slots hold the spare site N on both
+    sides."""
+    ab = pair_index(structure, device, es)[0].to(torch.int64) & 0xFFFFFFFF
+    return ab & 0xFFFF, ab >> 16
+
+
+def hop_slots(structure):
+    """The slot c * P + q of each hop (n_hops,) in K4's hop plane (..., Ltau,
+    n_colors, P) flattened over its last two axes: the pair (a, b) of color c
+    whose sites the hop joins (`structure.site_hop`)."""
+    a, b = (t.numpy() for t in pair_sites(structure, "cpu", 8))
+    nc, P = a.shape
+    slots = np.full(structure.n_hops, -1, dtype=np.int64)
+    for c in range(nc):
+        q = np.nonzero(a[c] != b[c])[0]
+        slots[structure.site_hop[c, a[c, q]]] = c * P + q
+    if (slots < 0).any():
+        raise ValueError("hop_slots: a hop lies in no color's pairs")
+    return slots
 
 
 def pair_tables(fdm):

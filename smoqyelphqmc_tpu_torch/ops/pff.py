@@ -8,8 +8,9 @@ package's exact draws.
 
 The f32 trajectory force has three routes, all the same function: 'plain'
 (K2 solve, then mul_M / checkerboard / mul_Mt products), 'k4' (K2 solve, then
-kernel K4 for the product planes) and 'k3' (kernel K3: solve and planes in one
-launch, with a leading walker axis allowed). The caller picks the route
+kernel K4 for the product planes, and with SSH couplings its hop plane) and
+'k3' (kernel K3: solve and planes in one launch, with a leading walker axis
+allowed; Holstein couplings only). The caller picks the route
 (`updates.hmc.force_route`).
 """
 
@@ -22,7 +23,7 @@ import torch
 
 from ..models.electron_phonon import ElectronPhononParameters
 from .cg import CGStats
-from .derivatives import ForcePlan, add_M_derivative_force, holstein_force_from_planes
+from .derivatives import ForcePlan, add_M_derivative_force, holstein_force_from_planes, ssh_force_from_hops
 from .fermion_det import FermionDetMatrix, solve_MtM
 from .force import force_planes
 from .lambda_shift import (
@@ -107,12 +108,13 @@ def fermionic_action_and_force(
     route='k3' runs the solve and the force planes as kernel K3 (Phi, x and
     the fermion matrix may then carry a leading walker axis, and the stats
     are per walker) and route='k4' runs the K2 solve and then kernel K4 for
-    the planes (the JAX package's ops/pff.py:157-227); both give Sf as
-    rhs . psi_raw. The planes are the Holstein force: the caller takes those
-    routes only for an f32, symmetric, real-hopping evaluation without SSH
-    couplings, K3 with the spectral preconditioner (`updates.hmc.force_route`).
-    route='plain' runs the derivative chain, on channel pairs for complex
-    hoppings. Lambda is built once an evaluation."""
+    the planes (the JAX package's ops/pff.py:157-227), and with SSH couplings
+    K4's SSH form for the hop plane too; both give Sf as rhs . psi_raw. The
+    planes are the Holstein force and the hop plane the SSH force: the caller
+    takes those routes only for an f32, symmetric, real-hopping evaluation,
+    K3 without SSH couplings and with the spectral preconditioner
+    (`updates.hmc.force_route`). route='plain' runs the derivative chain, on
+    channel pairs for complex hoppings. Lambda is built once an evaluation."""
     if solve_dtype != "float64":
         dt = {"float32": torch.float32}[solve_dtype]
         elph = elph.to_dtype(dt)
@@ -125,17 +127,22 @@ def fermionic_action_and_force(
     Lam = build_lambda(elph, x, fdm.n_sites)
     if route != "plain":
         want_p2 = bool(np.any(elph.hol_ph_sym))
+        hops = elph.n_ssh > 0
         rhs = ldiv_lambda_T(Lam.unsqueeze(-3), Phi)
         if route == "k3":
+            if hops:
+                raise ValueError("route 'k3': kernel K3 has no SSH form")
             psi_raw, P1, P2, stats = solve_force(fdm, precond, rhs, Lam, x0=warm_start, tol=tol, maxiter=maxiter,
                                                  want_p2=want_p2)
         else:
             psi_raw, stats = solve_MtM(fdm, rhs, precond=precond, tol=tol, maxiter=maxiter, mixed=mixed,
                                        x0=warm_start)
-            P1, P2 = force_planes(fdm, Lam, psi_raw, want_p2)
+            P1, P2, *H = force_planes(fdm, Lam, psi_raw, want_p2, hops)
         # Sf = Re(Phi^dag psi) = rhs . psi_raw (Lambda is real diagonal)
         Sf = torch.sum(rhs * psi_raw, dim=(-3, -2, -1))
         force = holstein_force_from_planes(P1, P2, elph, x, Lam, plan)
+        if hops:
+            force = ssh_force_from_hops(force, H[0], elph, x, plan)
         return ForceResult(Sf=Sf, force=force.to(torch.float64), psi_raw=psi_raw, stats=stats)
     res = fermionic_action(Phi, elph, fdm, x, precond=precond, tol=tol, maxiter=maxiter, mixed=mixed,
                            warm_start=warm_start, Lam=Lam)

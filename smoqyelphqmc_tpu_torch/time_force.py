@@ -2,6 +2,7 @@
 
     python smoqyelphqmc_tpu_torch/time_force.py [--reps 200] [--walkers 1 8]
         [--package-root DIR] [--label NAME] [--tau-rows T ...] [--sweeps n]
+        [--ssh]
 
 Builds the headline model (Holstein honeycomb L=12, beta=12, dtau=0.05,
 alpha=0.6: N=288, Ltau=240; the W=1 trajectory's shape) from a seed in
@@ -24,6 +25,18 @@ T (`k4_tau_rows`), where the package takes it. `--sweeps n` runs n sweeps
 of the W=1 path (`run_updates` with the headline's SimulationConfig of
 chip_smoke.py, its trajectory forces through K2 + K4) and prints s/sweep, CG
 iterations per solve, acceptance, Delta H and K4's launches (`sweeps`).
+
+`--ssh` times the SSH trajectory force after its solve at the optical-SSH
+cell's shape (honeycomb L=12, beta=4, dtau=0.05, alpha=0.5: psi_raw (2, 80,
+288), hop tables on every tau row; the field jittered from the initial one,
+seed 15), one walker: the launch of K4's SSH form alone (`ms`, a CUDA graph
+of launches, and the Holstein form's on the same operands in the memory
+form), and route 'k4' after the solve (K4's tables, the launch, the
+contraction of `derivatives.ssh_force_from_hops`) against route 'plain'
+after it (mul_M, the two color walks of `add_M_derivative_force`, mul_Mt and
+the Lambda term): wall ms a call with the device synchronised after
+`--reps` calls, the device kernels a call (torch.profiler), and the largest
+difference of the two forces over the largest force (`ssh_k4`).
 
 `--package-root DIR` imports smoqyelphqmc_tpu_torch from DIR (an unpacked
 earlier commit), so that two versions are timed by one script on one card,
@@ -65,6 +78,7 @@ def main() -> None:
     ap.add_argument("--tau-rows", type=int, nargs="*", default=[],
                     help="also time each launch with its tau blocks forced to these row counts")
     ap.add_argument("--sweeps", type=int, default=0, help="also run this many W=1 sweeps")
+    ap.add_argument("--ssh", action="store_true", help="also time the SSH force route after its solve")
     args = ap.parse_args()
     sys.path.insert(0, args.package_root)
 
@@ -207,6 +221,9 @@ def main() -> None:
                     max_abs_err=max(float((a - b).abs().max()) for a, b in zip(xt, ref)),
                     launch=force.launch_shape(fdm32, W, tau_rows=T))
 
+    if args.ssh:
+        time_ssh(say, graph_ms, args.reps)
+
     if args.sweeps:
         from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
 
@@ -220,6 +237,86 @@ def main() -> None:
                             hmc=md["hmc_acceptance_rate"]),
             k4_launches=force.FORCE.launches - launches, all_converged=md["all_converged"],
             delta_H=[float(d) for d in md["hmc_delta_H"]])
+
+
+def kernels_of(fn) -> int:
+    """Device kernels one call of fn launches (torch.profiler's trace)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.profiler.kineto_results.events()
+               if ev.device_type() != DeviceType.CPU and not ev.name().startswith(("Memcpy", "Memset")))
+
+
+def time_ssh(say, graph_ms, reps: int) -> None:
+    """The `--ssh` lines (module docstring)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononParameters
+    from smoqyelphqmc_tpu_torch.models.library import ossh_honeycomb_model
+    from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingParameters
+    from smoqyelphqmc_tpu_torch.ops import force
+    from smoqyelphqmc_tpu_torch.ops.derivatives import (add_M_derivative_force, holstein_force_from_planes,
+                                                         ssh_force_from_hops)
+    from smoqyelphqmc_tpu_torch.ops.lambda_shift import (add_lambda_derivative_force, build_lambda, ldiv_lambda,
+                                                         mul_lambda)
+    from smoqyelphqmc_tpu_torch.updates.context import initialize_qmc, make_fdm
+
+    dev = torch.device("cuda")
+    geo, tbm, em = ossh_honeycomb_model(12, 1.0, 0.5, 0.0)
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=dev)
+    elph = ElectronPhononParameters.from_model(4.0, 0.05, em, tbp, rng, device=dev)
+    ctx, state = initialize_qmc(tbp, elph, force_dtype="float32", use_preconditioner=False)
+    gen = torch.Generator().manual_seed(15)
+    x = state.x + 0.3 * torch.randn(state.x.shape, generator=gen, dtype=torch.float64).to(dev)
+    e32, x32 = ctx.elph.to_dtype(torch.float32), x.to(torch.float32)
+    Lam = build_lambda(e32, x32, ctx.n_sites)
+    psi_raw = torch.randn((2, ctx.Ltau, ctx.n_sites), generator=gen, dtype=torch.float32).to(dev)
+    want_p2 = bool(np.any(e32.hol_ph_sym))
+    fdm32 = make_fdm(ctx, x, dtype="float32")
+
+    def k4_route():  # a kick's fermion matrix is new: its K4 tables are made again
+        fdm32.__dict__.pop("_force_pairs", None)
+        P1, P2, H = force.force_planes(fdm32, Lam, psi_raw, want_p2, hops=True)
+        return ssh_force_from_hops(holstein_force_from_planes(P1, P2, e32, x32, Lam, ctx.plan), H, e32, x32, ctx.plan)
+
+    def plain_route():
+        psi = ldiv_lambda(Lam, psi_raw)
+        lam_psi = mul_lambda(Lam, psi)
+        A = fdm32.mul_M(lam_psi)
+        f = torch.zeros((e32.n_phonon, e32.Ltau), dtype=torch.float32, device=dev)
+        f = add_M_derivative_force(f, -2.0, A, lam_psi, fdm32, e32, x32, ctx.plan)
+        return add_lambda_derivative_force(f, -2.0, fdm32.mul_Mt(A), psi, Lam, e32, x32)
+
+    def wall_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    f_k4, f_plain = k4_route(), plain_route()
+    torch.cuda.synchronize()
+    rel = float((f_k4 - f_plain).abs().max()) / float(f_plain.abs().max())
+    launch = lambda: force.force_planes_cuda(fdm32, Lam, psi_raw, want_p2, hops=True)  # noqa: E731
+    row = dict(kind="ssh_k4", psi=list(psi_raw.shape), n_colors=fdm32.cb.n_colors, want_p2=want_p2,
+               launch=force.launch_shape(fdm32, 1, hops=True), ssh_form_ms=graph_ms(launch, reps),
+               holstein_form_ms=graph_ms(lambda: force.force_planes_cuda(fdm32, Lam, psi_raw, want_p2), reps),
+               k4_route_ms=wall_ms(k4_route), plain_route_ms=wall_ms(plain_route),
+               k4_route_kernels=kernels_of(k4_route), plain_route_kernels=kernels_of(plain_route),
+               force_max_rel_diff=rel)
+    say(**row)
 
 
 if __name__ == "__main__":

@@ -11,9 +11,10 @@ makes them from a torch.Generator.
 `hmc_update` runs one chain, or W chains with a shared preconditioner, each
 with its own draws (and, when the context carries one a walker, its own mu);
 with `fused_step_force` (set by the walker sweep at W >= 2) every force
-solve of all W walkers goes through one launch of kernel K3 per kick;
-otherwise `force_route` takes the K2 solve and kernel K4 where the input
-allows it on the card, and the eager derivative chain elsewhere. The
+solve of all W walkers goes through one launch of kernel K3 per kick (no
+SSH couplings); otherwise `force_route` takes the K2 solve and kernel K4
+(its SSH form with SSH couplings) where the input allows it on the card,
+walker by walker in a batch, and the eager derivative chain elsewhere. The
 per-step convergence flags and iteration counts stay on the device and are
 read once per trajectory. Options: `recenter`, a callable on one walker's
 tau-space field applied after every drift (the drift then transforms in
@@ -220,22 +221,24 @@ def _linear_warm_start(hist, c: float) -> torch.Tensor:
 
 
 def planes_apply(ctx: QMCContext) -> bool:
-    """Whether the force planes of kernels K3 / K4 are the trajectory force:
-    f32 forces, the symmetric factorization, real hoppings and no SSH
-    couplings (the planes are the Holstein force; ops/pff.py's gate)."""
-    return ctx.force_dtype == "float32" and ctx.symmetric and not ctx.complex_hops and ctx.elph.n_ssh == 0
+    """Whether the force planes of kernel K4 (and its SSH form's hop plane)
+    are the trajectory force: f32 forces, the symmetric factorization and
+    real hoppings (ops/pff.py's gate)."""
+    return ctx.force_dtype == "float32" and ctx.symmetric and not ctx.complex_hops
 
 
 def k3_trajectory_applies(ctx: QMCContext, precond) -> bool:
     """Whether kernel K3 can run the trajectory force solves: where the
-    planes apply, with the spectral preconditioner."""
-    return planes_apply(ctx) and isinstance(precond, SpectralPreconditioner)
+    planes apply, without SSH couplings (K3's epilogue has no SSH form), with
+    the spectral preconditioner."""
+    return planes_apply(ctx) and ctx.elph.n_ssh == 0 and isinstance(precond, SpectralPreconditioner)
 
 
 def force_route(ctx: QMCContext, precond, params: HMCParams, device: torch.device) -> str:
     """The route of a trajectory's force evaluations on `device`: 'k3' where
     params.fused_step_force asks for K3 and it applies; else 'k4' (the K2
-    solve, then K4's planes) where the planes apply and params.fused_force
+    solve, then K4's planes, and its SSH form's hop plane with SSH
+    couplings) where the planes apply and params.fused_force
     is True, or is None on a CUDA device whose K4 takes the lattice
     (`ops.force.fits`); else 'plain' (the solve, then the eager derivative
     chain). On the CPU, with fused_force None, the plain chain: the planes

@@ -2,10 +2,11 @@
 and its counter (`tracing.FORCE_ROUTES`), on the CPU.
 
 The route is decided by the input: K3 where the walker sweep asks for it and
-it applies; K2 + K4 on a CUDA device for f32 Holstein forces with the
-symmetric factorization and real hoppings, where K4 takes the lattice; the
-eager derivative chain elsewhere (the CPU, SSH couplings, complex hoppings,
-f64 forces, the asymmetric factorization). `HMCParams.fused_force` True /
+it applies (no SSH couplings); K2 + K4 on a CUDA device for f32 forces with
+the symmetric factorization and real hoppings, where K4 takes the lattice
+(its SSH form with SSH couplings); the eager derivative chain elsewhere (the
+CPU, complex hoppings or SSH constants, f64 forces, the asymmetric
+factorization). `HMCParams.fused_force` True /
 False forces the route where the planes apply. The contexts here are CPU tensors; the CUDA cases pass the device
 alone, which is the device part of the gate (tests/test_torch_gpu.py holds
 the route on the card). No jax import.
@@ -20,6 +21,7 @@ from smoqyelphqmc_tpu_torch import driver, tracing
 from smoqyelphqmc_tpu_torch.driver import SimulationConfig, _expand, _init_chain, run_updates, simulate
 from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
 from smoqyelphqmc_tpu_torch.models.library import (
+    chain_geometry,
     complex_chain_model,
     holstein_honeycomb_model,
     holstein_honeycomb_spec,
@@ -32,10 +34,24 @@ from smoqyelphqmc_tpu_torch.updates.hmc import HMCParams, force_route
 
 CPU, CUDA = torch.device("cpu"), torch.device("cuda")
 
+def _complex_ssh_chain():
+    """The chain with a complex SSH constant on real hoppings."""
+    from smoqyelphqmc_tpu_torch.models.electron_phonon import ElectronPhononModel, PhononMode, SSHCoupling
+    from smoqyelphqmc_tpu_torch.models.tight_binding import TightBindingModel
+
+    geo, bond = chain_geometry(8)
+    tbm = TightBindingModel(geo, [bond], [1.0], [0.0], mu=0.1)
+    em = ElectronPhononModel(geo, tbm)
+    p = em.add_phonon_mode(PhononMode([0.0], 1.0))
+    em.add_ssh_coupling(SSHCoupling(phonon_ids=(p, p), bond=bond, alpha_mean=0.4 + 0.25j))
+    return geo, tbm, em
+
+
 MODELS = {
     "holstein": lambda: holstein_honeycomb_model(2, 1.0, 0.5, 0.0),
     "ssh": lambda: ossh_chain_model(8, 1.0, 0.5, 0.0),
     "complex": lambda: complex_chain_model(8),
+    "complex-ssh": _complex_ssh_chain,
 }
 
 
@@ -62,8 +78,10 @@ ROUTES = [
     pytest.param("holstein", {"preconditioner": "kpm"}, CUDA, {"fused_step_force": True}, "k4", id="cuda-kpm-no-k3"),
     pytest.param("holstein", {}, CUDA, {"fused_force": False}, "plain", id="cuda-forced-plain"),
     pytest.param("holstein", {}, CPU, {"fused_force": True}, "k4", id="cpu-forced-k4"),
-    pytest.param("ssh", {}, CUDA, {}, "plain", id="cuda-ssh"),
-    pytest.param("ssh", {}, CUDA, {"fused_force": True}, "plain", id="cuda-ssh-forced"),
+    pytest.param("ssh", {}, CUDA, {}, "k4", id="cuda-ssh"),
+    pytest.param("ssh", {}, CUDA, {"fused_force": True}, "k4", id="cuda-ssh-forced"),
+    pytest.param("complex-ssh", {}, CUDA, {}, "plain", id="cuda-complex-ssh"),
+    pytest.param("ssh", {"force_dtype": "float64"}, CUDA, {}, "plain", id="cuda-ssh-f64-forces"),
     pytest.param("complex", {}, CUDA, {}, "plain", id="cuda-complex"),
     pytest.param("holstein", {"force_dtype": "float64"}, CUDA, {}, "plain", id="cuda-f64-forces"),
     pytest.param("holstein", {"symmetric": False}, CUDA, {}, "plain", id="cuda-asymmetric"),
@@ -96,7 +114,7 @@ def test_force_route_takes_the_shape(monkeypatch):
     pytest.param({"hmc_integrator": "omelyan"}, 1, "plain", id="w1-omelyan"),
     pytest.param({}, 2, "k3", id="w2-shared"),
     pytest.param({"shared_precond": False, "k4": True}, 2, "k4", id="w2-perwalker-k4"),
-    pytest.param({"ssh": True, "k4": True}, 2, "plain", id="w2-ssh"),
+    pytest.param({"ssh": True, "k4": True}, 2, "k4", id="w2-ssh"),
 ])
 def test_force_routes_count_each_kick(kw, n_walkers, route, monkeypatch):
     """run_updates' force_routes: one evaluation a walker a kick on the

@@ -578,6 +578,86 @@ def test_force_kernel_large_n(cuda_device, L, want_p2):
         _close_planes(g, r)
 
 
+def _ssh_k4_problem(device, L=12, beta=4.0):
+    """K4's SSH operands at the optical-SSH cell's shape (honeycomb L=12,
+    beta 4, dtau 0.05: (2, 80, 288), hop tables on every tau row), f32, one
+    chain (a trajectory launches K4 a walker at a time); the field jittered
+    from the initial one, psi_raw from a seed."""
+    from smoqyelphqmc_tpu_torch.models.library import ossh_honeycomb_model
+    from smoqyelphqmc_tpu_torch.updates.context import initialize_qmc, make_fdm
+
+    geo, tbm, em = ossh_honeycomb_model(L, 1.0, 0.5, 0.0)
+    rng = np.random.default_rng(0)
+    tbp = TightBindingParameters.from_model(tbm, rng, device=device)
+    elph = ElectronPhononParameters.from_model(beta, 0.05, em, tbp, rng, device=device)
+    ctx, state = initialize_qmc(tbp, elph, force_dtype="float32", use_preconditioner=False)
+    gen = torch.Generator().manual_seed(11)
+    x = state.x + 0.3 * torch.randn(state.x.shape, generator=gen, dtype=torch.float64).to(device)
+    fdm32 = make_fdm(ctx, x, dtype="float32")
+    Lam = build_lambda(ctx.elph, x, ctx.n_sites).to(torch.float32)
+    psi = torch.randn(x.shape[:-2] + (2, ctx.Ltau, ctx.n_sites), generator=gen, dtype=torch.float32).to(device)
+    return fdm32, Lam, psi
+
+
+@pytest.mark.parametrize("want_p2", [True, False], ids=["p2", "no-p2"])
+@pytest.mark.parametrize("T", [None, 1, 3], ids=["T-path", "T-1", "T-3"])
+def test_force_kernel_ssh_form(cuda_device, T, want_p2):
+    """K4's SSH form at (2, 80, 288) with hop tables on every tau row against
+    its plain version: P1, P2 and the hop plane H; one launch a call, the
+    memory form, two launches the same bits."""
+    W = 1
+    fdm32, Lam, psi = _ssh_k4_problem(cuda_device)
+    launches = force.FORCE.launches
+    got = force.force_planes_cuda(fdm32, Lam, psi, want_p2, tau_rows=T, hops=True)
+    again = force.force_planes_cuda(fdm32, Lam, psi, want_p2, tau_rows=T, hops=True)
+    torch.cuda.synchronize()
+    assert force.FORCE.launches == launches + 2
+    ref = force.force_planes_plain(fdm32, Lam, psi, want_p2, hops=True)
+    assert got[2].shape == ref[2].shape == psi.shape[:-3] + (80, 3, force.launch_shape(fdm32, W, T, True)["P"])
+    for g, r in zip(got, ref):
+        _close_planes(g, r)
+    if not want_p2:
+        assert not got[1].any()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert force.launch_shape(fdm32, W, T, hops=True)["form"] == 0
+
+
+@pytest.mark.parametrize("want_p2", [True, False], ids=["p2", "no-p2"])
+def test_force_kernel_holstein_form_unchanged(cuda_device, want_p2):
+    """The Holstein instantiation's planes against the plain model of its
+    tau blocks (`force_blocked_plain` at the launch's T), and the SSH form
+    on the same Holstein operands (forced to the memory form) giving the
+    memory-form Holstein planes bit for bit, both walks' stages ridden by
+    the products."""
+    fdm32, Lam, psi = _k4_problem(cuda_device, 8, 1.0)
+    T = force.launch_shape(fdm32, 8)["tau_block"]
+    P1, P2 = force.force_planes_cuda(fdm32, Lam, psi, want_p2)
+    P1b, P2b, _ = force.force_blocked_plain(fdm32.to("cpu"), Lam.cpu(), psi.cpu(), want_p2, T)
+    _close_planes(P1.cpu(), P1b)
+    _close_planes(P2.cpu(), P2b)
+    mem = dataclasses.replace(fdm32, static_hops=False)
+    hol = force.force_planes_cuda(mem, Lam, psi, want_p2)
+    ssh = force.force_planes_cuda(mem, Lam, psi, want_p2, hops=True)
+    torch.cuda.synchronize()
+    assert torch.equal(hol[0], ssh[0]) and torch.equal(hol[1], ssh[1])
+    _close_planes(ssh[2], force.force_planes_plain(mem, Lam, psi, want_p2, hops=True)[2])
+
+
+@pytest.mark.parametrize("want_p2", [True, False], ids=["p2", "no-p2"])
+def test_force_kernel_ssh_form_timed(cuda_device, want_p2):
+    """The SSH form's timed instantiation gives the same bits and stamps every
+    phase (ops/force.py:phase_names with hops)."""
+    fdm32, Lam, psi = _ssh_k4_problem(cuda_device)
+    one = force.force_planes_cuda(fdm32, Lam, psi, want_p2, hops=True)
+    stamps = torch.zeros(force.stamp_slots(), dtype=torch.int64, device=cuda_device)
+    timed = force.force_planes_cuda(fdm32, Lam, psi, want_p2, stamps=stamps, hops=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(one, timed))
+    names = force.phase_names(fdm32.cb.n_colors, want_p2, hops=True)
+    us = force.phase_times(stamps, names)
+    assert us["kernel"] > 0 and list(us["cta0"]["phases"]) == names
+
+
 def test_run_updates_walkers_launch_k3(cuda_device):
     """A short W = 2 run goes through K3 (and K1, K2), never a plain version."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
@@ -618,15 +698,17 @@ def test_run_updates_default_route_launches_k4(cuda_device, n_walkers):
         assert c.plain_calls == 0, c.name
 
 
-@pytest.mark.parametrize("case", ["ssh", "complex", "f64-forces", "asymmetric"])
+@pytest.mark.parametrize("case", ["complex-ssh", "complex", "f64-forces", "asymmetric"])
 def test_run_updates_default_route_off_k4(cuda_device, case):
     """The default route on the card keeps the eager chain where K4's planes
-    are not the force: SSH couplings, complex hoppings, f64 forces and the
-    asymmetric factorization launch no K4 (and no K3 at W = 1)."""
+    are not the force: complex SSH constants, complex hoppings, f64 forces and
+    the asymmetric factorization launch no K4 (and no K3 at W = 1)."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
-    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model, ossh_honeycomb_model
+    from smoqyelphqmc_tpu_torch.models.library import complex_chain_model
 
-    model = {"ssh": lambda: ossh_honeycomb_model(3, 1.0, 0.5, 0.0), "complex": lambda: complex_chain_model(8)}
+    from test_torch_force_route import MODELS as ROUTE_MODELS
+
+    model = {"complex-ssh": ROUTE_MODELS["complex-ssh"], "complex": lambda: complex_chain_model(8)}
     geo, tbm, em = model.get(case, lambda: holstein_honeycomb_model(3, 1.0, 0.6, 0.0))()
     kw = {"f64-forces": {"force_dtype": "float64"}, "asymmetric": {"symmetric": False}}.get(case, {})
     force.FORCE.reset()
@@ -635,6 +717,33 @@ def test_run_updates_default_route_off_k4(cuda_device, case):
     assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
     assert force.FORCE.launches == 0 and pcg_force.PCG_FORCE.launches == 0
     assert force.FORCE.plain_calls == 0 and md["force_routes"] == {"k3": 0, "k4": 0, "plain": 2 * 8}
+
+
+@pytest.mark.parametrize("n_walkers", [1, 2])
+def test_run_updates_ssh_route_launches_k4(cuda_device, n_walkers):
+    """The optical-SSH honeycomb on the card: every trajectory force is the
+    K2 solve and one launch of K4's SSH form, a walker a kick, at W = 1 and
+    walker by walker in a shared W = 2 trajectory (no K3); no plain chain,
+    no plain version of a kernel; a second run from the same seed ends on
+    the same field bit for bit (the force's sum onto the phonons has a fixed
+    order, which a resumed run relies on)."""
+    from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
+    from smoqyelphqmc_tpu_torch.models.library import ossh_honeycomb_model
+
+    geo, tbm, em = ossh_honeycomb_model(3, 1.0, 0.5, 0.0)
+    counters = (mtm.MTM[torch.float32], mtm.MTM[torch.float64], pcg.PCG, pcg_force.PCG_FORCE, force.FORCE)
+    for c in counters:
+        c.reset()
+    cfg = SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2, n_walkers=n_walkers)
+    md = run_updates(tbm, em, cfg, 2, device=cuda_device)
+    assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
+    kicks = 2 * n_walkers * 8
+    assert force.FORCE.launches == kicks and pcg_force.PCG_FORCE.launches == 0
+    assert md["force_routes"] == {"k3": 0, "k4": kicks, "plain": 0}
+    for c in counters:
+        assert c.plain_calls == 0, c.name
+    again = run_updates(tbm, em, cfg, 2, device=cuda_device)
+    assert torch.equal(torch.as_tensor(md["x_final"]), torch.as_tensor(again["x_final"]))
 
 
 @pytest.fixture
@@ -1318,9 +1427,10 @@ def test_pcg_kernel_ssh_tables(cuda_device, L, beta, symmetric, warm):
 
 @pytest.mark.parametrize("n_walkers", [1, 2])
 def test_ssh_chain_gpu_matches_cpu(cuda_device, n_walkers):
-    """The optical-SSH chain's sweeps on the card (K1, K2; no K3 or K4) and
-    on the CPU: the same accept decisions, the fields to 1e-4 relative (f32
-    force solves at tol 1e-5 with sums in another order)."""
+    """The optical-SSH chain's sweeps on the card (K1, K2 and K4's SSH form,
+    once a kick a walker; no K3) and on the CPU (the plain chain): the same
+    accept decisions, the fields to 1e-4 relative (f32 force solves at tol
+    1e-5 with sums in another order)."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
     from smoqyelphqmc_tpu_torch.models.library import ossh_chain_model
 
@@ -1330,7 +1440,7 @@ def test_ssh_chain_gpu_matches_cpu(cuda_device, n_walkers):
     for c in counters:
         c.reset()
     gpu = run_updates(tbm, em, cfg, 2, device=cuda_device)
-    assert pcg_force.PCG_FORCE.launches == 0 and force.FORCE.launches == 0
+    assert pcg_force.PCG_FORCE.launches == 0 and force.FORCE.launches == 2 * n_walkers * 8
     for c in counters[:3]:
         assert c.launches > 0 and c.plain_calls == 0, c.name
     cpu = run_updates(tbm, em, cfg, 2, device="cpu")
@@ -1342,8 +1452,9 @@ def test_ssh_chain_gpu_matches_cpu(cuda_device, n_walkers):
 
 
 def test_fused_force_ssh_launches_no_k4(cuda_device, forced_k4):
-    """fused_force=True on an SSH model: the forces take the plain chain (K4
-    computes Holstein planes only), so K4 never launches; K1 and K2 do."""
+    """fused_force=True on an SSH model: the forces take K2 + K4's SSH form
+    (K4 once a kick, the name kept from when K4 had no SSH form), never the
+    plain chain or K3; K1 and K2 launch."""
     from smoqyelphqmc_tpu_torch.driver import SimulationConfig, run_updates
     from smoqyelphqmc_tpu_torch.models.library import ossh_honeycomb_model
 
@@ -1353,7 +1464,8 @@ def test_fused_force_ssh_launches_no_k4(cuda_device, forced_k4):
         c.reset()
     md = run_updates(tbm, em, SimulationConfig(beta=2.0, dtau=0.1, Nt=8, seed=2), 2, device=cuda_device)
     assert md["all_converged"] and np.isfinite(md["hmc_delta_H"]).all()
-    assert force.FORCE.launches == 0 and pcg_force.PCG_FORCE.launches == 0
+    assert force.FORCE.launches == 2 * 8 and pcg_force.PCG_FORCE.launches == 0
+    assert md["force_routes"] == {"k3": 0, "k4": 2 * 8, "plain": 0}
     for c in counters[:3]:
         assert c.launches > 0 and c.plain_calls == 0, c.name
 
