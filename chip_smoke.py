@@ -831,38 +831,30 @@ def phase_measured(results, card):
 
 class SweepSpy:
     """Records the accept flags of every sweep the driver runs, in the order
-    the updates ran (W = 1: `driver.sweep`; W >= 2: `driver.walker_sweep`,
-    one tuple a walker), each sweep's HMC Delta H (one a walker) and the
-    last sweep's fields (a CPU copy), by wrapping both while the block
+    the updates ran (`driver.walker_sweep`, at every W: one tuple a walker),
+    each sweep's HMC Delta H (a list, one a walker) and the last sweep's
+    fields (a CPU copy, (W, n_phonon, Ltau)), by wrapping it while the block
     runs."""
 
     def __enter__(self):
         from smoqyelphqmc_tpu_torch import driver
 
-        self.flags, self.dH, self.x, self._orig = [], [], None, (driver.sweep, driver.walker_sweep)
-        one, walkers = self._orig
+        self.flags, self.dH, self.x, self._orig = [], [], None, driver.walker_sweep
 
-        def spy_one(*args, **kw):
-            state, st = one(*args, **kw)
-            self.flags.append(tuple(bool(s.accepted) for s in st))
-            self.dH.append(st.hmc.delta_H)
-            self.x = state.x.cpu().clone()
-            return state, st
-
-        def spy_walkers(*args, **kw):
-            states, st = walkers(*args, **kw)
+        def spy(*args, **kw):
+            states, st = self._orig(*args, **kw)
             self.flags.append(tuple(tuple(bool(u.accepted) for u in ups) for ups in st))
             self.dH.append([h.delta_H for h in st.hmc])
             self.x = states.x.cpu().clone()
             return states, st
 
-        driver.sweep, driver.walker_sweep = spy_one, spy_walkers
+        driver.walker_sweep = spy
         return self
 
     def __exit__(self, *exc):
         from smoqyelphqmc_tpu_torch import driver
 
-        driver.sweep, driver.walker_sweep = self._orig
+        driver.walker_sweep = self._orig
 
 
 def phase_measured_small_reference(L=3, beta=2.0, h=HEADLINE, **kw):
@@ -1783,7 +1775,7 @@ def phase_ssh_measured(results, card, W=1):
                 ("mtm_f32", "mtm_f64", "pcg", "force"), only=True)
         wall = time.perf_counter() - t0
     check_bins(bins, cfg.N_bins, f"the measured SSH path (W={W})", W)
-    dH = [d for row in spy.dH for d in (row if isinstance(row, list) else [row])]
+    dH = [d for row in spy.dH for d in row]
     n_meas = md["n_measure_timed"]
     per_sweep = md["t_measure_s"] / n_meas
     ssh = {str(k): rounded([float(v) for v in bins[k]["local"]["ssh_energy"][0]], 5) for k in sorted(bins)}

@@ -28,16 +28,18 @@ the model summary, decides when to checkpoint and stop, and runs the final
 merge and statistics; each process yields and writes the bins of its own
 pIDs and checkpoints its block under its rank.
 
-At `cfg.n_walkers` = 1 every random number comes from one `torch.Generator`
-seeded with `cfg.seed`; at W >= 2 each walker has its own generator, seeded
-from `cfg.seed` and its index, the sweeps follow
-`parallel.walkers.walker_sweep` with the shared preconditioner refresh and
-its fallback controller, each walker is measured with its own estimator
-refresh and writes its own pID-tagged bin stream (pID = walker index). One
-sweep's draws, per generator, come in the order the sweep runs: reflection,
-swap, radial (with `use_radial_updates`), HMC, then the estimator's phases
-theta (measured sweeps, and thermalization sweeps when tuning mu). With
-every option off these are the draws of reflection + swap + HMC alone.
+The run's `cfg.n_walkers` = W chains are a walker batch, one chain a batch
+of one: every sweep runs `parallel.walkers.walker_sweep` and every measured
+sweep `walker_measure`, whatever W. At W = 1 every random number comes from
+one `torch.Generator` seeded with `cfg.seed` and each trajectory refreshes
+the chain's preconditioner at its start; at W >= 2 each walker has its own
+generator, seeded from `cfg.seed` and its index, the sweeps take the shared
+preconditioner refresh under its fallback controller, and each walker writes
+its own pID-tagged bin stream (pID = walker index). One sweep's draws, per
+generator, come in the order the sweep runs: reflection, swap, radial (with
+`use_radial_updates`), HMC, then the estimator's phases theta (measured
+sweeps, and thermalization sweeps when tuning mu). With every option off
+these are the draws of reflection + swap + HMC alone.
 
 Options: `use_radial_updates`; `hmc_integrator` 'omelyan'; `target_density`
 (mu tuning: during thermalization an estimator refresh and (n, N^2) after
@@ -78,8 +80,8 @@ from .io.simulation_info import (
     save_density_tuning_profile,
     save_simulation_info,
 )
-from .measure.container import MeasurementAccumulator, MeasurementSpec, make_measurements
-from .measure.greens_estimator import EstimatorUpdate, GreensEstimator, build_greens_estimator, update_greens_estimator
+from .measure.container import MeasurementAccumulator, MeasurementSpec
+from .measure.greens_estimator import EstimatorUpdate, GreensEstimator, build_greens_estimator
 from .measure.scalar import measure_n, measure_Nsqrd
 from .models.electron_phonon import ElectronPhononParameters
 from .models.tight_binding import TightBindingParameters
@@ -97,8 +99,7 @@ from .parallel.distributed import (
 from .parallel.walkers import (
     PrecondFallbackController,
     SweepStats,
-    WalkerDraws,
-    WalkerMeasurement,
+    WalkerStates,
     draw_shared,
     draw_walker,
     init_walker_states,
@@ -109,9 +110,8 @@ from .parallel.walkers import (
 )
 from .tracing import FORCE_ROUTES, force_routes_since, span
 from .tree import tree_map
-from .updates.context import QMCContext, QMCState, complex_hops, initialize_qmc, make_fdm, with_mu
-from .updates.global_updates import radial_update, reflection_update, swap_update
-from .updates.hmc import HMCParams, hmc_update
+from .updates.context import QMCContext, QMCState, complex_hops, initialize_qmc
+from .updates.hmc import HMCParams
 from .updates.mu_tuner import MuTunerState, init_mu_tuner, mu_tuner_update
 
 
@@ -221,23 +221,6 @@ def dt_law(dt: float, accepted: float, target: float, dt0: float) -> float:
     return min(max(dt * math.exp(0.08 * (accepted - target)), dt0 / 8.0), 8.0 * dt0)
 
 
-# ----------------------------------------------------------------------
-# One sweep at W = 1
-# ----------------------------------------------------------------------
-
-def sweep(ctx: QMCContext, state: QMCState, params: HMCParams, draws: WalkerDraws,
-          recenter=None) -> tuple[QMCState, SweepStats]:
-    """Reflection + swap [+ radial] + HMC, each with its draws."""
-    state, r = reflection_update(ctx, state, draws.reflection)
-    state, s = swap_update(ctx, state, draws.swap)
-    rad = None
-    if draws.radial is not None:
-        with span("radial", walker=0):
-            state, rad = radial_update(ctx, state, draws.radial)
-    state, h = hmc_update(ctx, state, params, draws.hmc, recenter=recenter)
-    return state, SweepStats(r, s, h, rad)
-
-
 def _msolve_dtype(cfg: SimulationConfig) -> Optional[str]:
     """Estimator-refresh solve dtype: cfg.measure_solve_dtype, else
     cfg.measurement_dtype ('float32', or None for the rhs's float64)."""
@@ -247,33 +230,6 @@ def _msolve_dtype(cfg: SimulationConfig) -> Optional[str]:
 
 def _solve_opts(cfg: SimulationConfig) -> Dict:
     return dict(tol=cfg.tol, maxiter=cfg.maxiter, mixed=cfg.mixed_precision, solve_dtype=_msolve_dtype(cfg))
-
-
-class MeasuredSweep(NamedTuple):
-    state: QMCState
-    stats: SweepStats
-    update: EstimatorUpdate  # the refreshed estimator, its solve's iterations and convergence
-    out: Dict  # the measurement tree
-    t_refresh_s: float  # the `refresh` span's seconds: the refresh, synchronised
-    t_measurements_s: float  # the `measure` span's seconds: the measurement pass, synchronised
-
-
-def measured_sweep(ctx: QMCContext, state: QMCState, params: HMCParams, draws: WalkerDraws, est: GreensEstimator,
-                   spec: MeasurementSpec, cfg: SimulationConfig, recenter=None) -> MeasuredSweep:
-    """A sweep, the estimator refresh at the new field with draws.theta, and
-    the measurement pass (the JAX package's measured_step at k = 1): the
-    `update`, `refresh` and `measure` spans (`tracing`), each synchronised."""
-    with span("update"):
-        state, stats = sweep(ctx, state, params, draws, recenter)
-        sync_device(ctx.device)
-    with span("refresh") as refresh:
-        upd = update_greens_estimator(est, make_fdm(ctx, state.x), draws.theta, precond=state.precond,
-                                      **_solve_opts(cfg))
-        sync_device(ctx.device)
-    with span("measure") as measure:
-        out = make_measurements(ctx, spec, upd.estimator, state.x)
-        sync_device(ctx.device)
-    return MeasuredSweep(state, stats, upd, out, refresh.seconds, measure.seconds)
 
 
 # ----------------------------------------------------------------------
@@ -303,11 +259,6 @@ def _init_chain(tbp: TightBindingParameters, elph: ElectronPhononParameters, cfg
 
 def _hmc_params(cfg: SimulationConfig) -> HMCParams:
     return HMCParams(Nt=cfg.Nt, dt=cfg.hmc_dt, jitter=cfg.hmc_jitter, integrator=cfg.hmc_integrator)
-
-
-def _as_lists(st: SweepStats) -> SweepStats:
-    """One chain's sweep stats as a walker batch's (lists of one)."""
-    return SweepStats([st.reflection], [st.swap], [st.hmc], None if st.radial is None else [st.radial])
 
 
 # a sweep's row a walker (`_walker_rows`): the acceptance flags and iteration
@@ -374,15 +325,15 @@ class _Pass(NamedTuple):
 
 
 class _Chains:
-    """The run's Markov chains. W = 1: one chain whose every draw comes from
-    the generator seeded with cfg.seed (a KPM preconditioner's initial start
-    vector its first draw). W >= 2: W walkers, each with a generator seeded
-    from (cfg.seed, w) whose first draws jitter its initial field (0.1
-    N(0, 1)), sweeping through walker_sweep with the shared refresh and its
-    fallback controller. This process runs the walkers `owned`: its block of
-    pIDs in a fleet (`local_walker_ids`), all W otherwise; what the walkers
-    share is gathered from every process. `mu` is None (the
-    model's mu, the context untouched), a float (W = 1) or the owned walkers'
+    """The run's Markov chains: a batch of W walkers (`states`, fields (owned
+    walkers, n_phonon, Ltau)), each with its generator (`gens`), swept by
+    walker_sweep and measured by walker_measure. This process runs the
+    walkers `owned`: its block of pIDs in a fleet (`local_walker_ids`), all
+    W otherwise; what the walkers share is gathered from every process. At
+    W >= 2 walker w's generator is seeded from (cfg.seed, w) and its first
+    draws jitter its initial field (0.1 N(0, 1)); the shared refresh and its
+    fallback controller run. `mu` is None (the model's mu, the context
+    untouched), a float (the scalar tuner's, W = 1) or the owned walkers'
     float64 values; `dt` is the HMC timestep."""
 
     def __init__(self, ctx: QMCContext, state: QMCState, gen: torch.Generator, cfg: SimulationConfig,
@@ -392,8 +343,8 @@ class _Chains:
         self.mu = None
         self.dt = params.timestep()
         self.owned = list(local_walker_ids(self.W))
-        if self.W == 1:
-            self.gens, self.state = [gen], state
+        if self.W == 1:  # the one-chain run: every draw from `gen` (seeded with cfg.seed), the field unjittered
+            self.gens, self.states = [gen], WalkerStates(x=state.x[None], precond=[state.precond])
             return
         self.gens = [torch.Generator(device="cpu").manual_seed(walker_seed(cfg.seed, w)) for w in self.owned]
         noise = torch.stack([0.1 * torch.randn(tuple(state.x.shape), generator=g, dtype=torch.float64)
@@ -407,51 +358,34 @@ class _Chains:
 
     @property
     def x(self) -> torch.Tensor:
-        """(n_phonon, Ltau) at W = 1, (owned walkers, n_phonon, Ltau) at W >= 2."""
-        return self.state.x if self.W == 1 else self.states.x
+        """The owned walkers' fields; at W = 1 the chain's (n_phonon, Ltau),
+        the shape of run_updates' x_final."""
+        return self.states.x[0] if self.W == 1 else self.states.x
 
     @property
-    def preconds(self) -> list:
-        """The owned walkers' preconditioners (one at W = 1)."""
-        return [self.state.precond] if self.W == 1 else list(self.states.precond)
+    def mus(self) -> Optional[torch.Tensor]:
+        """The owned walkers' mu as the walker functions take it: None or
+        (owned walkers,) float64."""
+        return None if self.mu is None else torch.as_tensor(self.mu, dtype=torch.float64).reshape(-1)
 
     def _params(self) -> HMCParams:
         return self.params if self.cfg.target_acceptance is None else dataclasses.replace(self.params, dt=self.dt)
 
-    def context(self, i: int = 0) -> QMCContext:
-        """The context at the mu of the i-th owned walker."""
-        if self.mu is None:
-            return self.ctx
-        return with_mu(self.ctx, self.mu if self.W == 1 else self.mu[i])
-
-    def _sweep(self, est: Optional[GreensEstimator], use_shared: Optional[bool]):
+    def _sweep(self, est: Optional[GreensEstimator], use_shared: bool):
         """Draw and run one sweep (theta drawn with an estimator). Returns
         (thetas, SweepStats), lists over the owned walkers."""
         params, radial = self._params(), self.cfg.use_radial_updates
-        if self.W == 1:
-            draws = draw_walker(self.gens[0], self.ctx, self.state.precond, params, est, radial)
-            with span("update"):
-                self.state, st = sweep(self.context(), self.state, params, draws, self.recenter)
-            return [draws.theta], _as_lists(st)
         draws = [draw_walker(g, self.ctx, self.states.precond[i], params, est, radial)
                  for i, g in enumerate(self.gens)]
         v_shared = draw_shared(self.shared_gen, self.ctx, self.states.precond[0]) if use_shared else None
         self.states, st = walker_sweep(self.ctx, self.states, params, draws, shared_precond=use_shared,
-                                       mus=self.mu, recenter=self.recenter, v_shared=v_shared)
+                                       mus=self.mus, recenter=self.recenter, v_shared=v_shared)
         return [d.theta for d in draws], st
 
-    def _measured(self, est: GreensEstimator, spec: MeasurementSpec, use_shared: Optional[bool]) -> _Pass:
+    def _measured(self, est: GreensEstimator, spec: MeasurementSpec, use_shared: bool) -> _Pass:
         """A sweep, each walker's estimator refresh and measurement pass."""
-        if self.W == 1:
-            draws = draw_walker(self.gens[0], self.ctx, self.state.precond, self._params(), est,
-                                self.cfg.use_radial_updates)
-            one = measured_sweep(self.context(), self.state, self._params(), draws, est, spec, self.cfg,
-                                 self.recenter)
-            self.state, stats = one.state, _as_lists(one.stats)
-            m = WalkerMeasurement([one.out], [one.update], one.t_refresh_s, one.t_measurements_s)
-        else:
-            thetas, stats = self._sweep(est, use_shared)
-            m = walker_measure(self.ctx, spec, self.states, est, thetas, self.mu, **_solve_opts(self.cfg))
+        thetas, stats = self._sweep(est, use_shared)
+        m = walker_measure(self.ctx, spec, self.states, est, thetas, self.mus, **_solve_opts(self.cfg))
         return _Pass(stats, m.updates, m.outs, gather_walkers(_walker_rows(stats, m.updates)), m.t_refresh_s,
                      m.t_measurements_s)
 
@@ -461,8 +395,9 @@ class _Chains:
         W >= 2 the fallback controller chooses the refresh once for the batch
         and, once the batch is through, records the last sweep's walker-mean
         trajectory iteration count, as the JAX package's batched walker sweep
-        feeds it: its own counters count batches, `fallback` counts sweeps."""
-        use_shared = None if self.W == 1 else self.cfg.shared_precond and self.pc.choose()
+        feeds it: its own counters count batches, `fallback` counts sweeps.
+        At W = 1 each trajectory refreshes the chain's own preconditioner."""
+        use_shared = self.W > 1 and self.cfg.shared_precond and self.pc.choose()
         for _ in range(k):
             if spec is not None:
                 res = self._measured(est, spec, use_shared)
@@ -476,31 +411,28 @@ class _Chains:
 
     def refresh(self, est: GreensEstimator, thetas) -> List[EstimatorUpdate]:
         """Each owned walker's estimator refresh at its field, mu and preconditioner."""
-        if self.W == 1:
-            return [update_greens_estimator(est, make_fdm(self.context(), self.state.x), thetas[0],
-                                            precond=self.state.precond, **_solve_opts(self.cfg))]
-        return walker_refresh(self.ctx, self.states, est, thetas, self.mu, **_solve_opts(self.cfg))
+        return walker_refresh(self.ctx, self.states, est, thetas, self.mus, **_solve_opts(self.cfg))
 
     def fold_kpm(self, metadata: Dict) -> None:
-        fold_kpm_diagnostics(metadata, self.preconds)
+        fold_kpm_diagnostics(metadata, self.states.precond)
 
     def state_dict(self) -> Dict:
         """The chains' checkpoint: fields, preconditioner(s), generator
         state(s) and, at W >= 2, the fallback controller (the owned walkers'
         in a fleet)."""
-        if self.W == 1:
-            return {"x": self.state.x, "precond": self.state.precond, "generator": self.gens[0].get_state()}
+        if self.W == 1:  # the one-chain checkpoint's keys and shapes, which older checkpoints and readers have
+            return {"x": self.x, "precond": self.states.precond[0], "generator": self.gens[0].get_state()}
         return {"x": self.states.x, "precond": list(self.states.precond),
                 "generator": [g.get_state() for g in self.gens], "controller": self.pc.state_dict(),
                 "fallback": self.fallback, "shared_generator": self.shared_gen.get_state()}
 
     def load_state(self, s: Dict) -> None:
         x = torch.as_tensor(s["x"], device=self.ctx.device)
-        if self.W == 1:
-            self.state = QMCState(x=x, precond=s["precond"])
+        if self.W == 1:  # state_dict's one-chain form
+            self.states = WalkerStates(x=x[None], precond=[s["precond"]])
             self.gens[0].set_state(torch.as_tensor(s["generator"]))
             return
-        self.states = dataclasses.replace(self.states, x=x, precond=list(s["precond"]))
+        self.states = WalkerStates(x=x, precond=list(s["precond"]))
         for g, gs in zip(self.gens, s["generator"]):
             g.set_state(torch.as_tensor(gs))
         self.pc.load_state(s["controller"])

@@ -1,5 +1,6 @@
 """Walker batching: W independent Markov chains on one device (port of
-the JAX package's parallel/walkers.py without the device mesh).
+the JAX package's parallel/walkers.py without the device mesh). Every run of
+the driver sweeps through here, its one-chain run (W = 1) as a batch of one.
 
 The JAX package vmaps one traced sweep over a leading walker axis. Here the
 axis is written out: the field is (W, n_phonon, Ltau); reflection, swap and
@@ -16,10 +17,16 @@ walkers' exp_nV planes with a walker stride) and its measurements use it,
 and the shared refresh uses the walker-mean mu. Draws are per walker
 (`WalkerDraws`), so a walker's chain does not depend on W.
 
+Without the shared preconditioner (and always at W = 1) each walker
+refreshes its own preconditioner at trajectory start and runs its own
+trajectory: the JAX package's one-chain sweep, walker by walker.
+
 `walker_measure` refreshes each walker's Green's estimator (one K2 launch of
 2 Nrv systems at that walker's fermion matrix: K2 takes one fermion matrix a
 launch; with a KPM preconditioner or complex hoppings the CG path with the
-walker's preconditioner) and takes its measurement pass.
+walker's preconditioner) and takes its measurement pass. The `update`,
+`refresh` and `measure` spans (`tracing`) each end with a device sync, so
+each times its work until the device has finished it.
 """
 
 from __future__ import annotations
@@ -94,18 +101,13 @@ def draw_walker(gen: torch.Generator, ctx: QMCContext, precond=None, params: Opt
 
 class SweepStats(tuple):
     """A sweep's update stats in the order the updates ran: (reflection,
-    swap, hmc), with radial after swap when the sweep ran one; each entry one
-    stats tuple at W = 1, a list over walkers from walker_sweep."""
+    swap, hmc), with radial after swap when the sweep ran one; each entry a
+    list over walkers."""
 
     def __new__(cls, reflection, swap, hmc, radial=None):
         self = super().__new__(cls, (reflection, swap) + (() if radial is None else (radial,)) + (hmc,))
         self.reflection, self.swap, self.hmc, self.radial = reflection, swap, hmc, radial
         return self
-
-    @property
-    def converged(self) -> bool:
-        """Every update converged (at W = 1)."""
-        return all(s.converged for s in self)
 
 
 def init_walker_states(ctx: QMCContext, base_state: QMCState, noise: torch.Tensor) -> WalkerStates:
@@ -244,7 +246,7 @@ def walker_sweep(ctx: QMCContext, states: WalkerStates, params: HMCParams, draws
     block, and the shared refresh and the W >= 2 test take every process's
     walkers (`distributed.gather_walkers`). Returns (states, SweepStats of
     lists over this block's walkers). The sweep is the `update` span
-    (`tracing`)."""
+    (`tracing`), closed once the device has finished the sweep."""
     with span("update"):
         W = states.n_walkers
         shared = shared_precond and states.precond[0] is not None
@@ -275,13 +277,19 @@ def walker_sweep(ctx: QMCContext, states: WalkerStates, params: HMCParams, draws
             batch_ctx = ctx if mus is None else with_mu(ctx, mus)
             st, hs = hmc_update(batch_ctx, QMCState(x=torch.stack(xs), precond=pres[0]), params,
                                 [d.hmc for d in draws], recenter=recenter)
-            return WalkerStates(x=st.x, precond=[st.precond] * W), SweepStats(rs, ss, hs, rads)
-        hs = []
-        for w in range(W):
-            st, h = hmc_update(ctxs[w], QMCState(x=xs[w], precond=pres[w]), params, draws[w].hmc, recenter=recenter)
-            xs[w], pres[w] = st.x, st.precond
-            hs.append(h)
-        return WalkerStates(x=torch.stack(xs), precond=pres), SweepStats(rs, ss, hs, rads)
+            states = WalkerStates(x=st.x, precond=[st.precond] * W)
+        else:
+            hs = []
+            for w in range(W):
+                st, h = hmc_update(ctxs[w], QMCState(x=xs[w], precond=pres[w]), params, draws[w].hmc,
+                                   recenter=recenter)
+                xs[w], pres[w] = st.x, st.precond
+                hs.append(h)
+            # a one-chain run (one walker over every process) keeps its field's layout: a stacked
+            # copy would send its elementwise CPU ops down other (vectorized) paths and move its last bits
+            states = WalkerStates(x=torch.stack(xs) if W * process_count() > 1 else xs[0][None], precond=pres)
+        sync_device(ctx.device)
+    return states, SweepStats(rs, ss, hs, rads)
 
 
 def walker_refresh(ctx: QMCContext, states: WalkerStates, est: GreensEstimator, thetas: Sequence[torch.Tensor],
@@ -315,9 +323,7 @@ def walker_measure(ctx: QMCContext, spec, states: WalkerStates, est: GreensEstim
                    mus: Optional[torch.Tensor] = None, **solve) -> WalkerMeasurement:
     """Refresh each walker's estimator (walker_refresh) and take its
     measurement pass with its own context: the measured half of the driver's
-    W >= 2 measured sweep, timed by the `refresh` and `measure` spans
-    (`tracing`)."""
-    sync_device(ctx.device)
+    measured sweep, timed by the `refresh` and `measure` spans (`tracing`)."""
     with span("refresh") as refresh:
         upds = walker_refresh(ctx, states, est, thetas, mus, **solve)
         sync_device(ctx.device)

@@ -26,9 +26,10 @@ tree:
   choice to the end of its accumulation and tuning (one sweep at
   `sweeps_per_dispatch` 1), closed before the bin's yield and the
   checkpoint decision;
-  - `update`: the update sweep of every walker (`driver.sweep` with the
-    sync after it in `measured_sweep`; `parallel.walkers.walker_sweep`
-    with the shared preconditioner refresh);
+  - `update`: the update sweep of every walker (`walker_sweep` of
+    `parallel.walkers`, the shared preconditioner refresh included, at every
+    W and in every phase), synchronised: it closes once the device has
+    finished the sweep;
     - `radial`: one walker's radial move (`updates.global_updates.
       radial_update`, with `use_radial_updates`), id `walker`;
     - `force`: one trajectory force evaluation (a kick) of every walker the

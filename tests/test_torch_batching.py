@@ -96,13 +96,8 @@ class _Spy:
 
     def __enter__(self):
         self.flags, self.ks = [], []
-        self._orig = (driver.sweep, driver.walker_sweep, driver._Chains.batch)
-        one, walkers, batch = self._orig
-
-        def spy_one(*args, **kw):
-            state, st = one(*args, **kw)
-            self.flags.append(tuple(bool(s.accepted) for s in st))
-            return state, st
+        self._orig = (driver.walker_sweep, driver._Chains.batch)
+        walkers, batch = self._orig
 
         def spy_walkers(*args, **kw):
             states, st = walkers(*args, **kw)
@@ -113,11 +108,11 @@ class _Spy:
             self.ks.append(k)
             return batch(chains, k, *args, **kw)
 
-        driver.sweep, driver.walker_sweep, driver._Chains.batch = spy_one, spy_walkers, spy_batch
+        driver.walker_sweep, driver._Chains.batch = spy_walkers, spy_batch
         return self
 
     def __exit__(self, *exc):
-        driver.sweep, driver.walker_sweep, driver._Chains.batch = self._orig
+        driver.walker_sweep, driver._Chains.batch = self._orig
 
 
 def _model():

@@ -33,14 +33,17 @@ from smoqyelphqmc_tpu.measure import greens_estimator as jge
 from smoqyelphqmc_tpu.updates import global_updates as jglobal
 from smoqyelphqmc_tpu.updates import hmc as jhmc
 from smoqyelphqmc_tpu.updates.context import make_fdm as jmake_fdm
-from smoqyelphqmc_tpu_torch.driver import SimulationConfig, measured_sweep, run_simulation
+from smoqyelphqmc_tpu_torch.driver import SimulationConfig, _expand, _solve_opts, run_simulation
+from smoqyelphqmc_tpu_torch.io.checkpoint import read_checkpoint
 from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
 from smoqyelphqmc_tpu_torch.measure.container import MeasurementAccumulator
 from smoqyelphqmc_tpu_torch.measure.greens_estimator import build_greens_estimator
 from smoqyelphqmc_tpu_torch.models.library import holstein_honeycomb_model, holstein_honeycomb_spec
+from smoqyelphqmc_tpu_torch.ops.kpm import KPMPreconditioner
 from smoqyelphqmc_tpu_torch.ops.mtm import MTM
 from smoqyelphqmc_tpu_torch.ops.pcg import PCG
-from smoqyelphqmc_tpu_torch.parallel.walkers import WalkerDraws
+from smoqyelphqmc_tpu_torch.ops.spectral_precond import SpectralPreconditioner
+from smoqyelphqmc_tpu_torch.parallel.walkers import WalkerDraws, WalkerStates, walker_measure, walker_sweep
 from smoqyelphqmc_tpu_torch.updates.global_updates import _candidate_modes, _type_pairs
 from smoqyelphqmc_tpu_torch.updates.hmc import HMCParams
 
@@ -62,10 +65,11 @@ def test_tutorial_spec_matches_examples():
 
 def test_measured_sweeps_match_jax_draws():
     """Two measured sweeps (reflection + swap + HMC, the f32 estimator
-    refresh, the tutorial measurement pass) from the same state with the JAX
-    package's draws and phases, against the JAX package's functions composed
-    as its driver's measured_step: the same accept flags, the end field, and
-    the bin of the two passes."""
+    refresh, the tutorial measurement pass) of the walker path at W = 1, the
+    driver's one-chain run, from the same state with the JAX package's draws
+    and phases, against the JAX package's functions composed as its driver's
+    measured_step: the same accept flags, the end field, and the bin of the
+    two passes."""
     jctx, jstate, pctx, pstate = _both_chains(seed=6, L=2, beta=0.6, alpha=0.5)
     geo = holstein_honeycomb_model(2, 1.0, 0.5, 0.0)[0]
     jspec, pspec = jax_holstein_honeycomb_spec(geo), holstein_honeycomb_spec(geo)
@@ -90,6 +94,7 @@ def test_measured_sweeps_match_jax_draws():
     key = jstate.key
     L, N, n_ph, n_cells = jctx.Ltau, jctx.n_sites, jctx.elph.n_phonon, jctx.elph.n_cells
     jacc, pacc = jcontainer.MeasurementAccumulator(jspec), MeasurementAccumulator(pspec)
+    pstates = WalkerStates(x=pstate.x[None], precond=[pstate.precond])
     for _ in range(2):
         rd, key = _reflection_draws(key, len(_candidate_modes(pctx, None)), L, N)
         sd, key = _swap_draws(key, len(_type_pairs(pctx, None)), n_cells, L, N)
@@ -97,15 +102,16 @@ def test_measured_sweeps_match_jax_draws():
         _, sub = jax.random.split(key_host)
         theta = t64(np64(jax.random.uniform(sub, (Nrv, L, N), maxval=2.0 * np.pi)))
         jstate, jest, key_host, jout, jflags = jax_measured(jstate, jest, key_host)
-        m = measured_sweep(pctx, pstate, HMCParams(Nt=Nt), WalkerDraws(rd, sd, hd, theta), pest, pspec, cfg)
-        pstate, pest = m.state, m.update.estimator
-        assert [st.accepted for st in m.stats] == [bool(f) for f in np.asarray(jflags)]
-        assert m.stats.converged and bool(m.update.converged)
+        pstates, st = walker_sweep(pctx, pstates, HMCParams(Nt=Nt), [WalkerDraws(rd, sd, hd)], shared_precond=False)
+        m = walker_measure(pctx, pspec, pstates, pest, [theta], **_solve_opts(cfg))
+        pest = m.updates[0].estimator
+        assert [ups[0].accepted for ups in st] == [bool(f) for f in np.asarray(jflags)]
+        assert all(ups[0].converged for ups in st) and bool(m.updates[0].converged)
         jacc.accumulate(jout)
-        pacc.accumulate(m.out)
+        pacc.accumulate(m.outs[0])
     np.testing.assert_array_equal(np.asarray(key), np.asarray(jstate.key))
     xj = np64(jstate.x)
-    assert np.max(np.abs(pstate.x.numpy() - xj)) <= 1e-6 * np.max(np.abs(xj))
+    assert np.max(np.abs(pstates.x[0].numpy() - xj)) <= 1e-6 * np.max(np.abs(xj))
     jbin, pbin = jacc.finalize_bin(), pacc.finalize_bin()
     for cat in jbin:
         assert sorted(pbin[cat]) == sorted(jbin[cat])  # a jitted tree comes back with sorted keys
@@ -212,6 +218,41 @@ def test_resume_is_bit_identical(tmp_path, interrupts):
         np.testing.assert_array_equal(got[k], ref[k], err_msg=str(k))
     for k in ("hmc_acceptance_rate", "reflection_iters", "swap_iters", "hmc_iters", "measurement_iters"):
         assert md[k] == ref_md[k], k
+
+
+@pytest.mark.parametrize("options", [dict(preconditioner="spectral"), dict(preconditioner="kpm"),
+                                     dict(preconditioner="spectral", target_density=1.0)],
+                         ids=["spectral", "kpm", "target_density"])
+def test_one_chain_checkpoint_keeps_its_form(tmp_path, options):
+    """The one-chain (W = 1) checkpoint keeps its form: the field x
+    (n_phonon, Ltau), one preconditioner, one generator state, the scalar mu
+    tuner's floats, and none of the walker batch's keys (controller,
+    fallback, shared_generator). The run stopped there and resumed yields
+    the uninterrupted run's bins, acceptance and final mu bit for bit (KPM
+    draws its Lanczos start vector from the chain's generator)."""
+    tbm, em, spec = _model()
+    cfg = _config(seed=34, **options)
+    ref_info = SimulationInfo(filepath=str(tmp_path), datafolder_prefix="uninterrupted", sID=1)
+    ref_md = run_simulation(ref_info, tbm, em, spec, cfg, device="cpu")
+    info = SimulationInfo(filepath=str(tmp_path), datafolder_prefix="interrupted", sID=1)
+    stop = dataclasses.replace(cfg, checkpoint_freq_hours=0.0, runtime_limit_hours=0.0)
+    run_simulation(info, tbm, em, spec, stop, device="cpu")
+    state = read_checkpoint(info.datafolder, 0)["state"]
+    x0 = _expand(tbm, em, cfg, torch.device("cpu"))[1].x
+    assert {"x", "precond", "generator"} <= set(state)
+    assert not {"controller", "fallback", "shared_generator"} & set(state)
+    assert state["x"].shape == tuple(x0.shape) and state["generator"].ndim == 1 and state["walkers"] == [0]
+    pre = KPMPreconditioner if options["preconditioner"] == "kpm" else SpectralPreconditioner
+    assert isinstance(state["precond"], pre)
+    assert (state["tuner"] is None) == ("target_density" not in options)
+    assert state["tuner"] is None or all(isinstance(v, float) for v in state["tuner"].values())
+    md = run_simulation(info, tbm, em, spec, dataclasses.replace(stop, runtime_limit_hours=np.inf), device="cpu")
+    got, ref = _bins(info.datafolder), _bins(ref_info.datafolder)
+    assert ref and set(got) == set(ref)
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=str(k))
+    for k in ("hmc_acceptance_rate", "hmc_iters", "measurement_iters", "final_mu"):
+        assert md.get(k) == ref_md.get(k), k
 
 
 @pytest.mark.parametrize("field,value,key", [

@@ -39,7 +39,7 @@ from smoqyelphqmc_tpu.updates import global_updates as jglobal
 from smoqyelphqmc_tpu.updates import hmc as jhmc
 from smoqyelphqmc_tpu.updates.context import make_fdm as jmake_fdm
 from smoqyelphqmc_tpu_torch import convert
-from smoqyelphqmc_tpu_torch.driver import SimulationConfig, measured_sweep, run_simulation
+from smoqyelphqmc_tpu_torch.driver import SimulationConfig, _solve_opts, run_simulation
 from smoqyelphqmc_tpu_torch.io.simulation_info import SimulationInfo
 from smoqyelphqmc_tpu_torch.measure.container import MeasurementAccumulator
 from smoqyelphqmc_tpu_torch.measure.greens_estimator import build_greens_estimator
@@ -48,7 +48,7 @@ from smoqyelphqmc_tpu_torch.ops.force import FORCE
 from smoqyelphqmc_tpu_torch.ops.mtm import MTM
 from smoqyelphqmc_tpu_torch.ops.pcg import PCG
 from smoqyelphqmc_tpu_torch.ops.pcg_force import PCG_FORCE
-from smoqyelphqmc_tpu_torch.parallel.walkers import WalkerDraws
+from smoqyelphqmc_tpu_torch.parallel.walkers import WalkerDraws, WalkerStates, walker_measure, walker_sweep
 from smoqyelphqmc_tpu_torch.updates.context import initialize_qmc
 from smoqyelphqmc_tpu_torch.updates.global_updates import _candidate_modes, _type_pairs
 from smoqyelphqmc_tpu_torch.updates.hmc import HMCParams, hmc_update
@@ -89,9 +89,9 @@ def assert_bins_match(jbin, pbin, tag=""):
 def test_measured_ssh_sweeps_match_jax_draws():
     """Two measured sweeps (reflection + swap + HMC, the f32 estimator
     refresh, the SSH examples' measurement pass) of the optical-SSH
-    honeycomb from the same state with the JAX package's draws and phases:
-    the same accept flags, Delta H, end field and bin (ssh_energy
-    included); K3 and K4 never run."""
+    honeycomb, through the walker path at W = 1, from the same state with
+    the JAX package's draws and phases: the same accept flags, Delta H, end
+    field and bin (ssh_energy included); K3 and K4 never run."""
     geo, tbm, jctx, jstate, pctx, pstate = ssh_chains()
     jspec = jexamples.basic_spec(geo, bond_ids=list(tbm.bond_ids))
     pspec = library.basic_spec(geo, bond_ids=list(tbm.bond_ids))
@@ -116,6 +116,7 @@ def test_measured_ssh_sweeps_match_jax_draws():
     key = jstate.key
     L, N, n_ph, n_cells = jctx.Ltau, jctx.n_sites, jctx.elph.n_phonon, jctx.elph.n_cells
     jacc, pacc = jcontainer.MeasurementAccumulator(jspec), MeasurementAccumulator(pspec)
+    pstates = WalkerStates(x=pstate.x[None], precond=[pstate.precond])
     k34 = (PCG_FORCE.plain_calls, FORCE.plain_calls)
     for _ in range(2):
         rd, key = _reflection_draws(key, len(_candidate_modes(pctx, None)), L, N)
@@ -124,17 +125,18 @@ def test_measured_ssh_sweeps_match_jax_draws():
         _, sub = jax.random.split(key_host)
         theta = t64(np64(jax.random.uniform(sub, (Nrv, L, N), maxval=2.0 * np.pi)))
         jstate, jest, key_host, jout, jflags, jdH = jax_measured(jstate, jest, key_host)
-        m = measured_sweep(pctx, pstate, HMCParams(Nt=Nt), WalkerDraws(rd, sd, hd, theta), pest, pspec, cfg)
-        pstate, pest = m.state, m.update.estimator
-        assert [st.accepted for st in m.stats] == [bool(f) for f in np.asarray(jflags)]
-        assert m.stats.converged and bool(m.update.converged)
-        assert abs(m.stats.hmc.delta_H - float(jdH)) <= 1e-5
+        pstates, st = walker_sweep(pctx, pstates, HMCParams(Nt=Nt), [WalkerDraws(rd, sd, hd)], shared_precond=False)
+        m = walker_measure(pctx, pspec, pstates, pest, [theta], **_solve_opts(cfg))
+        pest = m.updates[0].estimator
+        assert [ups[0].accepted for ups in st] == [bool(f) for f in np.asarray(jflags)]
+        assert all(ups[0].converged for ups in st) and bool(m.updates[0].converged)
+        assert abs(st.hmc[0].delta_H - float(jdH)) <= 1e-5
         jacc.accumulate(jout)
-        pacc.accumulate(m.out)
+        pacc.accumulate(m.outs[0])
     assert (PCG_FORCE.plain_calls, FORCE.plain_calls) == k34
     np.testing.assert_array_equal(np.asarray(key), np.asarray(jstate.key))
     xj = np64(jstate.x)
-    assert np.max(np.abs(pstate.x.numpy() - xj)) <= 1e-6 * np.max(np.abs(xj))
+    assert np.max(np.abs(pstates.x[0].numpy() - xj)) <= 1e-6 * np.max(np.abs(xj))
     jbin, pbin = jacc.finalize_bin(), pacc.finalize_bin()
     assert "ssh_energy" in pbin["local"] and pbin["local"]["ssh_energy"][0].shape == (3,)
     assert_bins_match(jbin, pbin)
